@@ -1,0 +1,71 @@
+"""Top-level two-stage detector, TEST branch (counterpart of
+``pointrcnn_tpu/models/point_rcnn.py``)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pointrcnn_tpu_torch.models.proposal import proposal_layer
+from pointrcnn_tpu_torch.models.rcnn import RCNNNet
+from pointrcnn_tpu_torch.models.rpn import RPN
+from pointrcnn_tpu_torch.ops.common import sqrt_rn
+from pointrcnn_tpu_torch.ops.roipool3d import roipool3d
+from pointrcnn_tpu_torch.utils.box_ops import rotate_pc_along_y
+
+
+def canonical_transform(pooled_pts, rois):
+    """Shift pooled points into each roi's frame: (B, M, S, 3), (B, M, 7)."""
+    return rotate_pc_along_y(pooled_pts - rois[..., None, 0:3], rois[..., 6])
+
+
+def num_classes_for(cfg) -> int:
+    return {"Car": 2, "Pedestrian": 2, "Cyclist": 2, "People": 3}[cfg.CLASSES]
+
+
+class PointRCNN(nn.Module):
+    """Eval forward of the two-stage detector.  Training, the offline RCNN
+    mode (``RPN.ENABLED`` False) and the TRAIN budgets are not ported."""
+
+    def __init__(self, cfg, num_classes: int | None = None, mode: str = "TEST",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if mode != "TEST":
+            raise NotImplementedError(f"mode {mode!r} (training) is not ported; only 'TEST' is")
+        if not cfg.RPN.ENABLED:
+            raise NotImplementedError("RPN.ENABLED False (offline RCNN) is not ported")
+        self.cfg, self.mode = cfg, mode
+        self.rpn = RPN(cfg, gen=generator)
+        if cfg.RCNN.ENABLED:
+            self.rcnn_net = RCNNNet(cfg, num_classes or num_classes_for(cfg), gen=generator)
+
+    def forward(self, input_data: dict) -> dict:
+        cfg = self.cfg
+        output = dict(self.rpn(input_data["pts_input"]))
+        if not cfg.RCNN.ENABLED:
+            return output
+        backbone_xyz = output["backbone_xyz"]
+        rpn_scores_raw = output["rpn_cls"][..., 0]
+        seg_mask = (torch.sigmoid(rpn_scores_raw) > cfg.RPN.SCORE_THRESH).to(torch.float32)
+        pts_depth = sqrt_rn(backbone_xyz[..., 0] * backbone_xyz[..., 0]
+                            + backbone_xyz[..., 1] * backbone_xyz[..., 1]
+                            + backbone_xyz[..., 2] * backbone_xyz[..., 2])
+
+        rois, roi_scores_raw, roi_valid = proposal_layer(
+            cfg, self.mode, rpn_scores_raw, output["rpn_reg"], backbone_xyz)
+        output.update(rois=rois, roi_scores_raw=roi_scores_raw, roi_valid=roi_valid,
+                      seg_result=seg_mask)
+
+        extra = [seg_mask[..., None]]
+        if cfg.RCNN.USE_INTENSITY and "rpn_intensity" in input_data:
+            extra.insert(0, input_data["rpn_intensity"][..., None])
+        if cfg.RCNN.USE_DEPTH:
+            extra.append((pts_depth / 70.0 - 0.5)[..., None])
+        pts_feature = torch.cat(extra + [output["backbone_features"]], dim=-1)
+        pooled, empty = roipool3d(backbone_xyz, pts_feature, rois, cfg.RCNN.POOL_EXTRA_WIDTH,
+                                  cfg.RCNN.NUM_POINTS, method=cfg.RCNN.ROIPOOL_METHOD)
+        pooled = torch.cat([canonical_transform(pooled[..., 0:3], rois), pooled[..., 3:]], dim=-1)
+        B, M = rois.shape[0], rois.shape[1]
+        output["pooled_empty_flag"] = empty
+        output.update(self.rcnn_net(pooled.reshape(B * M, cfg.RCNN.NUM_POINTS, -1)))
+        return output

@@ -1,0 +1,300 @@
+"""The PyTorch port's ops against the JAX package, on the CPU.
+
+Each plain PyTorch version of a CUDA kernel is held against the Pallas
+kernel it replaces, run in interpret mode (the ``_INTERPRET`` flag the JAX
+package's own kernel tests set), on the same numpy-seeded inputs:
+
+- FPS picks, 3-NN indices and distances, and the neighbourhood gather must
+  match bit for bit;
+- the fused gather + MLP + max matches to a stated bf16 tolerance (see
+  ``MLP_TOL``).
+
+The rest of the ported op layer (box geometry, box decoding, exact ball
+query, NMS, RoI pooling) is held against the JAX functions, exactly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pointrcnn_tpu.ops import grouping as jgrouping
+from pointrcnn_tpu.ops import nms as jnms
+from pointrcnn_tpu.ops import pallas_fps, pallas_gather, pallas_knn, pallas_mlp
+from pointrcnn_tpu.ops import roipool3d as jroipool
+from pointrcnn_tpu.utils import box_coder as jcoder
+from pointrcnn_tpu.utils import box_ops as jbox
+
+from pointrcnn_tpu_torch.ops import cuda_fps, cuda_gather, cuda_knn, cuda_mlp
+from pointrcnn_tpu_torch.ops import grouping, nms, roipool3d
+from pointrcnn_tpu_torch.utils import box_coder, box_ops
+
+# The fused kernel and its references multiply bf16 values exactly and
+# accumulate in f32, but sum in different orders (the MXU's, numpy's), so a
+# hidden activation can land on the neighbouring bf16 value (2^-8 relative)
+# and carry that into the next layer: errors are bounded relative to the
+# output's scale.
+MLP_TOL = 2.0 ** -8
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    for mod in (pallas_fps, pallas_gather, pallas_knn, pallas_mlp):
+        monkeypatch.setattr(mod, "_INTERPRET", True)
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ------------------------------------------------------------------ kernels
+
+
+@pytest.mark.parametrize("B,N,npoint", [(2, 256, 24), (8, 128, 20), (3, 384, 32)])
+def test_fps_plain_matches_pallas(B, N, npoint):
+    # B < 8 runs the striped Pallas variant, B >= 8 the plain one
+    rng = np.random.RandomState(N + B)
+    xyz = rng.uniform(-20, 20, (B, N, 3)).astype(np.float32)
+    want = np.asarray(pallas_fps.furthest_point_sample_pallas(jnp.asarray(xyz), npoint))
+    got = cuda_fps.furthest_point_sample(t(xyz), npoint)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fps_ties_take_lowest_index():
+    # duplicated points make equal running distances: the lowest index wins
+    rng = np.random.RandomState(5)
+    base = rng.uniform(-5, 5, (1, 64, 3)).astype(np.float32)
+    xyz = np.concatenate([base, base], axis=1)
+    want = np.asarray(pallas_fps.furthest_point_sample_pallas(jnp.asarray(xyz), 16))
+    got = cuda_fps.furthest_point_sample(t(xyz), 16).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[0, 1:] < 64).all()
+
+
+@pytest.mark.parametrize("n,m", [(256, 64), (512, 128)])
+def test_three_nn_plain_matches_pallas(n, m):
+    rng = np.random.RandomState(n + m)
+    unknown = rng.uniform(-30, 30, (2, n, 3)).astype(np.float32)
+    known = rng.uniform(-30, 30, (2, m, 3)).astype(np.float32)
+    known[:, 1] = known[:, 0]  # a tied pair
+    wd, wi = pallas_knn.three_nn_pallas(jnp.asarray(unknown), jnp.asarray(known))
+    gd, gi = cuda_knn.three_nn(t(unknown), t(known))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    # distances are exactly sqrt((dx*dx + dy*dy) + dz*dz) with each operation
+    # rounded, as the TPU kernel and the CUDA kernel (--fmad=false) compute
+    # them; XLA's CPU backend, which runs the interpret-mode Pallas body,
+    # contracts that sum into FMAs, so against it they agree to 1 ulp
+    d = unknown[:, :, None] - known[:, None]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    np.testing.assert_array_equal(gd.numpy(), np.sqrt(np.take_along_axis(d2, gi.numpy(), -1)))
+    np.testing.assert_array_max_ulp(gd.numpy(), np.asarray(wd), maxulp=1)
+
+
+@pytest.mark.parametrize("N,C,S,K", [(256, 24, 32, 16), (512, 8, 16, 32)])
+def test_gather_plain_matches_pallas(N, C, S, K):
+    rng = np.random.RandomState(N + K)
+    xyz = rng.uniform(-60, 60, (2, N, 3)).astype(np.float32)
+    feats = rng.randn(2, N, C).astype(np.float32)
+    new_xyz = xyz[:, :S] + rng.uniform(-1, 1, (2, S, 3)).astype(np.float32)
+    idx = rng.randint(0, N, (2, S, K)).astype(np.int32)
+    want = pallas_gather.group_points_pallas(
+        jnp.asarray(xyz), jnp.asarray(feats), jnp.asarray(new_xyz), jnp.asarray(idx))
+    want = np.asarray(want.astype(jnp.float32))
+    got = cuda_gather.group_points(t(xyz), t(feats), t(new_xyz), t(idx))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def _mlp_case(seed, B, N, C, S, K, widths, scale):
+    rng = np.random.RandomState(seed)
+    xyz = rng.uniform(-scale, scale, (B, N, 3)).astype(np.float32)
+    feats = np.maximum(rng.randn(B, N, C), 0).astype(np.float32)
+    new_xyz = xyz[:, :S] + rng.uniform(-0.2, 0.2, (B, S, 3)).astype(np.float32)
+    idx = rng.randint(0, N, (B, S, K)).astype(np.int32)
+    ws, bs, cin = [], [], 3 + C
+    for f in widths:
+        ws.append((rng.uniform(-1, 1, (cin, f)) / np.sqrt(cin)).astype(np.float32))
+        bs.append((rng.randn(f) * 0.1).astype(np.float32))
+        cin = f
+    return xyz, feats, new_xyz, idx, ws, bs
+
+
+@pytest.mark.parametrize("mode,scale", [("hilo", 40.0), ("fold", 3.0)])
+@pytest.mark.parametrize("widths", [(16, 24, 32), (32, 32)])
+def test_fused_group_mlp_plain_matches_pallas(mode, scale, widths):
+    xyz, feats, new_xyz, idx, ws, bs = _mlp_case(
+        len(widths) + int(scale), 2, 128, 20, 32, 16, widths, scale)
+    fold = mode == "fold"
+    want = np.asarray(pallas_mlp.fused_group_mlp_max(
+        jnp.asarray(xyz), jnp.asarray(feats), jnp.asarray(new_xyz), jnp.asarray(idx),
+        [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs],
+        use_xyz=True, fold_geometry=fold))
+    got = cuda_mlp.fused_group_mlp_max(
+        t(xyz), t(feats), t(new_xyz), t(idx), [t(w) for w in ws], [t(b) for b in bs],
+        fold_geometry=fold).numpy()
+    assert got.shape == want.shape == (2, 32, widths[-1])
+    s = np.abs(want).max()
+    assert np.abs(got - want).max() <= MLP_TOL * s
+
+
+def test_fused_group_mlp_operands_follow_pallas():
+    # the operand build is the JAX one: same P table, same folded geometry
+    xyz, feats, new_xyz, idx, ws, bs = _mlp_case(3, 2, 64, 12, 16, 16, (16, 16), 3.0)
+    for fold in (False, True):
+        jt, jc, *_ = pallas_mlp._prepare_operands(
+            "fold" if fold else "hilo", jnp.asarray(xyz), jnp.asarray(feats),
+            jnp.asarray(new_xyz), [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+        tt, tc, *_ = cuda_mlp.prepare_operands(
+            fold, t(xyz), t(feats), t(new_xyz), [t(w) for w in ws], [t(b) for b in bs])
+        jt = np.asarray(jt.astype(jnp.float32))[..., :16]
+        tt = tt.float().numpy()
+        # P (hilo) is a bf16 round of a short f32 dot; fold adds xyz @ w0x
+        # before that round, which can move a value by one bf16 step
+        np.testing.assert_allclose(tt, jt, rtol=2.0 ** -7, atol=1e-6)
+        if fold:
+            np.testing.assert_allclose(tc.numpy(), np.asarray(jc)[..., :16], rtol=1e-5, atol=1e-6)
+
+
+def test_fused_mlp_max_matches_jax():
+    rng = np.random.RandomState(9)
+    x = rng.randn(2, 8, 16, 11).astype(np.float32)
+    ws = [rng.randn(11, 16).astype(np.float32) * 0.3, rng.randn(16, 8).astype(np.float32) * 0.3]
+    bs = [rng.randn(16).astype(np.float32) * 0.1, rng.randn(8).astype(np.float32) * 0.1]
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        want = np.asarray(pallas_mlp.fused_mlp_max(
+            jnp.asarray(x), [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs], jdt))
+        got = cuda_mlp.fused_mlp_max(t(x), [t(w) for w in ws], [t(b) for b in bs], dt).numpy()
+        tol = 1e-5 if dt == torch.float32 else MLP_TOL
+        assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def test_kernels_reject_unsupported_devices():
+    x = torch.zeros((1, 8, 3), device="meta")
+    with pytest.raises(ValueError):
+        cuda_fps.furthest_point_sample(x, 4)
+    with pytest.raises(ValueError):
+        cuda_knn.three_nn(x, x)
+
+
+# -------------------------------------------------------------- op layer
+
+
+def _boxes(rng, n):
+    b = np.zeros((n, 7), np.float32)
+    b[:, 0] = rng.uniform(-30, 30, n)
+    b[:, 1] = rng.uniform(0, 2, n)
+    b[:, 2] = rng.uniform(2, 60, n)
+    b[:, 3:6] = rng.uniform(1, 4, (n, 3))
+    b[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    return b
+
+
+def test_box_ops_match_jax():
+    rng = np.random.RandomState(11)
+    boxes = _boxes(rng, 40)
+    pts = rng.uniform(-35, 35, (300, 3)).astype(np.float32)
+    pts[:, 2] = np.abs(pts[:, 2])
+    np.testing.assert_array_equal(box_ops.boxes3d_to_bev(t(boxes)).numpy(),
+                                  np.asarray(jbox.boxes3d_to_bev(jnp.asarray(boxes))))
+    np.testing.assert_array_equal(box_ops.enlarge_box3d(t(boxes), 1.0).numpy(),
+                                  np.asarray(jbox.enlarge_box3d(jnp.asarray(boxes), 1.0)))
+    np.testing.assert_array_equal(box_ops.points_in_boxes3d(t(pts), t(boxes)).numpy(),
+                                  np.asarray(jbox.points_in_boxes3d(jnp.asarray(pts), jnp.asarray(boxes))))
+    pc = rng.randn(5, 20, 6).astype(np.float32)
+    ang = rng.uniform(-3, 3, 5).astype(np.float32)
+    np.testing.assert_array_equal(
+        box_ops.rotate_pc_along_y(t(pc), t(ang)).numpy(),
+        np.asarray(jbox.rotate_pc_along_y(jnp.asarray(pc), jnp.asarray(ang))))
+
+
+@pytest.mark.parametrize("rois", [False, True])
+def test_decode_bbox_target_matches_jax(rois):
+    rng = np.random.RandomState(13)
+    n = 200
+    C = box_coder.reg_channel_count(3.0, 0.5, 12, True)
+    assert C == jcoder.reg_channel_count(3.0, 0.5, 12, True)
+    # bf16-valued regressions, as the bf16 heads produce: many tied bins
+    reg = np.asarray(jnp.asarray(rng.randn(n, C).astype(np.float32) * 0.01)
+                     .astype(jnp.bfloat16).astype(jnp.float32))
+    anchor_pts = _boxes(rng, n) if rois else rng.uniform(-30, 30, (n, 3)).astype(np.float32)
+    anchor = np.array([1.52, 1.63, 3.88], np.float32)
+    kw = dict(loc_scope=3.0, loc_bin_size=0.5, num_head_bin=12, get_xz_fine=True)
+    want = np.asarray(jcoder.decode_bbox_target(jnp.asarray(anchor_pts), jnp.asarray(reg),
+                                                anchor_size=jnp.asarray(anchor), **kw))
+    got = box_coder.decode_bbox_target(t(anchor_pts), t(reg), anchor_size=t(anchor), **kw).numpy()
+    if rois:
+        # the roi-frame rotation's products may be contracted into FMAs by
+        # XLA's CPU backend, which moves a coordinate by an ulp
+        np.testing.assert_allclose(got, want, rtol=0, atol=8e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("N,S", [(512, 64), (300, 40)])
+def test_exact_ball_query_matches_jax(N, S):
+    rng = np.random.RandomState(N)
+    xyz = rng.uniform(-3, 3, (2, N, 3)).astype(np.float32)
+    new_xyz = xyz[:, :S] + rng.uniform(-0.1, 0.1, (2, S, 3)).astype(np.float32)
+    new_xyz[:, 0] = 50.0  # a centroid with no neighbours: all-zero row
+    specs = [(0.3, 8), (0.8, 16), (1.5, 32)]
+    want = jgrouping.ball_query_multi(jnp.asarray(xyz), jnp.asarray(new_xyz), specs,
+                                      chunk=S, method="exact")
+    got = grouping.ball_query_multi(t(xyz), t(new_xyz), specs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got[0].numpy()[:, 0] == 0).all()
+    with pytest.raises(NotImplementedError):
+        grouping.ball_query_multi(t(xyz), t(new_xyz), specs, method="approx")
+
+
+def test_nms_bev_matches_jax():
+    rng = np.random.RandomState(17)
+    n = 300
+    boxes = _boxes(rng, n)
+    boxes[:, 0] = rng.uniform(-8, 8, n)
+    boxes[:, 2] = rng.uniform(5, 20, n)
+    bev = np.asarray(jbox.boxes3d_to_bev(jnp.asarray(boxes)))
+    scores = np.round(rng.randn(n), 1).astype(np.float32)  # many ties
+    valid = rng.rand(n) > 0.1
+    for thresh, pre, post in ((0.1, 256, 40), (0.5, 300, 400)):
+        wi, wv = jnms.nms_bev(jnp.asarray(bev), jnp.asarray(scores), thresh=thresh, pre_max=pre,
+                              post_max=post, rotated=False, valid=jnp.asarray(valid))
+        gi, gv = nms.nms_bev(t(bev), t(scores), thresh=thresh, pre_max=pre, post_max=post,
+                             valid=t(valid))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+def test_roipool3d_matches_jax():
+    rng = np.random.RandomState(19)
+    xyz = rng.uniform(-10, 10, (2, 400, 3)).astype(np.float32)
+    xyz[..., 1] = rng.uniform(-1, 2, (2, 400))
+    feats = rng.randn(2, 400, 5).astype(np.float32)
+    boxes = np.stack([_boxes(rng, 12) for _ in range(2)])
+    boxes[..., 0] = rng.uniform(-8, 8, (2, 12))
+    boxes[..., 2] = rng.uniform(-8, 8, (2, 12))
+    boxes[0, 0, :3] = [100.0, 0.0, 100.0]  # an empty box
+    wp, we = jroipool.roipool3d(jnp.asarray(xyz), jnp.asarray(feats), jnp.asarray(boxes), 1.0, 32,
+                                method="exact")
+    gp, ge = roipool3d.roipool3d(t(xyz), t(feats), t(boxes), 1.0, 32)
+    np.testing.assert_array_equal(ge.numpy(), np.asarray(we))
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    assert ge[0, 0]
+    with pytest.raises(NotImplementedError):
+        roipool3d.roipool3d(t(xyz), t(feats), t(boxes), 1.0, 32, method="approx")
+
+
+def test_three_interpolate_matches_jax():
+    rng = np.random.RandomState(23)
+    feats = rng.randn(2, 64, 7).astype(np.float32)
+    unknown = rng.uniform(-5, 5, (2, 256, 3)).astype(np.float32)
+    known = rng.uniform(-5, 5, (2, 64, 3)).astype(np.float32)
+    dist, idx = cuda_knn.three_nn(t(unknown), t(known))
+    want = np.asarray(jgrouping.three_interpolate(jnp.asarray(feats), jnp.asarray(idx.numpy()),
+                                                  jnp.asarray(dist.numpy())))
+    got = grouping.three_interpolate(t(feats), idx, dist).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
