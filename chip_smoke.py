@@ -8,14 +8,18 @@ Run from the repository root on a machine with one CUDA device:
 Phases (any failure exits non-zero and the final ``ok`` line is not printed):
 
 1. print the card (``nvidia-smi`` name and power limit) and turn TF32 off;
-2. build the four hand-written kernels from ``pointrcnn_tpu_torch/csrc``;
+2. build the six hand-written kernels from ``pointrcnn_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
-   slice's own shapes and time both;
-4. drive the slice (``pointrcnn_tpu_torch.entry``: the two-stage eval
-   forward of ``cfgs/default.yaml`` with the exact-method overrides) at
-   batch 4 x 16384 points on seeded clouds, check shapes, finiteness and
-   that every kernel launched; hold a batch-1 forward against the port's
-   plain path on the CPU; time frames/s.
+   shapes the forward gives it, time both, and compute its bound;
+4. drive the main path (``pointrcnn_tpu_torch.entry``: the two-stage eval
+   forward of ``cfgs/default.yaml`` as it stands) at batch 4 x 16384 points
+   on seeded clouds, check shapes, finiteness and that every kernel
+   launched; run a cloud with a dense z-cluster that must take the
+   full-scan fallback of the banded stage; hold a batch-1 forward against
+   the port's plain path on the CPU; time frames/s;
+5. the same for the exact-method setting (``entry.EXACT_OVERRIDES``) on
+   one cloud.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -28,6 +32,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,6 +48,28 @@ TIMED_ITERS = 10
 # neighbouring bf16 value (2^-8 relative) and carry that into the next
 # layer; the bound is relative to the output's largest magnitude
 MLP_REL_TOL = 2.0 ** -8
+
+# the H100 SXM's published peaks at 700 W (dense): memory bytes/ms, FP32
+# outside the tensor cores and bf16 tensor-core operations/ms
+PEAK_BYTES_PER_MS = 3.35e12 / 1e3
+PEAK_F32_PER_MS = 67e12 / 1e3
+PEAK_BF16_PER_MS = 989e12 / 1e3
+
+# (kernel, source, TPU kernel it replaces, counter module, counter name)
+KERNELS = (
+    ("fps", "pointrcnn_tpu_torch/csrc/fps.cu", "pointrcnn_tpu/ops/pallas_fps.py:34",
+     "cuda_fps", "launches"),
+    ("three_nn", "pointrcnn_tpu_torch/csrc/knn.cu", "pointrcnn_tpu/ops/pallas_knn.py:25",
+     "cuda_knn", "launches"),
+    ("group_gather", "pointrcnn_tpu_torch/csrc/gather.cu",
+     "pointrcnn_tpu/ops/pallas_gather.py:69", "cuda_gather", "launches"),
+    ("fused_group_mlp_max", "pointrcnn_tpu_torch/csrc/mlp.cu",
+     "pointrcnn_tpu/ops/pallas_mlp.py:84", "cuda_mlp", "launches"),
+    ("ball_query", "pointrcnn_tpu_torch/csrc/ballquery.cu",
+     "pointrcnn_tpu/ops/pallas_ballquery.py:151", "cuda_ballquery", "launches"),
+    ("ball_query_banded", "pointrcnn_tpu_torch/csrc/ballquery.cu",
+     "pointrcnn_tpu/ops/pallas_ballquery.py:229", "cuda_ballquery", "banded_launches"),
+)
 
 
 def log(msg: str) -> None:
@@ -62,6 +89,50 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+class Tally:
+    """One kernel's sums over the main path's shapes: kernel and plain ms,
+    and the bound (the larger of bytes over the memory rate and operations
+    over the peak rate of their type, per shape)."""
+
+    def __init__(self):
+        self.err = self.ms = self.plain_ms = self.bound_ms = 0.0
+        self.by = {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, ms, plain_ms, n_bytes, ops, peak_per_ms):
+        b, o = n_bytes / PEAK_BYTES_PER_MS, ops / peak_per_ms
+        self.ms, self.plain_ms = self.ms + ms, self.plain_ms + plain_ms
+        self.bound_ms += max(b, o)
+        self.by["bytes" if b >= o else "operations"] += max(b, o)
+        return max(b, o)
+
+    def row(self):
+        return {"max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
+                "bound_ms": self.bound_ms, "bound_by": max(self.by, key=self.by.get),
+                "library_ms": None}
+
+
+def counters():
+    from pointrcnn_tpu_torch.ops import (cuda_ballquery, cuda_fps, cuda_gather, cuda_knn,
+                                         cuda_mlp)
+
+    mods = {"cuda_fps": cuda_fps, "cuda_knn": cuda_knn, "cuda_gather": cuda_gather,
+            "cuda_mlp": cuda_mlp, "cuda_ballquery": cuda_ballquery}
+    return {name: (mods[mod], attr) for name, _, _, mod, attr in KERNELS}
+
+
+def reset_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+
+
 def phase_card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -77,11 +148,14 @@ def phase_card() -> str:
 def phase_build():
     from pointrcnn_tpu_torch import _build
 
-    for name, flags in (("fps", _build.NO_FMAD), ("knn", _build.NO_FMAD),
-                        ("gather", _build.NO_FMAD), ("mlp", ())):
-        t0 = time.perf_counter()
-        _build.load(name, flags)
-        log(f"build {name}.cu: {time.perf_counter() - t0:.2f} s")
+    sources = (("fps", _build.NO_FMAD), ("knn", _build.NO_FMAD), ("gather", _build.NO_FMAD),
+               ("mlp", ()), ("ballquery", _build.NO_FMAD))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for f in [pool.submit(_build.load, name, flags) for name, flags in sources]:
+            f.result()
+    log(f"build {', '.join(n + '.cu' for n, _ in sources)} in parallel: "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def _rpn_cloud(b, n, seed):
@@ -98,10 +172,15 @@ def _roi_cloud(b, n, seed):
 def check_fps():
     from pointrcnn_tpu_torch.ops import cuda_fps
 
-    err, ms, plain_ms = 0.0, 0.0, 0.0
-    for (b, n, npoint, cloud) in ((4, 16384, 4096, _rpn_cloud), (4, 4096, 1024, _rpn_cloud),
-                                  (4, 1024, 256, _rpn_cloud), (4, 256, 64, _rpn_cloud),
-                                  (400, 512, 128, _roi_cloud), (400, 128, 32, _roi_cloud)):
+    tally = Tally()
+    # (rows, N, npoint, cloud, on the main path): the default path's rows
+    # (RPN SA1 in 16 bands, SA2 in 4, SA3, SA4, RCNN SA1, SA2), then the
+    # exact setting's RPN SA1 and SA2
+    for (b, n, npoint, cloud, main) in (
+            (64, 1024, 256, _rpn_cloud, True), (16, 1024, 256, _rpn_cloud, True),
+            (4, 1024, 256, _rpn_cloud, True), (4, 256, 64, _rpn_cloud, True),
+            (400, 512, 128, _roi_cloud, True), (400, 128, 32, _roi_cloud, True),
+            (4, 16384, 4096, _rpn_cloud, False), (4, 4096, 1024, _rpn_cloud, False)):
         xyz = cloud(b, n, n)
         got = cuda_fps._launch(xyz, npoint)
         ref = cuda_fps.furthest_point_sample_plain(xyz, npoint)
@@ -109,20 +188,24 @@ def check_fps():
             raise AssertionError(f"fps {b}x{n}->{npoint}: {(got != ref).sum().item()} picks differ")
         k = cuda_ms(lambda: cuda_fps._launch(xyz, npoint), 5)
         p = cuda_ms(lambda: cuda_fps.furthest_point_sample_plain(xyz, npoint), 1)
-        ms, plain_ms = ms + k, plain_ms + p
-        log(f"fps {b}x{n}->{npoint}: exact match; kernel {k:.4f} ms, plain {p:.4f} ms")
-    # a ragged row length (masked threads), off the slice's shapes
+        # per step and point: 3 sub, 3 mul, 2 add, a min and a compare
+        ops, nb = 10.0 * b * (npoint - 1) * n, nbytes(xyz, got)
+        bound = tally.add(k, p, nb, ops, PEAK_F32_PER_MS) if main else \
+            max(nb / PEAK_BYTES_PER_MS, ops / PEAK_F32_PER_MS)
+        log(f"fps {b}x{n}->{npoint}{'' if main else ' (exact setting)'}: exact match; "
+            f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
+    # a ragged row length (masked threads), off the forward's shapes
     xyz = _roi_cloud(3, 1000, 1)
     if not torch.equal(cuda_fps._launch(xyz, 77), cuda_fps.furthest_point_sample_plain(xyz, 77)):
         raise AssertionError("fps 3x1000->77 differs")
     log("fps 3x1000->77: exact match")
-    return err, ms, plain_ms
+    return tally
 
 
 def check_knn():
     from pointrcnn_tpu_torch.ops import cuda_knn
 
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    tally = Tally()
     for n, m in ((256, 64), (1024, 256), (4096, 1024), (16384, 4096)):
         u, kn = _rpn_cloud(BATCH, n, n), _rpn_cloud(BATCH, m, m + 1)
         d, i = cuda_knn._launch(u, kn)
@@ -134,15 +217,17 @@ def check_knn():
             raise AssertionError(f"three_nn {n}x{m}: distances differ by {e}")
         k = cuda_ms(lambda: cuda_knn._launch(u, kn), 10)
         p = cuda_ms(lambda: cuda_knn.three_nn_plain(u, kn), 3)
-        ms, plain_ms = ms + k, plain_ms + p
-        log(f"three_nn B={BATCH} n={n} m={m}: exact match; kernel {k:.4f} ms, plain {p:.4f} ms")
-    return err, ms, plain_ms
+        # per pair: 3 sub, 3 mul, 2 add and a compare
+        bound = tally.add(k, p, nbytes(u, kn, d, i), 9.0 * BATCH * n * m, PEAK_F32_PER_MS)
+        log(f"three_nn B={BATCH} n={n} m={m}: exact match; kernel {k:.4f} ms, "
+            f"plain {p:.4f} ms, bound {bound:.4f} ms")
+    return tally
 
 
 def check_gather():
     from pointrcnn_tpu_torch.ops import cuda_gather
 
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    tally = Tally()
     g = torch.Generator().manual_seed(7)
     xyz = _rpn_cloud(BATCH, 4096, 11)
     feats = torch.randn((BATCH, 4096, 96), generator=g).cuda()
@@ -155,12 +240,15 @@ def check_gather():
             raise AssertionError(f"gather K={K}: {(got != ref).sum().item()} values differ")
         k = cuda_ms(lambda: cuda_gather._launch(xyz, feats, cent, idx), 20)
         p = cuda_ms(lambda: cuda_gather.group_points_plain(xyz, feats, cent, idx), 5)
-        ms, plain_ms = ms + k, plain_ms + p
-        log(f"gather N=4096 C=96 S=1024 K={K}: exact match; kernel {k:.4f} ms, plain {p:.4f} ms")
-    return err, ms, plain_ms
+        # a split, a subtraction and a cast per output value
+        bound = tally.add(k, p, nbytes(xyz, feats, cent, idx, got), 3.0 * got.numel(),
+                          PEAK_F32_PER_MS)
+        log(f"gather N=4096 C=96 S=1024 K={K}: exact match; kernel {k:.4f} ms, "
+            f"plain {p:.4f} ms, bound {bound:.4f} ms")
+    return tally
 
 
-# (name, B, N, C, S, K, widths, slice mode, cloud): the four SA shapes
+# (name, B, N, C, S, K, widths, the forward's mode, cloud): the four SA shapes
 MLP_SHAPES = (
     ("RPN SA3", 4, 1024, 256, 256, 16, (128, 196, 256), "hilo", _rpn_cloud),
     ("RPN SA3", 4, 1024, 256, 256, 32, (128, 196, 256), "hilo", _rpn_cloud),
@@ -175,7 +263,7 @@ def check_mlp():
     from pointrcnn_tpu_torch.models.layers import torch_conv_init
     from pointrcnn_tpu_torch.ops import cuda_mlp
 
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    tally = Tally()
     for name, B, N, C, S, K, widths, slice_mode, cloud in MLP_SHAPES:
         g = torch.Generator().manual_seed(N + K)
         xyz = cloud(B, N, N)
@@ -187,6 +275,9 @@ def check_mlp():
             ws.append(torch_conv_init(cin, f, g).cuda())
             bs.append((torch.randn(f, generator=g) * 0.1).cuda())
             cin = f
+        # the kernel's products: the xyz lanes of layer 0 (its feature part
+        # is the table, made before the launch) and every later layer
+        macs = 3 * widths[0] + sum(a * b for a, b in zip(widths, widths[1:]))
         for mode in ("hilo", "fold"):
             fold = mode == "fold"
             ops = cuda_mlp.prepare_operands(fold, xyz, feats, new_xyz, ws, bs)
@@ -198,14 +289,18 @@ def check_mlp():
                 raise AssertionError(f"fused mlp {name} K={K} {mode}: max err {e} vs scale {scale}")
             k = cuda_ms(lambda: cuda_mlp._launch(fold, *ops[:1], xyz, *ops[1:], idx), 10)
             p = cuda_ms(lambda: cuda_mlp.fused_group_plain(fold, *ops[:1], xyz, *ops[1:], idx), 3)
-            tag = " (slice mode)" if mode == slice_mode else ""
+            table, cent, w0x, lws, lbs = ops
+            nb = nbytes(table, None if fold else xyz, cent, w0x, *lws, *lbs, idx, got)
+            ops_n, tag = 2.0 * B * S * K * macs, ""
+            if mode == slice_mode:
+                tally.add(k, p, nb, ops_n, PEAK_BF16_PER_MS)
+                tally.err = max(tally.err, e)
+                tag = " (the forward's mode)"
+            bound = max(nb / PEAK_BYTES_PER_MS, ops_n / PEAK_BF16_PER_MS)
             log(f"fused mlp {name} B={B} N={N} C={C} S={S} K={K} {widths} {mode}{tag}: "
                 f"max err {e:.3e} (scale {scale:.3e}, tol {MLP_REL_TOL} x scale); "
-                f"kernel {k:.4f} ms, plain {p:.4f} ms")
-            err = max(err, e)
-            if mode == slice_mode:
-                ms, plain_ms = ms + k, plain_ms + p
-    # off the slice's shapes: K padded 8 -> 16, a ragged last block of
+                f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
+    # off the forward's shapes: K padded 8 -> 16, a ragged last block of
     # centroids (S=10), widths padded to 16, four layers
     g = torch.Generator().manual_seed(3)
     xyz = _roi_cloud(2, 100, 2)
@@ -224,57 +319,162 @@ def check_mlp():
         if e > MLP_REL_TOL * scale:
             raise AssertionError(f"fused mlp ragged case fold={fold}: max err {e} vs scale {scale}")
         log(f"fused mlp ragged B=2 N=100 S=10 K=8 (24, 40, 36, 20) fold={fold}: max err {e:.3e}")
-    return err, ms, plain_ms
+    return tally
 
 
-def phase_slice(results):
-    from pointrcnn_tpu_torch.entry import entry, synthetic_cloud
-    from pointrcnn_tpu_torch.ops import cuda_fps, cuda_gather, cuda_knn, cuda_mlp
+def _bq_ops(cand: float, S_total: int, W: int) -> float:
+    """Per candidate: 3 sub, 3 mul, 2 add and a compare; per centroid the
+    fold's W - 128 compares.  Ordering the kmax smallest of the 128 folded
+    lanes needs far fewer than the scan and is not counted."""
+    return 9.0 * cand + S_total * (W - 128)
 
-    modules = {"fps": cuda_fps, "three_nn": cuda_knn, "group_gather": cuda_gather,
-               "fused_group_mlp_max": cuda_mlp}
-    fwd, (model, _) = entry(batch=BATCH, device="cuda", seed=0)
-    cfg = model.cfg
-    clouds = [torch.from_numpy(synthetic_cloud(BATCH, cfg.RPN.NUM_POINTS, s)).cuda()
-              for s in CLOUD_SEEDS]
 
-    for mod in modules.values():
-        mod.launches = 0
-    outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
-    torch.cuda.synchronize()
-    counts = {name: mod.launches for name, mod in modules.items()}
-    log(f"slice forward x{len(clouds)} launches: {counts}")
+def _bq_equal(what, got, ref):
+    for name, a, b in zip(("dist2", "idx", "rel"), got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs in {(a != b).sum().item()} places")
 
-    M = cfg.TEST.RPN_POST_NMS_TOP_N
-    for s, out in zip(CLOUD_SEEDS, outs):
-        shapes = {k: tuple(out[k].shape) for k in ("rois", "rcnn_cls", "rcnn_reg")}
-        if shapes["rois"] != (BATCH, M, 7) or shapes["rcnn_cls"] != (BATCH * M, 1) \
-                or shapes["rcnn_reg"][0] != BATCH * M:
-            raise AssertionError(f"cloud {s}: bad output shapes {shapes}")
-        for k in ("rpn_cls", "rpn_reg", "rois", "rcnn_cls", "rcnn_reg"):
-            if not torch.isfinite(out[k]).all():
-                raise AssertionError(f"cloud {s}: non-finite {k}")
-        log(f"cloud {s}: shapes {shapes}, finite, {int(out['roi_valid'].sum())} valid rois")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the slice path")
-        results[name]["launches"] = n
 
-    check_against_cpu(model, synthetic_cloud(1, cfg.RPN.NUM_POINTS, 5))
+def check_ballquery():
+    """K5 and K6 against their plain versions at the forward's shapes:
+    the banded RPN SA1 stage, the full scan of RPN SA2, the full scan on
+    the sorted SA1 table (the banded stage's fallback), and a ragged pool
+    (N=2176: W halves to 128, no fold)."""
+    from pointrcnn_tpu_torch.ops import cuda_ballquery as bq
+    from pointrcnn_tpu_torch.ops.common import gather_points
+    from pointrcnn_tpu_torch.ops.sampling import _banded_fps, _zsort, furthest_point_sample
 
-    batch = {"pts_input": clouds[0]}
+    k5, k6 = Tally(), Tally()
+    kmax = 32
+
+    # RPN SA1: 16 bands of 1024 points, 4096 band-ordered centroids
+    xs, _ = _zsort(_rpn_cloud(BATCH, 16384, 21))
+    n_bands, S = 16, 4096
+    cent = gather_points(xs, _banded_fps(xs, S, n_bands)).contiguous()
+    got = bq._launch_banded(xs, cent, kmax, n_bands)
+    _bq_equal("banded 4x16384 S=4096", got, bq.ball_query_banded_plain(xs, cent, kmax, n_bands))
+    k = cuda_ms(lambda: bq._launch_banded(xs, cent, kmax, n_bands), 10)
+    p = cuda_ms(lambda: bq.ball_query_banded_plain(xs, cent, kmax, n_bands), 2)
+    Ns, cpb = 16384 // n_bands, S // n_bands
+    cand = BATCH * cpb * Ns * sum(3 - (b == 0) - (b == n_bands - 1) for b in range(n_bands))
+    bound = k6.add(k, p, nbytes(xs, cent, *got), _bq_ops(cand, BATCH * S, bq.pick_w(Ns)),
+                   PEAK_F32_PER_MS)
+    log(f"ball_query_banded B={BATCH} N=16384 bands={n_bands} S={S} k={kmax} rel: exact match; "
+        f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
+
+    # RPN SA2: 4096 points (SA1's centroids), 1024 centroids, no rel
+    x2 = _rpn_cloud(BATCH, 4096, 22)
+    c2 = gather_points(x2, furthest_point_sample(x2, 1024, method="blockwise")).contiguous()
+    # the fallback: the full scan on SA1's sorted table, with rel
+    shapes = (("SA2", x2, c2, kmax, False, True),
+              ("SA1 fallback (sorted table)", xs, cent, kmax, True, False),
+              ("ragged", _rpn_cloud(2, 2176, 23), _rpn_cloud(2, 256, 24), 16, True, False))
+    for what, x, c, kk, rel, main in shapes:
+        got = bq._launch(x, c, kk, emit_rel=rel)
+        _bq_equal(f"full scan {what}", got, bq.ball_query_plain(x, c, kk, emit_rel=rel))
+        k = cuda_ms(lambda: bq._launch(x, c, kk, emit_rel=rel), 10)
+        p = cuda_ms(lambda: bq.ball_query_plain(x, c, kk, emit_rel=rel), 2)
+        B, N = x.shape[:2]
+        nb, ops = nbytes(x, c, *got), _bq_ops(B * c.shape[1] * N, B * c.shape[1], bq.pick_w(N))
+        bound = k5.add(k, p, nb, ops, PEAK_F32_PER_MS) if main else \
+            max(nb / PEAK_BYTES_PER_MS, ops / PEAK_F32_PER_MS)
+        log(f"ball_query {what} B={B} N={N} S={c.shape[1]} k={kk}{' rel' if rel else ''}: "
+            f"exact match; kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
+    return k5, k6
+
+
+def _check_outputs(out, M, tag):
+    shapes = {k: tuple(out[k].shape) for k in ("rois", "rcnn_cls", "rcnn_reg")}
+    B = out["rois"].shape[0]
+    if shapes["rois"] != (B, M, 7) or shapes["rcnn_cls"] != (B * M, 1) \
+            or shapes["rcnn_reg"][0] != B * M:
+        raise AssertionError(f"{tag}: bad output shapes {shapes}")
+    for k in ("rpn_cls", "rpn_reg", "rois", "rcnn_cls", "rcnn_reg"):
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"{tag}: non-finite {k}")
+    log(f"{tag}: shapes {shapes}, finite, {int(out['roi_valid'].sum())} valid rois")
+
+
+def _frames_per_s(fwd, model, pts, tag):
+    batch = {"pts_input": pts}
     fwd(model, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TIMED_ITERS):
-        out = fwd(model, batch)
+        fwd(model, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    log(f"slice forward batch {BATCH}: {BATCH * TIMED_ITERS / dt:.3f} frames/s "
+    log(f"{tag} forward batch {pts.shape[0]}: {pts.shape[0] * TIMED_ITERS / dt:.3f} frames/s "
         f"({1000 * dt / TIMED_ITERS:.3f} ms per batch, {TIMED_ITERS} iterations after 1 warm-up)")
 
 
-def check_against_cpu(model, cloud):
+def thin_band_cloud(batch: int, n: int, seed: int) -> np.ndarray:
+    """A uniform cloud with half its points in a 0.3 m z-slab: the depth
+    bands over the slab are thinner than RPN SA1's largest radius (0.5 m),
+    so the banded stage must take the full-scan kernel."""
+    from pointrcnn_tpu_torch.entry import synthetic_cloud
+
+    pts = synthetic_cloud(batch, n, seed)
+    rng = np.random.RandomState(seed + 100)
+    pts[:, : n // 2, 2] = rng.uniform(30.0, 30.3, (batch, n // 2))
+    return pts
+
+
+def phase_default(launches):
+    """The main path: the eval forward of cfgs/default.yaml."""
+    from pointrcnn_tpu_torch.entry import entry, synthetic_cloud
+
+    fwd, (model, _) = entry(batch=BATCH, device="cuda", seed=0)
+    cfg = model.cfg
+    clouds = [torch.from_numpy(synthetic_cloud(BATCH, cfg.RPN.NUM_POINTS, s)).cuda()
+              for s in CLOUD_SEEDS]
+    reset_counts()
+    outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"default forward x{len(clouds)} launches: {counts}")
+    for s, out in zip(CLOUD_SEEDS, outs):
+        _check_outputs(out, cfg.TEST.RPN_POST_NMS_TOP_N, f"default, cloud {s}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the default path")
+    launches.update(counts)
+
+    thin = torch.from_numpy(thin_band_cloud(BATCH, cfg.RPN.NUM_POINTS, 9)).cuda()
+    reset_counts()
+    out = fwd(model, {"pts_input": thin})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"thin-band cloud launches: {counts}")
+    _check_outputs(out, cfg.TEST.RPN_POST_NMS_TOP_N, "default, thin-band cloud")
+    # RPN SA1 falls back to the full scan (and SA2 takes it as always)
+    if counts["ball_query_banded"] != 0 or counts["ball_query"] != 2:
+        raise AssertionError(f"the thin-band cloud did not take the full-scan fallback: {counts}")
+    log("thin-band cloud: RPN SA1 took the full-scan fallback")
+
+    check_against_cpu(model, synthetic_cloud(1, cfg.RPN.NUM_POINTS, 5), "default")
+    _frames_per_s(fwd, model, clouds[0], "default")
+
+
+def phase_exact():
+    """The exact-method setting (entry.EXACT_OVERRIDES), on one cloud."""
+    from pointrcnn_tpu_torch.entry import entry, slice_config, synthetic_cloud
+
+    fwd, (model, batch) = entry(batch=BATCH, device="cuda", seed=0, cfg=slice_config())
+    reset_counts()
+    out = fwd(model, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"exact forward launches: {counts}")
+    _check_outputs(out, model.cfg.TEST.RPN_POST_NMS_TOP_N, "exact, cloud 0")
+    for name in ("fps", "three_nn", "group_gather", "fused_group_mlp_max"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the exact path")
+    check_against_cpu(model, synthetic_cloud(1, model.cfg.RPN.NUM_POINTS, 5), "exact")
+    _frames_per_s(fwd, model, batch["pts_input"], "exact")
+
+
+def check_against_cpu(model, cloud, tag):
     """Batch-1 forward on the card against the port's plain path on the CPU
     (the path the CPU tests hold against JAX), same weights and cloud."""
     import copy
@@ -284,28 +484,28 @@ def check_against_cpu(model, cloud):
     cpu_model = copy.deepcopy(model).cpu()
     t0 = time.perf_counter()
     ref = forward(cpu_model, {"pts_input": torch.from_numpy(cloud)})
-    log(f"cpu reference forward: {time.perf_counter() - t0:.1f} s")
+    log(f"{tag}: cpu reference forward: {time.perf_counter() - t0:.1f} s")
     got = {k: v.cpu() for k, v in forward(model, {"pts_input": torch.from_numpy(cloud).cuda()}).items()}
     if not torch.equal(got["backbone_xyz"], ref["backbone_xyz"]):
-        raise AssertionError("backbone_xyz differs from the CPU reference")
+        raise AssertionError(f"{tag}: backbone_xyz differs from the CPU reference")
     for k in ("rpn_cls", "rpn_reg", "backbone_features"):
         e = (got[k] - ref[k]).abs().max().item()
         scale = ref[k].abs().max().item()
-        log(f"vs cpu {k}: max err {e:.3e} (scale {scale:.3e})")
+        log(f"{tag} vs cpu {k}: max err {e:.3e} (scale {scale:.3e})")
         if e > 0.05 * scale:
-            raise AssertionError(f"{k} differs from the CPU reference by {e} (scale {scale})")
+            raise AssertionError(f"{tag}: {k} differs from the CPU reference by {e} (scale {scale})")
     same = (got["rois"] - ref["rois"]).abs().amax(-1) < 1e-3
     frac = same.float().mean().item()
-    log(f"vs cpu rois: {frac:.3f} of rois agree within 1e-3")
+    log(f"{tag} vs cpu rois: {frac:.3f} of rois agree within 1e-3")
     if frac < 0.9:
-        raise AssertionError(f"only {frac:.3f} of rois agree with the CPU reference")
+        raise AssertionError(f"{tag}: only {frac:.3f} of rois agree with the CPU reference")
     sel = same.reshape(-1)
     for k in ("rcnn_cls", "rcnn_reg"):
         e = (got[k][sel] - ref[k][sel]).abs().max().item()
         scale = ref[k][sel].abs().max().item()
-        log(f"vs cpu {k} on agreeing rois: max err {e:.3e} (scale {scale:.3e})")
+        log(f"{tag} vs cpu {k} on agreeing rois: max err {e:.3e} (scale {scale:.3e})")
         if e > 0.05 * scale + 1e-6:
-            raise AssertionError(f"{k} differs from the CPU reference by {e} (scale {scale})")
+            raise AssertionError(f"{tag}: {k} differs from the CPU reference by {e} (scale {scale})")
 
 
 def main() -> int:
@@ -313,24 +513,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    phase_card()
+    t0 = time.perf_counter()
+    card = phase_card()
     phase_build()
-    results = {}
-    for name, fn, source, replaces in (
-        ("fps", check_fps, "pointrcnn_tpu_torch/csrc/fps.cu",
-         "pointrcnn_tpu/ops/pallas_fps.py:34"),
-        ("three_nn", check_knn, "pointrcnn_tpu_torch/csrc/knn.cu",
-         "pointrcnn_tpu/ops/pallas_knn.py:25"),
-        ("group_gather", check_gather, "pointrcnn_tpu_torch/csrc/gather.cu",
-         "pointrcnn_tpu/ops/pallas_gather.py:69"),
-        ("fused_group_mlp_max", check_mlp, "pointrcnn_tpu_torch/csrc/mlp.cu",
-         "pointrcnn_tpu/ops/pallas_mlp.py:84"),
-    ):
-        err, ms, plain_ms = fn()
-        results[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    phase_slice(results)
-    print(json.dumps({"kernels": list(results.values())}))
+    tallies = {"fps": check_fps(), "three_nn": check_knn(), "group_gather": check_gather(),
+               "fused_group_mlp_max": check_mlp()}
+    tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
+    launches = {}
+    phase_default(launches)
+    phase_exact()
+    rows = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches[name], **tallies[name].row()}
+            for name, source, replaces, _, _ in KERNELS]
+    log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

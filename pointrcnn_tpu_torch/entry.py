@@ -1,10 +1,12 @@
 """The port's counterpart of ``__graft_entry__.entry()``: the two-stage eval
-forward of ``cfgs/default.yaml`` in the slice configuration, on random
-weights drawn from a seed and a synthetic cloud.
+forward of ``cfgs/default.yaml`` on random weights drawn from a seed and a
+synthetic cloud.
 
-The slice configuration is the flagship config with the four "exact"
-method overrides below (the reference-parity setting): every other value,
-16384 points, all widths, bf16 compute and TEST 9000/100 @ 0.8, stays.
+The default is the config as it stands (blockwise FPS, the approximate
+stride-class ball query, ``auto`` roipool), as ``bench.py`` runs it.
+:data:`EXACT_OVERRIDES` turns it into the reference-parity setting (exact
+FPS, exact ball query, exact roipool); every other value, 16384 points,
+all widths, bf16 compute and TEST 9000/100 @ 0.8, stays.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
 
 _REPO = pathlib.Path(__file__).resolve().parent.parent
 
-SLICE_OVERRIDES = [
+EXACT_OVERRIDES = [
     "RPN.FPS_METHOD", "exact",
     "RPN.BALL_QUERY_METHOD", "exact",
     "RCNN.BALL_QUERY_METHOD", "exact",
@@ -27,10 +29,14 @@ SLICE_OVERRIDES = [
 ]
 
 
+def default_config(overrides: list[str] | None = None):
+    """``cfgs/default.yaml`` + ``overrides``."""
+    return load_config(str(_REPO / "cfgs" / "default.yaml"), list(overrides or []))
+
+
 def slice_config(overrides: list[str] | None = None):
-    """``cfgs/default.yaml`` + :data:`SLICE_OVERRIDES` + ``overrides``."""
-    return load_config(str(_REPO / "cfgs" / "default.yaml"),
-                       SLICE_OVERRIDES + list(overrides or []))
+    """``cfgs/default.yaml`` + :data:`EXACT_OVERRIDES` + ``overrides``."""
+    return default_config(EXACT_OVERRIDES + list(overrides or []))
 
 
 def synthetic_cloud(batch: int, n: int, seed: int = 0) -> np.ndarray:
@@ -49,10 +55,11 @@ def forward(model: PointRCNN, batch: dict) -> dict:
 
 
 def entry(batch: int = 1, device: str | torch.device | None = None, seed: int = 0, cfg=None):
-    """Return ``(forward, (model, batch_dict))`` for the slice forward on
-    ``device`` (default ``cuda``), weights drawn from ``seed``."""
+    """Return ``(forward, (model, batch_dict))`` for the eval forward of
+    ``cfg`` (default :func:`default_config`) on ``device`` (default
+    ``cuda``), weights drawn from ``seed``."""
     device = torch.device("cuda" if device is None else device)
-    cfg = slice_config() if cfg is None else cfg
+    cfg = default_config() if cfg is None else cfg
     model = PointRCNN(cfg, mode="TEST", generator=torch.Generator().manual_seed(seed))
     model = model.to(device).eval()
     pts = torch.from_numpy(synthetic_cloud(batch, cfg.RPN.NUM_POINTS, seed)).to(device)

@@ -1,5 +1,5 @@
 """PointNet++ set abstraction and feature propagation (counterpart of
-``pointrcnn_tpu/models/pointnet2.py``), eval only, exact neighbourhoods."""
+``pointrcnn_tpu/models/pointnet2.py``), eval only."""
 
 from __future__ import annotations
 
@@ -7,10 +7,13 @@ import torch
 from torch import nn
 
 from pointrcnn_tpu_torch.models.layers import SharedMLP
+from pointrcnn_tpu_torch.ops import cuda_ballquery
 from pointrcnn_tpu_torch.ops.common import gather_points
 from pointrcnn_tpu_torch.ops.grouping import (
     ball_query,
     ball_query_multi,
+    fps_group_banded,
+    fps_group_banded_supported,
     three_interpolate,
     three_nn,
 )
@@ -26,12 +29,19 @@ class SetAbstractionMSG(nn.Module):
         super().__init__()
         self.npoint, self.use_xyz = npoint, use_xyz
         self.specs = list(zip(radii, nsamples))
-        self.query_method, self.fps_method = query_method, fps_method
+        self.query_method, self.fps_method, self.dtype = query_method, fps_method, dtype
         for i, mlp in enumerate(mlps):
             self.add_module(f"SharedMLP_{i}", SharedMLP(
                 cin + (3 if use_xyz else 0), mlp, bn=bn, dtype=dtype, gen=gen))
 
     def forward(self, xyz, features):
+        if features is None and self.use_xyz and self.query_method == "approx":
+            new_xyz, rels = self._xyz_only(xyz)
+            if rels is not None:
+                dt = self.dtype or xyz.dtype
+                outs = [getattr(self, f"SharedMLP_{i}")(rel.to(dt), reduce_max=True)
+                        for i, rel in enumerate(rels)]
+                return new_xyz, torch.cat(outs, dim=-1)
         fps_idx = furthest_point_sample(xyz, self.npoint, method=self.fps_method)
         new_xyz = gather_points(xyz, fps_idx)
         idx_list = ball_query_multi(xyz, new_xyz, self.specs, method=self.query_method)
@@ -39,6 +49,20 @@ class SetAbstractionMSG(nn.Module):
                     None, group_args=(xyz, features, new_xyz, idx, self.use_xyz))
                 for i, idx in enumerate(idx_list)]
         return new_xyz, torch.cat(outs, dim=-1)
+
+    def _xyz_only(self, xyz):
+        """An xyz-only stage: the selection kernels emit the neighbourhoods'
+        relative xyz directly, banded after blockwise FPS where the shapes
+        allow, else after FPS by the full scan -> (new_xyz, rels), or
+        (None, None) when neither applies."""
+        N = xyz.shape[1]
+        nsamples = [ns for _, ns in self.specs]
+        if self.fps_method == "blockwise" and fps_group_banded_supported(N, self.npoint, nsamples):
+            return fps_group_banded(xyz, self.npoint, self.specs)
+        if cuda_ballquery.ball_query_supported(N, self.npoint, max(nsamples)):
+            new_xyz = gather_points(xyz, furthest_point_sample(xyz, self.npoint, method=self.fps_method))
+            return new_xyz, cuda_ballquery.ball_query_multi_grouped(xyz, new_xyz, self.specs)
+        return None, None
 
 
 class SetAbstraction(nn.Module):

@@ -7,6 +7,7 @@ The TPU's one-hot-matmul gathers (``gather_points`` on small tables,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,6 +19,31 @@ def split_hilo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     bits = xf.view(torch.int32)
     hi_f32 = (bits & -65536).view(torch.float32)  # 0xFFFF0000
     return hi_f32.to(torch.bfloat16), (xf - hi_f32).to(torch.bfloat16)
+
+
+def radius_sq(radius: float) -> float:
+    """f32 radius squared in f32, as ``jnp.float32(radius) ** 2``."""
+    return float(np.float32(radius) * np.float32(radius))
+
+
+def square_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distance in the centred form ``|a|^2 + |b|^2 - 2 a.b``
+    of the JAX version (the selection metric of the approximate paths):
+    (..., S, 3) x (..., N, 3) -> (..., S, N), clamped at 0.
+
+    The centre is the mean of ``b``, taken in f64 and rounded, and the K=3
+    contraction is three elementwise products: both give the same bits on
+    the CPU and on the card (a cuBLAS matmul contracts into FMAs).  Against
+    XLA's CPU reduction order the bits differ by an ulp in places; the tests
+    hold the selections it makes equal to JAX's."""
+    center = b.to(torch.float64).mean(dim=-2, keepdim=True).to(torch.float32)
+    a = a.to(torch.float32) - center
+    b = b.to(torch.float32) - center
+    a2 = (a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1] + a[..., 2] * a[..., 2])[..., :, None]
+    b2 = (b[..., 0] * b[..., 0] + b[..., 1] * b[..., 1] + b[..., 2] * b[..., 2])[..., None, :]
+    ab = (a[..., :, None, 0] * b[..., None, :, 0] + a[..., :, None, 1] * b[..., None, :, 1]
+          + a[..., :, None, 2] * b[..., None, :, 2])
+    return torch.clamp(a2 + b2 - 2.0 * ab, min=0.0)
 
 
 def square_distance_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,12 @@
-"""RoI point pooling, exact path (counterpart of
-``pointrcnn_tpu/ops/roipool3d.py``): the first ``num_sampled`` in-box points
-in point order, cyclically duplicated when a box holds fewer, and an empty
-flag with zeroed output when it holds none."""
+"""RoI point pooling (counterpart of ``pointrcnn_tpu/ops/roipool3d.py``): the
+first ``num_sampled`` in-box points in point order, cyclically duplicated
+when a box holds fewer, and an empty flag with zeroed output when it holds
+none.
+
+Every method selects exactly.  ``"approx"`` (and ``"auto"``, which picks it
+on a TPU for large clouds) is the TPU's ``approx_min_k`` over the order
+keys; at recall 1, and on the JAX version's CPU path, that op returns the
+exact first points in order, which is what the port computes."""
 
 from __future__ import annotations
 
@@ -12,14 +17,12 @@ from pointrcnn_tpu_torch.utils.box_ops import enlarge_box3d, points_in_boxes3d
 
 
 def roipool3d(xyz, features, boxes3d, extra_width: float, num_sampled: int,
-              method: str = "exact"):
+              method: str = "auto"):
     """:param xyz: (B, N, 3); features: (B, N, C); boxes3d: (B, M, 7)
     :return: (pooled (B, M, num_sampled, 3 + C), empty_flag (B, M) bool),
         pooled xyz in the original frame."""
-    if method != "exact":
-        # 'approx' is the TPU's approx_min_k path and 'auto' selects it on a
-        # TPU; neither is ported
-        raise NotImplementedError(f"roipool method {method!r} is not ported; only 'exact' is")
+    if method not in ("auto", "exact", "approx"):
+        raise ValueError(f"roipool3d method must be 'auto'|'exact'|'approx', got {method!r}")
     B, N, _ = xyz.shape
     mask = points_in_boxes3d(xyz, enlarge_box3d(boxes3d, extra_width))  # (B, M, N)
     order = torch.where(mask, torch.arange(N, device=xyz.device, dtype=torch.int32), N)

@@ -247,8 +247,8 @@ def test_exact_ball_query_matches_jax(N, S):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (got[0].numpy()[:, 0] == 0).all()
-    with pytest.raises(NotImplementedError):
-        grouping.ball_query_multi(t(xyz), t(new_xyz), specs, method="approx")
+    with pytest.raises(ValueError, match="'first'"):
+        grouping.ball_query_multi(t(xyz), t(new_xyz), specs, method="first")
 
 
 def test_nms_bev_matches_jax():
@@ -284,8 +284,8 @@ def test_roipool3d_matches_jax():
     np.testing.assert_array_equal(ge.numpy(), np.asarray(we))
     np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
     assert ge[0, 0]
-    with pytest.raises(NotImplementedError):
-        roipool3d.roipool3d(t(xyz), t(feats), t(boxes), 1.0, 32, method="approx")
+    with pytest.raises(ValueError, match="'first'"):
+        roipool3d.roipool3d(t(xyz), t(feats), t(boxes), 1.0, 32, method="first")
 
 
 def test_three_interpolate_matches_jax():

@@ -42,14 +42,15 @@ from pointrcnn_tpu.models.proposal import proposal_layer as jax_proposal_layer
 from pointrcnn_tpu.models.rcnn import RCNNNet as JaxRCNNNet
 from pointrcnn_tpu.ops import common as jcommon
 from pointrcnn_tpu.ops import grouping as jgrouping
+from pointrcnn_tpu.ops import pallas_ballquery
 from pointrcnn_tpu.ops.roipool3d import roipool3d as jax_roipool3d
 
 from pointrcnn_tpu_torch.convert import load_jax_variables
-from pointrcnn_tpu_torch.entry import SLICE_OVERRIDES, synthetic_cloud
+from pointrcnn_tpu_torch.entry import EXACT_OVERRIDES, synthetic_cloud
 from pointrcnn_tpu_torch.models import pointnet2 as tpointnet2
 from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
 from pointrcnn_tpu_torch.models.proposal import proposal_layer
-from pointrcnn_tpu_torch.ops import cuda_fps, cuda_gather, cuda_knn, cuda_mlp
+from pointrcnn_tpu_torch.ops import cuda_ballquery, cuda_fps, cuda_gather, cuda_knn, cuda_mlp
 
 _CFG = pathlib.Path(__file__).resolve().parent.parent / "cfgs" / "default.yaml"
 
@@ -79,7 +80,7 @@ BF16_TOL = 2.0 ** -5
 
 
 def _cfg(dtype):
-    return load_config(str(_CFG), SLICE_OVERRIDES + TINY + ["COMPUTE_DTYPE", dtype])
+    return load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["COMPUTE_DTYPE", dtype])
 
 
 def _models(cfg, pts):
@@ -93,29 +94,65 @@ def _models(cfg, pts):
     return jm, variables, tm
 
 
-def _record(monkeypatch, module, name, log):
+def _flat(out):
+    if isinstance(out, (list, tuple)):
+        return [a for o in out for a in _flat(o)]
+    return [out]
+
+
+def _record(monkeypatch, module, name, log, busy):
+    """Record the outputs of ``module.name`` where no other recorded call of
+    the same package (``busy``) is under way: JAX traces both branches of a
+    ``lax.cond``, whose values must not leave it."""
     orig = getattr(module, name)
 
     def wrapped(*args, **kwargs):
-        out = orig(*args, **kwargs)
-        log.append(list(out) if isinstance(out, (list, tuple)) else [out])
+        if busy:
+            return orig(*args, **kwargs)
+        busy.append(name)
+        try:
+            out = orig(*args, **kwargs)
+        finally:
+            busy.pop()
+        log.append(_flat(out))
         return out
 
     monkeypatch.setattr(module, name, wrapped)
 
 
+def _jax_three_nn_direct(monkeypatch):
+    """JAX's off-TPU three_nn with direct-difference distances, as its TPU
+    kernel computes them."""
+    orig = jpointnet2.three_nn
+
+    def three_nn(unknown, known, chunk=2048):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jgrouping, "square_distance", jcommon.square_distance_exact)
+            return orig(unknown, known, chunk)
+
+    monkeypatch.setattr(jpointnet2, "three_nn", three_nn)
+
+
 def _run_both(monkeypatch, cfg, pts):
-    """Both forwards on the same weights and cloud, with every FPS and
-    ball-query output of each recorded (under jit, JAX's recorded values are
-    returned as extra outputs of the jitted forward)."""
-    # JAX's off-TPU three_nn: direct differences, as its TPU kernel computes
-    monkeypatch.setattr(jgrouping, "square_distance", jcommon.square_distance_exact)
+    """Both forwards on the same weights and cloud, with every FPS,
+    ball-query and banded FPS + grouping output of each recorded (under jit,
+    JAX's recorded values are returned as extra outputs of the jitted
+    forward)."""
+    _jax_three_nn_direct(monkeypatch)
     jm, variables, tm = _models(cfg, pts)
-    jlog, tlog = {"fps": [], "bq": []}, {"fps": [], "bq": []}
-    for key, name in (("fps", "furthest_point_sample"), ("bq", "ball_query_multi"),
-                      ("bq", "ball_query")):
-        _record(monkeypatch, jpointnet2, name, jlog[key])
-        _record(monkeypatch, tpointnet2, name, tlog[key])
+    jlog = {"fps": [], "bq": [], "banded": [], "grouped": []}
+    tlog = {k: [] for k in jlog}
+    jbusy, tbusy = [], []
+    for key, jmod, jname, tmod, tname in (
+            ("fps", jpointnet2, "furthest_point_sample", tpointnet2, "furthest_point_sample"),
+            ("bq", jpointnet2, "ball_query_multi", tpointnet2, "ball_query_multi"),
+            ("bq", jpointnet2, "ball_query", tpointnet2, "ball_query"),
+            # JAX imports these two at call time
+            ("banded", jgrouping, "fps_group_banded", tpointnet2, "fps_group_banded"),
+            ("grouped", pallas_ballquery, "ball_query_multi_grouped_pallas",
+             cuda_ballquery, "ball_query_multi_grouped")):
+        _record(monkeypatch, jmod, jname, jlog[key], jbusy)
+        _record(monkeypatch, tmod, tname, tlog[key], tbusy)
 
     def jax_forward(v, b):
         return jm.apply(v, b, train=False), jlog
@@ -195,13 +232,9 @@ def _rcnn_input(cfg, jo):
     return pooled.reshape(B * M, cfg.RCNN.NUM_POINTS, -1)
 
 
-def test_slice_bf16_routes_and_stages_match_jax(monkeypatch):
-    # lower the dispatch constants so the tiny model routes like the full
-    # slice: RPN SA2 (N=256) through the gather kernel, RPN SA3 (N=64) and
-    # RCNN SA2 (N=16) through the fused kernel in hilo mode, RCNN SA1 (N=64)
-    # in fold mode
-    monkeypatch.setattr(cuda_mlp, "_MAX_N", 128)
-    monkeypatch.setattr(cuda_mlp, "_FOLD_MIN_N", 64)
+def _count_routes(monkeypatch, extra=()):
+    """Count the calls of each kernel wrapper of the port (the fused MLP by
+    mode) -> the live count dict."""
     routes = {}
 
     def count(module, name, key=None):
@@ -218,6 +251,19 @@ def test_slice_bf16_routes_and_stages_match_jax(monkeypatch):
     count(cuda_knn, "three_nn")
     count(cuda_gather, "group_points")
     count(cuda_mlp, "fused_group", key=lambda a: "fold" if a[0] else "hilo")
+    for module, name in extra:
+        count(module, name)
+    return routes
+
+
+def test_slice_bf16_routes_and_stages_match_jax(monkeypatch):
+    # lower the dispatch constants so the tiny model routes like the full
+    # slice: RPN SA2 (N=256) through the gather kernel, RPN SA3 (N=64) and
+    # RCNN SA2 (N=16) through the fused kernel in hilo mode, RCNN SA1 (N=64)
+    # in fold mode
+    monkeypatch.setattr(cuda_mlp, "_MAX_N", 128)
+    monkeypatch.setattr(cuda_mlp, "_FOLD_MIN_N", 64)
+    routes = _count_routes(monkeypatch)
 
     cfg = _cfg("bfloat16")
     pts = synthetic_cloud(2, cfg.RPN.NUM_POINTS, seed=3)
@@ -231,7 +277,12 @@ def test_slice_bf16_routes_and_stages_match_jax(monkeypatch):
         np.testing.assert_array_equal(t_outs[0], j_outs[0])
     for k in ("rpn_cls", "rpn_reg", "backbone_features"):
         _close(to[k], jo[k], BF16_TOL)
+    _stages_match_jax(cfg, jo, variables, tm)
 
+
+def _stages_match_jax(cfg, jo, variables, tm):
+    """The proposal layer and the RCNN of the port on JAX's own stage-1
+    outputs and pooled input."""
     # proposal layer on JAX's stage-1 outputs: same survivors, same order
     args = (jo["rpn_cls"][..., 0], jo["rpn_reg"], jo["backbone_xyz"])
     jprop = jax.jit(lambda *a: jax_proposal_layer(cfg, "TEST", *a))
@@ -272,16 +323,9 @@ def test_weight_bridge_rejects_mismatched_trees():
         load_jax_variables(tm, bad)
 
 
-@pytest.mark.parametrize("override", [
-    ["RPN.FPS_METHOD", "blockwise"],
-    ["RPN.BALL_QUERY_METHOD", "approx"],
-    ["RCNN.BALL_QUERY_METHOD", "approx"],
-    ["RCNN.ROIPOOL_METHOD", "approx"],
-    ["RCNN.ROIPOOL_METHOD", "auto"],
-    ["RPN.NMS_TYPE", "rotate"],
-])
+@pytest.mark.parametrize("override", [["RPN.NMS_TYPE", "rotate"]])
 def test_unported_config_values_raise(override):
-    cfg = load_config(str(_CFG), SLICE_OVERRIDES + TINY + ["COMPUTE_DTYPE", "float32"] + override)
+    cfg = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["COMPUTE_DTYPE", "float32"] + override)
     model = PointRCNN(cfg, generator=torch.Generator().manual_seed(0)).eval()
     pts = torch.from_numpy(synthetic_cloud(1, cfg.RPN.NUM_POINTS))
     with pytest.raises(NotImplementedError, match=repr(override[1])):
@@ -302,7 +346,7 @@ def test_port_config_equals_jax_config(name):
     from pointrcnn_tpu_torch import config as tconfig
 
     path = str(_CFG.parent / name)
-    for overrides in (None, SLICE_OVERRIDES + ["TEST.RPN_POST_NMS_TOP_N", "50"]):
+    for overrides in (None, EXACT_OVERRIDES + ["TEST.RPN_POST_NMS_TOP_N", "50"]):
         want = _plain(load_config(path, overrides))
         got = _plain(tconfig.load_config(path, overrides))
         assert got == want
