@@ -19,7 +19,17 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    full-scan fallback of the banded stage; hold a batch-1 forward against
    the port's plain path on the CPU; time frames/s;
 5. the same for the exact-method setting (``entry.EXACT_OVERRIDES``) on
-   one cloud.
+   one cloud;
+6. the gather backward (K8) against its plain version at the ``rpn``
+   training stage's shapes (RPN SA2-SA4, K = 16 and 32, batch 16):
+   deterministic, equal to the plain version on the CPU, within the f32
+   reorder bound of the plain version on the card;
+7. the ``rpn`` training stage (``pointrcnn_tpu_torch.entry.train_entry``:
+   ``cfgs/default.yaml`` with ``RCNN.ENABLED`` False) at batch 16 x 16384
+   points: ms/step, frames/s and peak memory over timed steps, every kernel
+   of the path launched (the gather forward and backward 6 times a step),
+   parameters and BN statistics updated, a batch-2 step against the port's
+   CPU path, and a checkpoint resume that reproduces the next step's loss.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -27,8 +37,10 @@ The second-to-last line is the kernel table as JSON, the last line
 
 from __future__ import annotations
 
+import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -41,6 +53,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4
 CLOUD_SEEDS = (0, 1, 2)
 TIMED_ITERS = 10
+TRAIN_BATCH = 16
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 # bf16-path tolerance of the fused MLP kernel against its plain version on
 # the same operands: both multiply bf16 values exactly and accumulate in
@@ -69,7 +83,22 @@ KERNELS = (
      "pointrcnn_tpu/ops/pallas_ballquery.py:151", "cuda_ballquery", "launches"),
     ("ball_query_banded", "pointrcnn_tpu_torch/csrc/ballquery.cu",
      "pointrcnn_tpu/ops/pallas_ballquery.py:229", "cuda_ballquery", "banded_launches"),
+    ("gather_backward", "pointrcnn_tpu_torch/csrc/gather.cu",
+     "pointrcnn_tpu/ops/pallas_gather.py:95", "cuda_gather", "bwd_launches"),
 )
+# the kernels of each path: the eval forward, the rpn training stage
+EVAL_KERNELS = ("fps", "three_nn", "group_gather", "fused_group_mlp_max", "ball_query",
+                "ball_query_banded")
+TRAIN_KERNELS = ("fps", "three_nn", "group_gather", "ball_query", "ball_query_banded",
+                 "gather_backward")
+
+# a batch-2 train step on the card against the same step on the CPU (plain
+# versions), both in bf16: f32 sums in another order flip bf16 roundings,
+# and the gradients of the deep BN layers move with them (the CPU tests
+# measure the same spread between the port and JAX): the loss within 1e-3
+# relative, the gradient norm within 2e-2, each gradient leaf within 0.1 of
+# the global gradient norm
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_SHARE = 1e-3, 2e-2, 0.1
 
 
 def log(msg: str) -> None:
@@ -101,6 +130,8 @@ class Tally:
     def __init__(self):
         self.err = self.ms = self.plain_ms = self.bound_ms = 0.0
         self.by = {"bytes": 0.0, "operations": 0.0}
+        # the time of one PyTorch call computing the same function, where one exists
+        self.library_ms = None
 
     def add(self, ms, plain_ms, n_bytes, ops, peak_per_ms):
         b, o = n_bytes / PEAK_BYTES_PER_MS, ops / peak_per_ms
@@ -112,7 +143,7 @@ class Tally:
     def row(self):
         return {"max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
                 "bound_ms": self.bound_ms, "bound_by": max(self.by, key=self.by.get),
-                "library_ms": None}
+                "library_ms": self.library_ms}
 
 
 def counters():
@@ -224,27 +255,96 @@ def check_knn():
     return tally
 
 
+# (name, B, N, C, S): the gather's tables: RPN SA2 of the eval forward; RPN
+# SA2, SA3 and SA4 of the rpn training stage (every BN-train SA stage
+# groups through it)
+GATHER_SHAPES = (("eval RPN SA2", BATCH, 4096, 96, 1024),
+                 ("train RPN SA2", TRAIN_BATCH, 4096, 96, 1024),
+                 ("train RPN SA3", TRAIN_BATCH, 1024, 256, 256),
+                 ("train RPN SA4", TRAIN_BATCH, 256, 512, 64))
+
+
+def _gather_case(B, N, C, S, K, seed):
+    """Seeded operands at one gather shape: neighbourhoods with repeats
+    (the first quarter of the centroids backfilled from slot K/2 on, as the
+    ball query backfills) and a bf16 cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    xyz = _rpn_cloud(B, N, seed)
+    feats = torch.randn((B, N, C), generator=g).cuda()
+    idx = torch.randint(0, N, (B, S, K), generator=g, dtype=torch.int32)
+    idx[:, : S // 4, K // 2:] = idx[:, : S // 4, :1]
+    ct = torch.randn((B, S, K, 3 + C), generator=g).to(torch.bfloat16)
+    return xyz, feats, xyz[:, :S] + 0.1, idx.cuda(), ct
+
+
 def check_gather():
     from pointrcnn_tpu_torch.ops import cuda_gather
 
     tally = Tally()
-    g = torch.Generator().manual_seed(7)
-    xyz = _rpn_cloud(BATCH, 4096, 11)
-    feats = torch.randn((BATCH, 4096, 96), generator=g).cuda()
-    cent = xyz[:, :1024] + 0.1
-    for K in (16, 32):
-        idx = torch.randint(0, 4096, (BATCH, 1024, K), generator=g, dtype=torch.int32).cuda()
-        got = cuda_gather._launch(xyz, feats, cent, idx)
-        ref = cuda_gather.group_points_plain(xyz, feats, cent, idx)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"gather K={K}: {(got != ref).sum().item()} values differ")
-        k = cuda_ms(lambda: cuda_gather._launch(xyz, feats, cent, idx), 20)
-        p = cuda_ms(lambda: cuda_gather.group_points_plain(xyz, feats, cent, idx), 5)
-        # a split, a subtraction and a cast per output value
-        bound = tally.add(k, p, nbytes(xyz, feats, cent, idx, got), 3.0 * got.numel(),
-                          PEAK_F32_PER_MS)
-        log(f"gather N=4096 C=96 S=1024 K={K}: exact match; kernel {k:.4f} ms, "
-            f"plain {p:.4f} ms, bound {bound:.4f} ms")
+    for name, B, N, C, S in GATHER_SHAPES:
+        for K in (16, 32):
+            xyz, feats, cent, idx, _ = _gather_case(B, N, C, S, K, N + K)
+            got = cuda_gather._launch(xyz, feats, cent, idx)
+            ref = cuda_gather.group_points_plain(xyz, feats, cent, idx)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"gather {name} K={K}: {(got != ref).sum().item()} values differ")
+            k = cuda_ms(lambda: cuda_gather._launch(xyz, feats, cent, idx), 20)
+            p = cuda_ms(lambda: cuda_gather.group_points_plain(xyz, feats, cent, idx), 5)
+            # a split, a subtraction and a cast per output value
+            bound = tally.add(k, p, nbytes(xyz, feats, cent, idx, got), 3.0 * got.numel(),
+                              PEAK_F32_PER_MS)
+            log(f"gather {name} B={B} N={N} C={C} S={S} K={K}: exact match; kernel {k:.4f} ms, "
+                f"plain {p:.4f} ms, bound {bound:.4f} ms")
+    return tally
+
+
+def check_gather_bwd():
+    """K8 at the training stage's shapes: two launches bit-equal (the
+    design sums in a fixed order), bit-equal to the plain version on the CPU
+    (index_add_ adds in ascending (s, k) order there, as the kernel does),
+    and within the reorder bound 2 m 2^-24 sum|ct| (m = S*K terms at most)
+    of the plain version on the card, whose index_add_ adds atomically in
+    any order."""
+    from pointrcnn_tpu_torch.ops import cuda_gather
+
+    tally = Tally()
+    tally.library_ms = 0.0
+    for name, B, N, C, S in GATHER_SHAPES[1:]:
+        for K in (16, 32):
+            _, _, _, idx, ct_cpu = _gather_case(B, N, C, S, K, 7 * N + K)
+            ct = ct_cpu.cuda()
+            got = cuda_gather._launch_bwd(idx, ct, N)
+            again = cuda_gather._launch_bwd(idx, ct, N)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"gather backward {name} K={K}: two launches differ")
+            cpu = cuda_gather.group_points_backward_plain(idx.cpu(), ct_cpu, N)
+            for what, a, b in zip(("dtable", "dcent"), got, cpu):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"gather backward {name} K={K}: {what} differs from the "
+                                         f"CPU plain version in {(a.cpu() != b).sum().item()} places")
+            ref = cuda_gather.group_points_backward_plain(idx, ct, N)
+            abs_sum = cuda_gather.group_points_backward_plain(idx, ct.float().abs(), N)
+            for what, a, b, m in zip(("dtable", "dcent"), got, ref, abs_sum):
+                bound = 2 * S * K * 2.0 ** -24 * m.abs()
+                if not bool(((a - b).abs() <= bound).all()):
+                    raise AssertionError(f"gather backward {name} K={K}: {what} outside the "
+                                         f"reorder bound of the plain version")
+                tally.err = max(tally.err, (a - b).abs().max().item())
+            k = cuda_ms(lambda: cuda_gather._launch_bwd(idx, ct, N), 20)
+            p = cuda_ms(lambda: cuda_gather.group_points_backward_plain(idx, ct, N), 5)
+            rows = (idx.long() + torch.arange(B, device="cuda")[:, None, None] * N).reshape(-1)
+            src = ct.reshape(-1, 3 + C).float()
+            out = torch.zeros((B * N, 3 + C), device="cuda")
+            lib = cuda_ms(lambda: out.index_add_(0, rows, src), 20)
+            tally.library_ms += lib
+            # read ct (bf16) and idx once, write dtable and dcent once; one
+            # add per cotangent value
+            nb = nbytes(idx, ct, *got)
+            bound = tally.add(k, p, nb, float(ct.numel()), PEAK_F32_PER_MS)
+            log(f"gather backward {name} B={B} N={N} C={C} S={S} K={K}: deterministic, equal to "
+                f"the CPU plain version, max err {tally.err:.3e} vs the card's plain version; "
+                f"kernel {k:.4f} ms, plain {p:.4f} ms, index_add_ {lib:.4f} ms, "
+                f"bound {bound:.4f} ms")
     return tally
 
 
@@ -435,9 +535,11 @@ def phase_default(launches):
     log(f"default forward x{len(clouds)} launches: {counts}")
     for s, out in zip(CLOUD_SEEDS, outs):
         _check_outputs(out, cfg.TEST.RPN_POST_NMS_TOP_N, f"default, cloud {s}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in EVAL_KERNELS:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the default path")
+    if counts["gather_backward"]:
+        raise AssertionError("the eval forward launched the gather backward")
     launches.update(counts)
 
     thin = torch.from_numpy(thin_band_cloud(BATCH, cfg.RPN.NUM_POINTS, 9)).cuda()
@@ -508,6 +610,95 @@ def check_against_cpu(model, cloud, tag):
             raise AssertionError(f"{tag}: {k} differs from the CPU reference by {e} (scale {scale})")
 
 
+def _train_against_cpu():
+    """A batch-2 train step's loss, gradient norm and gradients on the card
+    against the port's CPU path, same weights and scene, dropout off."""
+    from pointrcnn_tpu_torch.entry import rpn_config, train_entry
+    from pointrcnn_tpu_torch.train.state import loss_and_grads
+
+    cfg = rpn_config(["RPN.DP_RATIO", "0.0"])
+    _, (state, batch) = train_entry(batch=2, device="cuda", seed=3, cfg=cfg)
+    cpu_model = copy.deepcopy(state.model).cpu()
+    t0 = time.perf_counter()
+    cl, _, cg = loss_and_grads(cpu_model, cfg, {k: v.cpu() for k, v in batch.items()})
+    log(f"train step vs cpu: cpu reference step {time.perf_counter() - t0:.1f} s")
+    gl, _, gg = loss_and_grads(state.model, cfg, batch)
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in cg.values())))
+    card_norm = float(torch.sqrt(sum((g.double().cpu() ** 2).sum() for g in gg.values())))
+    e_loss = abs(gl.item() / cl.item() - 1)
+    e_norm = abs(card_norm / gnorm - 1)
+    share = max(float((gg[k].cpu() - g).norm()) / gnorm for k, g in cg.items())
+    log(f"train step vs cpu (batch 2, dropout off): loss {gl.item():.6f} vs {cl.item():.6f} "
+        f"(rel {e_loss:.2e}, tol {TRAIN_LOSS_RTOL}), grad norm {card_norm:.6f} vs {gnorm:.6f} "
+        f"(rel {e_norm:.2e}, tol {TRAIN_GNORM_RTOL}), worst gradient leaf {share:.2e} of the "
+        f"global norm (tol {TRAIN_LEAF_SHARE})")
+    if e_loss > TRAIN_LOSS_RTOL or e_norm > TRAIN_GNORM_RTOL or share > TRAIN_LEAF_SHARE:
+        raise AssertionError("the card's train step differs from the CPU path")
+
+
+def phase_train(train_launches):
+    """The rpn training stage at batch 16 x 16384 points."""
+    from pointrcnn_tpu_torch.entry import train_entry
+    from pointrcnn_tpu_torch.train import checkpoint
+
+    step, (state, batch) = train_entry(batch=TRAIN_BATCH, device="cuda", seed=0)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP):
+        state, tb = step(state, batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        state, tb = step(state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_TIMED
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train batch {TRAIN_BATCH} x {batch['pts_input'].shape[1]} points: {1000 * dt:.3f} ms/step, "
+        f"{TRAIN_BATCH / dt:.3f} frames/s ({TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up), "
+        f"peak memory {peak / 2 ** 30:.3f} GiB")
+    loss, gnorm = tb["loss"].item(), tb["grad_norm"].item()
+    log(f"train launches over {TRAIN_TIMED} steps: {counts}; loss {loss:.6f}, grad norm "
+        f"{gnorm:.6f}, foreground points {int(tb['rpn_fg_sum'])}")
+    if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"train step: loss {loss}, grad norm {gnorm}")
+    for name in ("group_gather", "gather_backward"):
+        if counts[name] != 6 * TRAIN_TIMED:
+            raise AssertionError(f"train step: {name} launched {counts[name]} times in "
+                                 f"{TRAIN_TIMED} steps, not 6 a step")
+    for name in TRAIN_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the train path")
+    train_launches.update(counts)
+    after = state.model.state_dict()
+    params = dict(state.model.named_parameters())
+    moved = [k for k in params if not torch.equal(after[k], before[k])]
+    stats = [k for k, _ in state.model.named_buffers() if not torch.equal(after[k], before[k])]
+    if len(moved) != len(params) or not stats:
+        raise AssertionError(f"train step: {len(params) - len(moved)} parameters unchanged, "
+                             f"{len(stats)} BN statistics changed")
+    log(f"train step: all {len(params)} parameters and {len(stats)} BN statistics updated")
+
+    _train_against_cpu()
+
+    # checkpoint save -> load into a fresh state -> the next step's loss
+    ckpt_dir = os.path.join(REPO, "pointrcnn_tpu_torch", "_build", "smoke_ckpt")
+    try:
+        path = checkpoint.save_checkpoint(ckpt_dir, state, epoch=1, it=state.step)
+        state, tb = step(state, batch)
+        del state
+        _, (fresh, _) = train_entry(batch=TRAIN_BATCH, device="cuda", seed=1)
+        fresh, epoch, it = checkpoint.load_checkpoint(path, fresh)
+        fresh, tb2 = step(fresh, batch)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not torch.equal(tb["loss"], tb2["loss"]):
+        raise AssertionError(f"resumed step loss {tb2['loss'].item()} != {tb['loss'].item()}")
+    log(f"checkpoint resume (epoch {epoch}, it {it}): next-step loss bit-equal "
+        f"({tb2['loss'].item():.6f})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -517,13 +708,18 @@ def main() -> int:
     card = phase_card()
     phase_build()
     tallies = {"fps": check_fps(), "three_nn": check_knn(), "group_gather": check_gather(),
-               "fused_group_mlp_max": check_mlp()}
+               "fused_group_mlp_max": check_mlp(), "gather_backward": check_gather_bwd()}
     tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
-    launches = {}
+    launches, train_launches = {}, {}
     phase_default(launches)
     phase_exact()
+    phase_train(train_launches)
+    # launches: the count of the eval forward's run, or for a kernel that
+    # only the training stage runs, of the training run; train_launches: the
+    # training run's
     rows = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": launches[name], **tallies[name].row()}
+             "launches": launches[name] if name in EVAL_KERNELS else train_launches[name],
+             "train_launches": train_launches[name], **tallies[name].row()}
             for name, source, replaces, _, _ in KERNELS]
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,7 @@
-"""The port's counterpart of ``__graft_entry__.entry()``: the two-stage eval
-forward of ``cfgs/default.yaml`` on random weights drawn from a seed and a
-synthetic cloud.
+"""The port's entry points, on random weights drawn from a seed and synthetic
+scenes: :func:`entry`, the counterpart of ``__graft_entry__.entry()`` (the
+two-stage eval forward of ``cfgs/default.yaml``), and :func:`train_entry`,
+the ``rpn`` training stage (``tools/train.py --train_mode rpn``).
 
 The default is the config as it stands (blockwise FPS, the approximate
 stride-class ball query, ``auto`` roipool), as ``bench.py`` runs it.
@@ -18,6 +19,8 @@ import torch
 
 from pointrcnn_tpu_torch.config import load_config
 from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
+from pointrcnn_tpu_torch.train.optimizer import bn_momentum_for_epoch, build_optimizer, steps_for
+from pointrcnn_tpu_torch.train.state import create_train_state, make_train_step
 
 _REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -49,6 +52,34 @@ def synthetic_cloud(batch: int, n: int, seed: int = 0) -> np.ndarray:
     return pts
 
 
+def synthetic_scene(batch: int, n: int, max_gt: int, seed: int = 0) -> dict:
+    """A training batch: :func:`synthetic_cloud` with 4-16 valid gt boxes a
+    frame (car-sized, random heading), 64 points of the cloud moved inside
+    each, the boxes padded to ``max_gt`` -> numpy ``pts_input`` (B, n, 3),
+    ``gt_boxes3d`` (B, max_gt, 7) and ``gt_valid`` (B, max_gt) bool."""
+    rng = np.random.RandomState(seed + 1)
+    pts = synthetic_cloud(batch, n, seed)
+    boxes = np.zeros((batch, max_gt, 7), np.float32)
+    valid = np.zeros((batch, max_gt), bool)
+    per_box = 64
+    for b in range(batch):
+        g = min(rng.randint(4, 17), max_gt, n // per_box)
+        hwl = np.array([1.53, 1.63, 3.88]) * rng.uniform(0.9, 1.1, (g, 3))
+        x, z = rng.uniform(-30, 30, g), rng.uniform(5, 65, g)
+        y, ry = rng.uniform(1.0, 2.0, g), rng.uniform(-np.pi, np.pi, g)
+        boxes[b, :g] = np.stack([x, y, z, hwl[:, 0], hwl[:, 1], hwl[:, 2], ry], -1)
+        valid[b, :g] = True
+        # points inside: box-frame (u along l, v along w) rotated by ry
+        u = rng.uniform(-0.45, 0.45, (g, per_box)) * hwl[:, 2:3]
+        v = rng.uniform(-0.45, 0.45, (g, per_box)) * hwl[:, 1:2]
+        c, s = np.cos(ry)[:, None], np.sin(ry)[:, None]
+        inside = np.stack([x[:, None] + c * u + s * v,
+                           y[:, None] - hwl[:, 0:1] * rng.uniform(0.05, 0.95, (g, per_box)),
+                           z[:, None] - s * u + c * v], -1)
+        pts[b, : g * per_box] = inside.reshape(-1, 3)
+    return {"pts_input": pts, "gt_boxes3d": boxes, "gt_valid": valid}
+
+
 def forward(model: PointRCNN, batch: dict) -> dict:
     with torch.inference_mode():
         return model(batch)
@@ -64,3 +95,37 @@ def entry(batch: int = 1, device: str | torch.device | None = None, seed: int = 
     model = model.to(device).eval()
     pts = torch.from_numpy(synthetic_cloud(batch, cfg.RPN.NUM_POINTS, seed)).to(device)
     return forward, (model, {"pts_input": pts})
+
+
+# the KITTI train split and the CLI's default epochs size the schedules
+KITTI_TRAIN_FRAMES = 3712
+TRAIN_EPOCHS = 200
+
+
+def rpn_config(overrides: list[str] | None = None):
+    """``cfgs/default.yaml`` as ``tools/train.py --train_mode rpn`` sets it
+    (``RCNN.ENABLED`` False) + ``overrides``."""
+    return default_config(["RPN.ENABLED", "True", "RCNN.ENABLED", "False"]
+                          + list(overrides or []))
+
+
+def train_entry(batch: int = 16, device: str | torch.device | None = None, seed: int = 0,
+                cfg=None):
+    """Return ``(step_fn, (state, batch_dict))`` for the ``rpn`` training
+    stage of ``cfg`` (default :func:`rpn_config`) on ``device`` (default
+    ``cuda``): weights drawn from ``seed``, a :func:`synthetic_scene` batch,
+    ``adam_onecycle`` over 200 epochs of the KITTI train split, BN momentum
+    of epoch 0.  ``step_fn(state, batch_dict) -> (state, metrics)``."""
+    device = torch.device("cuda" if device is None else device)
+    cfg = rpn_config() if cfg is None else cfg
+    tx = build_optimizer(cfg, *steps_for(KITTI_TRAIN_FRAMES, batch, TRAIN_EPOCHS))
+    state = create_train_state(cfg, tx, seed=seed, device=device)
+    scene = synthetic_scene(batch, cfg.RPN.NUM_POINTS, cfg.RCNN.MAX_GT_BOXES, seed)
+    data = {k: torch.from_numpy(v).to(device) for k, v in scene.items()}
+    train_step = make_train_step(cfg, tx, seed)
+    momentum = bn_momentum_for_epoch(cfg, 0)
+
+    def step_fn(state, batch_dict):
+        return train_step(state, batch_dict, momentum)
+
+    return step_fn, (state, data)

@@ -1,5 +1,5 @@
 """Building blocks shared by the RPN and the RCNN (counterpart of
-``pointrcnn_tpu/models/layers.py``), eval only.
+``pointrcnn_tpu/models/layers.py``).
 
 Channel-last (B, ..., C) throughout.  Parameter and module names follow the
 flax tree (``w0``, ``bn0_scale``, ``Dense_0``, ``BatchNorm_0``, ...) so the
@@ -10,6 +10,16 @@ rounding point of the JAX version is kept:
   to bf16 and adds a bf16 bias with another bf16 rounding;
 - ``SharedMLP``: bf16 operands, f32 accumulation, f32 activations; only the
   next layer's input is rounded.
+
+Gradients keep JAX's rounding points as well: autograd through the casts
+``x.to(bf16).to(f32)`` rounds a dot's input and weight gradients to bf16,
+as JAX's transpose of ``dot(x_bf16, w_bf16, preferred_element_type=f32)``
+does.
+
+Training follows ``module.training``: batch norm then normalises with the
+batch's statistics and updates its running ones with ``momentum``, a
+runtime value that :func:`set_bn_momentum` sets on the whole model each
+epoch (the reference's BNMomentumScheduler).
 
 Initialisers mirror the flax ones in distribution (not in bits): weights
 are drawn from a ``torch.Generator``.
@@ -88,19 +98,49 @@ def _linear(cin, cout, use_bias, init, gen):
     return lin
 
 
+def batch_stats(y):
+    """Mean and biased variance over every axis but the last, as JAX's
+    ``max(E[y^2] - E[y]^2, 0)``; and the row count."""
+    axes = tuple(range(y.ndim - 1))
+    mean = y.mean(dim=axes)
+    var = torch.clamp((y * y).mean(dim=axes) - mean * mean, min=0.0)
+    n = 1
+    for d in y.shape[:-1]:
+        n *= d
+    return mean, var, n
+
+
+def set_bn_momentum(model: nn.Module, momentum: float) -> None:
+    """Set the running-statistics momentum of every batch norm in ``model``."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, SharedMLP)):
+            m.momentum = momentum
+
+
 class BatchNorm(nn.Module):
-    """Torch-convention batch norm at eval: running statistics, eps 1e-5."""
+    """Torch-convention batch norm: running statistics at eval; in training
+    the batch's, with an unbiased running update ``(1 - m) r + m b``."""
 
     def __init__(self, c: int):
         super().__init__()
+        self.momentum = 0.1
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x):
-        inv = torch.rsqrt(self.var + BN_EPS) * self.scale
-        return (x - self.mean) * inv + self.bias
+        if not self.training:
+            mean, var = self.mean, self.var
+        else:
+            mean, var, n = batch_stats(x)
+            with torch.no_grad():
+                m = torch.tensor(self.momentum, dtype=torch.float32, device=x.device)
+                unbiased = var * (n / max(n - 1, 1))
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * unbiased)
+        inv = torch.rsqrt(var + BN_EPS) * self.scale
+        return (x - mean) * inv + self.bias
 
 
 class ConvBN(nn.Module):
@@ -126,16 +166,21 @@ class ConvBN(nn.Module):
 class SharedMLP(nn.Module):
     """Dense(+BN)+ReLU stack with explicit parameters ``w{i}`` (in, out).
 
-    With ``reduce_max`` (the SA stages) BN is folded into the weights and
-    the stack runs through the fused gather + MLP + max kernel where the
-    TPU predicate admits it, else through ``group_points`` and the unfused
-    ``fused_mlp_max``, exactly as ``models/layers.py:154-184`` dispatches.
+    At eval, with ``reduce_max`` (the SA stages) BN is folded into the
+    weights and the stack runs through the fused gather + MLP + max kernel
+    where the TPU predicate admits it, else through ``group_points`` and the
+    unfused ``fused_mlp_max``, exactly as ``models/layers.py:154-184``
+    dispatches.  In training the neighbourhoods are grouped (the gather
+    kernels, forward and backward, where admitted) and every layer is a bf16
+    dot with f32 accumulation, BN on the batch's statistics and ReLU, then
+    the max over K (``models/layers.py:219-248``).
     """
 
     def __init__(self, cin, features, bn=True, kernel_init=torch_conv_init,
                  dtype=None, fold_geometry=False, gen=None):
         super().__init__()
         self.n, self.bn, self.dtype = len(features), bn, dtype
+        self.momentum = 0.1
         self.fold_geometry = fold_geometry
         for i, f in enumerate(features):
             self.register_parameter(f"w{i}", nn.Parameter(kernel_init(cin, f, gen)))
@@ -166,6 +211,8 @@ class SharedMLP(nn.Module):
         """``group_args=(xyz, features, new_xyz, idx, use_xyz)`` stands for an
         un-materialised (B, S, K, C) neighbourhood and implies the max over K."""
         dt = self.dtype or (x.dtype if x is not None else torch.float32)
+        if self.training:
+            return self._train_forward(x, reduce_max, group_args, dt)
         if group_args is not None or reduce_max:
             ws, bs = self.folded()
             if group_args is not None:
@@ -188,15 +235,46 @@ class SharedMLP(nn.Module):
             x = torch.relu(y)
         return x
 
+    def _train_forward(self, x, reduce_max, group_args, dt):
+        if group_args is not None:
+            if not self.bn:
+                raise NotImplementedError(
+                    "training a BN-free grouped SharedMLP (the rcnn stage's fused "
+                    "gather + MLP backward, ROADMAP B7) is not ported")
+            g_xyz, g_feats, g_new_xyz, g_idx, g_use_xyz = group_args
+            x = group_points(g_xyz, g_feats, g_new_xyz, g_idx, g_use_xyz, out_dtype=dt)
+            reduce_max = True
+        for i in range(self.n):
+            w = getattr(self, f"w{i}")
+            y = x.to(dt).to(torch.float32) @ w.to(dt).to(torch.float32)
+            if self.bn:
+                mean, var, n = batch_stats(y)
+                # the running update in the JAX SharedMLP's order: m * var
+                # before the n / (n - 1) factor (its BatchNorm takes the
+                # factor first)
+                with torch.no_grad():
+                    m = torch.tensor(self.momentum, dtype=torch.float32, device=y.device)
+                    mean_v, var_v = getattr(self, f"bn{i}_mean"), getattr(self, f"bn{i}_var")
+                    mean_v.copy_((1 - m) * mean_v + m * mean)
+                    var_v.copy_((1 - m) * var_v + m * var * (n / max(n - 1, 1)))
+                y = (y - mean) * (torch.rsqrt(var + BN_EPS) * getattr(self, f"bn{i}_scale")) \
+                    + getattr(self, f"bn{i}_bias")
+            else:
+                y = y + getattr(self, f"b{i}")
+            x = torch.relu(y)
+        # amax splits the gradient evenly among tied maxima, as jnp.max does
+        return x.amax(dim=2) if reduce_max else x
+
 
 class HeadMLP(nn.Module):
-    """cls/reg head: ConvBN stack (dropout is identity at eval), then a
-    linear output layer; returns f32."""
+    """cls/reg head: ConvBN stack with dropout after the first layer in
+    training, then a linear output layer; returns f32."""
 
-    def __init__(self, cin, hidden, out_features, bn=True, kernel_init=torch_conv_init,
-                 out_kernel_init=final_layer_init(), out_bias=0.0, dtype=None, gen=None):
+    def __init__(self, cin, hidden, out_features, bn=True, dp_ratio=0.0,
+                 kernel_init=torch_conv_init, out_kernel_init=final_layer_init(),
+                 out_bias=0.0, dtype=None, gen=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.dp_ratio = dtype, dp_ratio
         self.n_hidden = len(hidden)
         for i, f in enumerate(hidden):
             self.add_module(f"ConvBN_{i}", ConvBN(cin, f, bn=bn, kernel_init=kernel_init,
@@ -206,7 +284,13 @@ class HeadMLP(nn.Module):
         with torch.no_grad():
             self.Dense_0.bias.fill_(out_bias)
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
+        """``generator`` draws the dropout mask in training (flax
+        ``nn.Dropout``: keep with probability 1 - rate, scale by 1 / (1 - rate))."""
         for i in range(self.n_hidden):
             x = getattr(self, f"ConvBN_{i}")(x)
+            if i == 0 and self.training and self.dp_ratio > 0:
+                keep_prob = 1.0 - self.dp_ratio
+                keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+                x = torch.where(keep, x / keep_prob, 0.0)
         return dense(x, self.Dense_0.weight, self.Dense_0.bias, self.dtype).to(torch.float32)

@@ -1,5 +1,6 @@
-"""Top-level two-stage detector, TEST branch (counterpart of
-``pointrcnn_tpu/models/point_rcnn.py``)."""
+"""Top-level two-stage detector (counterpart of
+``pointrcnn_tpu/models/point_rcnn.py``): the TEST forward, and the TRAIN
+forward of the ``rpn`` stage (``RCNN.ENABLED`` False)."""
 
 from __future__ import annotations
 
@@ -24,24 +25,34 @@ def num_classes_for(cfg) -> int:
 
 
 class PointRCNN(nn.Module):
-    """Eval forward of the two-stage detector.  Training, the offline RCNN
-    mode (``RPN.ENABLED`` False) and the TRAIN budgets are not ported."""
+    """The two-stage detector.  ``mode="TEST"`` builds it for the eval
+    forward (and starts it in eval mode); ``mode="TRAIN"`` for training the
+    ``rpn`` stage, which needs ``RCNN.ENABLED`` False: a TRAIN model in
+    training mode returns the RPN outputs.  Not ported, and raising: the
+    ``rcnn`` stage (TRAIN with the RCNN, ROADMAP B7), the offline RCNN
+    (``RPN.ENABLED`` False)."""
 
     def __init__(self, cfg, num_classes: int | None = None, mode: str = "TEST",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if mode != "TEST":
-            raise NotImplementedError(f"mode {mode!r} (training) is not ported; only 'TEST' is")
+        if mode not in ("TEST", "TRAIN"):
+            raise ValueError(f"mode must be 'TEST' or 'TRAIN', got {mode!r}")
         if not cfg.RPN.ENABLED:
             raise NotImplementedError("RPN.ENABLED False (offline RCNN) is not ported")
+        if mode == "TRAIN" and cfg.RCNN.ENABLED:
+            raise NotImplementedError(
+                "mode 'TRAIN' with RCNN.ENABLED (the rcnn training stage: online "
+                "targets, ROADMAP B7) is not ported; the rpn stage is")
         self.cfg, self.mode = cfg, mode
         self.rpn = RPN(cfg, gen=generator)
         if cfg.RCNN.ENABLED:
             self.rcnn_net = RCNNNet(cfg, num_classes or num_classes_for(cfg), gen=generator)
+        self.train(mode == "TRAIN")
 
-    def forward(self, input_data: dict) -> dict:
+    def forward(self, input_data: dict, generator: torch.Generator | None = None) -> dict:
+        """``generator`` draws the dropout masks in training."""
         cfg = self.cfg
-        output = dict(self.rpn(input_data["pts_input"]))
+        output = dict(self.rpn(input_data["pts_input"], generator))
         if not cfg.RCNN.ENABLED:
             return output
         backbone_xyz = output["backbone_xyz"]

@@ -1,5 +1,6 @@
 """PointNet++ set abstraction and feature propagation (counterpart of
-``pointrcnn_tpu/models/pointnet2.py``), eval only."""
+``pointrcnn_tpu/models/pointnet2.py``).  Training follows ``module.training``
+inside the shared MLPs; the sampling and grouping are the same in both."""
 
 from __future__ import annotations
 

@@ -33,18 +33,21 @@ class RPN(nn.Module):
         feat = r.FP_MLPS[0][-1]
         # focal-loss prior: final cls bias = -log((1 - pi) / pi), pi = 0.01
         cls_bias = -float(np.log((1 - 0.01) / 0.01)) if r.LOSS_CLS == "SigmoidFocalLoss" else 0.0
-        self.cls_head = HeadMLP(feat, r.CLS_FC, 1, bn=r.USE_BN, out_kernel_init=lecun_uniform,
-                                out_bias=cls_bias, dtype=dtype, gen=gen)
+        self.cls_head = HeadMLP(feat, r.CLS_FC, 1, bn=r.USE_BN, dp_ratio=r.DP_RATIO,
+                                out_kernel_init=lecun_uniform, out_bias=cls_bias,
+                                dtype=dtype, gen=gen)
         reg_channels = reg_channel_count(r.LOC_SCOPE, r.LOC_BIN_SIZE, r.NUM_HEAD_BIN,
                                          get_xz_fine=r.LOC_XZ_FINE)
         self.reg_head = HeadMLP(feat, r.REG_FC, reg_channels, bn=r.USE_BN,
-                                out_kernel_init=final_layer_init(0.001), dtype=dtype, gen=gen)
+                                dp_ratio=r.DP_RATIO, out_kernel_init=final_layer_init(0.001),
+                                dtype=dtype, gen=gen)
 
-    def forward(self, pts_input):
+    def forward(self, pts_input, generator: torch.Generator | None = None):
+        """``generator`` draws the heads' dropout masks in training."""
         xyz, feats = self.Pointnet2MSG_0(pts_input)
         return {
-            "rpn_cls": self.cls_head(feats),
-            "rpn_reg": self.reg_head(feats),
+            "rpn_cls": self.cls_head(feats, generator),
+            "rpn_reg": self.reg_head(feats, generator),
             "backbone_xyz": xyz,
             "backbone_features": feats,
         }

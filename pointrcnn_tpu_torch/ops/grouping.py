@@ -28,10 +28,6 @@ from pointrcnn_tpu_torch.ops.common import (
 )
 from pointrcnn_tpu_torch.ops.sampling import _banded_fps, _blockwise_stripes, _zsort
 
-# neighbourhood-gather kernel range of feature-table sizes (the TPU predicate)
-_GATHER_MIN_N = 256
-_GATHER_MAX_N = 4096
-
 # the TPU's rank route for single-radius queries on small tables
 _RANK_MAX_N = 1024
 
@@ -162,11 +158,12 @@ def fps_group_banded(xyz, npoint: int, specs):
 def group_points(xyz, features, new_xyz, idx, use_xyz: bool = True, out_dtype=None):
     """Gather neighbourhoods and localise coordinates -> (B, S, K, 3 + C).
 
-    bf16 output with features and ``_GATHER_MIN_N <= N <= _GATHER_MAX_N``
-    goes through the neighbourhood-gather kernel, as on the TPU."""
+    bf16 output with features that the TPU kernel's predicate admits
+    (:func:`cuda_gather.group_points_supported`) goes through the
+    neighbourhood-gather kernels, forward and backward, as on the TPU."""
     dt = out_dtype or xyz.dtype
-    if (use_xyz and features is not None and dt == torch.bfloat16
-            and _GATHER_MIN_N <= features.shape[1] <= _GATHER_MAX_N):
+    if (use_xyz and dt == torch.bfloat16
+            and cuda_gather.group_points_supported(features, idx)):
         return cuda_gather.group_points(xyz, features, new_xyz, idx)
     grouped_xyz = (gather_points(xyz, idx) - new_xyz[:, :, None, :]).to(dt)
     if features is None:
@@ -184,7 +181,9 @@ def three_nn(unknown, known):
 
 def three_interpolate(features, idx, dist):
     """Inverse-distance-weighted interpolation (B, m, C) -> (B, n, C), the
-    JAX version's f32 gather + weighted sum."""
+    JAX version's f32 gather + weighted sum; gradients flow to ``features``
+    only."""
+    idx, dist = idx.detach(), dist.detach()
     recip = 1.0 / (dist + 1e-8)
     weight = recip / (recip[..., 0:1] + recip[..., 1:2] + recip[..., 2:3])
     nb = gather_points(features, idx).to(torch.float32)  # (B, n, 3, C)

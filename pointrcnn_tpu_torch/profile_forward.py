@@ -23,6 +23,7 @@ Every time is per forward, on the card named in the first line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import time
 from collections import defaultdict
@@ -52,23 +53,21 @@ def _stages(model):
 
 class _Spans:
     """A record_function range and a pair of CUDA events around each call of
-    each stage; ``ms()`` sums the event spans per stage name."""
+    each stage (default: every stage of the eval forward); ``ms()`` sums the
+    event spans per stage name."""
 
-    def __init__(self, model):
+    def __init__(self, model, stages=None):
         self.events = defaultdict(list)
         self._open = []
-        for name, mod in _stages(model):
+        for name, mod in stages if stages is not None else _stages(model):
             mod.register_forward_pre_hook(lambda m, a, name=name: self.enter(name))
             mod.register_forward_hook(lambda m, a, o: self.exit())
         for fn in ("proposal_layer", "roipool3d"):
             orig = getattr(point_rcnn, fn)
 
             def wrapped(*a, _orig=orig, _name=fn.replace("_", " "), **kw):
-                self.enter(_name)
-                try:
+                with self.span(_name):
                     return _orig(*a, **kw)
-                finally:
-                    self.exit()
 
             setattr(point_rcnn, fn, wrapped)
 
@@ -85,6 +84,14 @@ class _Spans:
         end.record()
         rf.__exit__(None, None, None)
         self.events[name].append((start, end))
+
+    @contextlib.contextmanager
+    def span(self, name):
+        self.enter(name)
+        try:
+            yield
+        finally:
+            self.exit()
 
     def ms(self):
         torch.cuda.synchronize()

@@ -27,6 +27,8 @@ from pointrcnn_tpu.ops import sampling as jsampling
 
 from pointrcnn_tpu_torch.ops import common, cuda_ballquery, grouping, roipool3d, sampling
 
+from test_torch_port_slice import one_torch_thread  # noqa: F401 (fixture)
+
 # one ulp for each of the two adds XLA's CPU backend may contract
 DIST_ULP = 2
 

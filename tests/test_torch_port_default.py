@@ -40,6 +40,7 @@ from test_torch_port_slice import (
     _count_routes,
     _run_both,
     _stages_match_jax,
+    one_torch_thread,  # noqa: F401 (fixture)
 )
 
 KERNEL_MIN_N = 512

@@ -32,6 +32,8 @@ from pointrcnn_tpu_torch.ops import cuda_fps, cuda_gather, cuda_knn, cuda_mlp
 from pointrcnn_tpu_torch.ops import grouping, nms, roipool3d
 from pointrcnn_tpu_torch.utils import box_coder, box_ops
 
+from test_torch_port_slice import one_torch_thread  # noqa: F401 (fixture)
+
 # The fused kernel and its references multiply bf16 values exactly and
 # accumulate in f32, but sum in different orders (the MXU's, numpy's), so a
 # hidden activation can land on the neighbouring bf16 value (2^-8 relative)

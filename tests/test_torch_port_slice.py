@@ -54,6 +54,19 @@ from pointrcnn_tpu_torch.ops import cuda_ballquery, cuda_fps, cuda_gather, cuda_
 
 _CFG = pathlib.Path(__file__).resolve().parent.parent / "cfgs" / "default.yaml"
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Torch on one thread for each port test (every ``test_torch_*`` module
+    imports this fixture): test processes run side by side, and torch's
+    thread pool spins when the cores are oversubscribed (a 0.4 s train-step
+    test took minutes in a six-process run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # tiny widths and point counts; every stage keeps the flagship's structure
 TINY = [
     "RCNN.ENABLED", "True", "RPN.NUM_POINTS", "1024",
@@ -354,5 +367,13 @@ def test_port_config_equals_jax_config(name):
 
 
 def test_training_mode_raises():
-    with pytest.raises(NotImplementedError):
+    """The rpn stage trains (``tests/test_torch_train_*.py``); the rcnn stage
+    (TRAIN with the RCNN) and the offline RCNN (RPN disabled) still raise."""
+    with pytest.raises(NotImplementedError, match="rcnn training stage"):
         PointRCNN(_cfg("float32"), mode="TRAIN")
+    offline = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RPN.ENABLED", "False"])
+    for mode in ("TRAIN", "TEST"):
+        with pytest.raises(NotImplementedError, match="offline RCNN"):
+            PointRCNN(offline, mode=mode)
+    rpn_only = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RCNN.ENABLED", "False"])
+    assert PointRCNN(rpn_only, mode="TRAIN").training
