@@ -8,7 +8,8 @@ Run from the repository root on a machine with one CUDA device:
 Phases (any failure exits non-zero and the final ``ok`` line is not printed):
 
 1. print the card (``nvidia-smi`` name and power limit) and turn TF32 off;
-2. build the six hand-written kernels from ``pointrcnn_tpu_torch/csrc``
+2. build the hand-written kernels from the five ``pointrcnn_tpu_torch/csrc``
+   sources
    (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the forward gives it, time both, and compute its bound;
@@ -29,7 +30,18 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    points: ms/step, frames/s and peak memory over timed steps, every kernel
    of the path launched (the gather forward and backward 6 times a step),
    parameters and BN statistics updated, a batch-2 step against the port's
-   CPU path, and a checkpoint resume that reproduces the next step's loss.
+   CPU path, and a checkpoint resume that reproduces the next step's loss;
+8. the fused MLP backward (K7) against its plain version at the ``rcnn``
+   training stage's shapes (RCNN SA1 fold, SA2 hilo, batch 4) and a small
+   three-layer K=32 shape: deterministic, no dropped tie, within the stated
+   norm bound of the plain version on the card (checked with the kernels
+   in phase 3);
+9. the ``rcnn`` training stage (``train_entry(stage="rcnn")``: a fixed RPN
+   from the rpn stage's checkpoint, online proposals and targets) at batch
+   4 x 16384 points: ms/step, frames/s and peak memory, the launches of a
+   step (K2 6, K7 2, K4 2, K8 0), every RCNN parameter updated, every RPN
+   parameter moved by the weight decay alone and its BN statistics still,
+   and a batch-1 step against the port's CPU path.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -85,12 +97,23 @@ KERNELS = (
      "pointrcnn_tpu/ops/pallas_ballquery.py:229", "cuda_ballquery", "banded_launches"),
     ("gather_backward", "pointrcnn_tpu_torch/csrc/gather.cu",
      "pointrcnn_tpu/ops/pallas_gather.py:95", "cuda_gather", "bwd_launches"),
+    ("fused_group_mlp_backward", "pointrcnn_tpu_torch/csrc/mlp.cu",
+     "pointrcnn_tpu/ops/pallas_mlp.py:458", "cuda_mlp", "bwd_launches"),
 )
-# the kernels of each path: the eval forward, the rpn training stage
+# the kernels of each path: the eval forward, the rpn and the rcnn training
+# stages
 EVAL_KERNELS = ("fps", "three_nn", "group_gather", "fused_group_mlp_max", "ball_query",
                 "ball_query_banded")
 TRAIN_KERNELS = ("fps", "three_nn", "group_gather", "ball_query", "ball_query_banded",
                  "gather_backward")
+RCNN_TRAIN_KERNELS = ("fps", "three_nn", "group_gather", "fused_group_mlp_max", "ball_query",
+                      "ball_query_banded", "fused_group_mlp_backward")
+# launches a step of the rcnn stage: K2 at RPN SA3 and SA4 (two radii each,
+# eval) and RCNN SA1 and SA2, K7 at RCNN SA1 and SA2, K4 at RPN SA2 (two
+# radii, eval), no K8 (nothing before the RCNN's SA stacks needs a gradient)
+RCNN_STEP_LAUNCHES = {"fused_group_mlp_max": 6, "fused_group_mlp_backward": 2,
+                      "group_gather": 2, "gather_backward": 0}
+RCNN_BATCH = 4
 
 # a batch-2 train step on the card against the same step on the CPU (plain
 # versions), both in bf16: f32 sums in another order flip bf16 roundings,
@@ -99,6 +122,13 @@ TRAIN_KERNELS = ("fps", "three_nn", "group_gather", "ball_query", "ball_query_ba
 # relative, the gradient norm within 2e-2, each gradient leaf within 0.1 of
 # the global gradient norm
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_SHARE = 1e-3, 2e-2, 0.1
+# a batch-1 rcnn step on the card against the CPU path from the same RPN
+# outputs, weights and target draws: the proposal and target layers decide
+# the same, so the RCNN's K2/K7 against their plain versions (f32 sums in
+# another order; a maximum within an ulp of its runner-up can take another
+# neighbour) is what differs: the loss within 1e-3 relative, the gradient
+# norm within 1e-2, each RCNN gradient leaf within 5e-2 of the global norm
+RCNN_LOSS_RTOL, RCNN_GNORM_RTOL, RCNN_LEAF_SHARE = 1e-3, 1e-2, 5e-2
 
 
 def log(msg: str) -> None:
@@ -180,7 +210,7 @@ def phase_build():
     from pointrcnn_tpu_torch import _build
 
     sources = (("fps", _build.NO_FMAD), ("knn", _build.NO_FMAD), ("gather", _build.NO_FMAD),
-               ("mlp", ()), ("ballquery", _build.NO_FMAD))
+               ("mlp", _build.NO_FMAD), ("ballquery", _build.NO_FMAD))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(_build.load, name, flags) for name, flags in sources]:
@@ -419,6 +449,112 @@ def check_mlp():
         if e > MLP_REL_TOL * scale:
             raise AssertionError(f"fused mlp ragged case fold={fold}: max err {e} vs scale {scale}")
         log(f"fused mlp ragged B=2 N=100 S=10 K=8 (24, 40, 36, 20) fold={fold}: max err {e:.3e}")
+    return tally
+
+
+# (name, B, N, C, S, K, widths, mode): K7 at the rcnn training stage's SA
+# stages at batch 4 (64 rois a frame), and a smaller three-layer K=32 shape
+MLP_BWD_SHAPES = (
+    ("RCNN SA1", 4 * 64, 512, 128, 128, 64, (128, 128, 128), "fold"),
+    ("RCNN SA2", 4 * 64, 128, 128, 32, 64, (128, 128, 256), "hilo"),
+    ("small", 8, 256, 32, 64, 32, (32, 48, 64), "fold"),
+    ("small", 8, 256, 32, 64, 32, (32, 48, 64), "hilo"),
+)
+# K7 against its plain version on the card, each fed its own forward's
+# output: the same products in another summation order (WMMA tiles and f32
+# partial sums against cuBLAS and index_add_), so each output is held in
+# norm, ||kernel - plain|| <= MLP_BWD_REL_TOL ||plain||.  A maximum within an
+# f32 ulp of its runner-up can go to the other neighbour (a few dozen of the
+# 4.2M maxima over 64 neighbours at RCNN SA1, each moving a whole cotangent:
+# measured 9.5e-4 of the norm there, 1.3e-6 at the small shape), and a ReLU
+# input within an ulp of 0 can flip its mask, which a max-abs bound would
+# not forgive
+MLP_BWD_REL_TOL = 5e-3
+
+
+def _mlp_bwd_case(B, N, C, S, K, widths, fold, seed):
+    from pointrcnn_tpu_torch.models.layers import xavier_normal
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+
+    g = torch.Generator().manual_seed(seed)
+    xyz = _roi_cloud(B, N, seed)
+    feats = torch.relu(torch.randn((B, N, C), generator=g)).cuda()
+    new_xyz = xyz[:, :S].contiguous()
+    idx = torch.randint(0, N, (B, S, K), generator=g, dtype=torch.int32)
+    idx[:, : S // 4, K // 2:] = idx[:, : S // 4, :1]  # the ball query's backfill
+    idx = idx.cuda()
+    ws, bs, cin = [], [], 3 + C
+    for f in widths:
+        ws.append(xavier_normal(cin, f, g).cuda())
+        bs.append((torch.randn(f, generator=g) * 0.1).cuda())
+        cin = f
+    ops = cuda_mlp.prepare_operands(fold, xyz, feats, new_xyz, ws, bs)
+    table, cent, w0x, lws, lbs = ops
+    ct = torch.randn((B, S, lws[-1].shape[1]), generator=g).cuda()
+    return xyz, idx, table, cent, w0x, lws, lbs, ct
+
+
+def _named(res):
+    """K7's (dtable, dxyz, dcent, dw0x, dws, dbs) -> [(name, tensor)], the
+    absent ones of fold mode left out."""
+    dtable, dxyz, dcent, dw0x, dws, dbs = res
+    out = [("dtable", dtable), ("dxyz", dxyz), ("dcent", dcent), ("dw0x", dw0x)]
+    out += [(f"dw{j + 1}", d) for j, d in enumerate(dws)] + [(f"db{j}", d) for j, d in enumerate(dbs)]
+    return [(n, t) for n, t in out if t is not None]
+
+
+def check_mlp_bwd():
+    """K7 at the rcnn stage's shapes: two launches bit-equal (every sum in a
+    fixed order), no dropped tie (the no-match count stays 0), each output
+    within MLP_BWD_REL_TOL of the plain version in norm."""
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+
+    tally = Tally()
+    cuda_mlp.reset_nomatch()
+    for name, B, N, C, S, K, widths, mode in MLP_BWD_SHAPES:
+        fold = mode == "fold"
+        xyz, idx, table, cent, w0x, ws, bs, ct = _mlp_bwd_case(B, N, C, S, K, widths, fold,
+                                                               N + K + len(name))
+        idx_p = cuda_mlp.pad_idx(idx, N)
+        out = cuda_mlp._launch(fold, table, xyz, cent, w0x, ws, bs, idx_p, checked=True)
+        bwd = lambda: cuda_mlp._launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx_p, K, out, ct)
+        got, again = bwd(), bwd()
+        if not all(torch.equal(a, b) for (_, a), (_, b) in zip(_named(got), _named(again))):
+            raise AssertionError(f"mlp backward {name} {mode}: two launches differ")
+        torch.cuda.synchronize()
+        nomatch = cuda_mlp.nomatch_count()
+        if nomatch:
+            raise AssertionError(f"mlp backward {name} {mode}: {nomatch} maxima found no match")
+        plain_out = cuda_mlp.fused_group_plain(fold, table, xyz, cent, w0x, ws, bs, idx)
+        ref = cuda_mlp.fused_group_backward_plain(fold, table, xyz, cent, w0x, ws, bs, idx,
+                                                  plain_out, ct)
+        worst = err = 0.0
+        for (what, a), (_, b) in zip(_named(got), _named(ref)):
+            rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            worst, err = max(worst, rel), max(err, (a - b).abs().max().item())
+            if not (torch.isfinite(a).all() and rel <= MLP_BWD_REL_TOL):
+                raise AssertionError(f"mlp backward {name} {mode}: {what} off the plain version "
+                                     f"by {rel:.3e} of its norm")
+        k = cuda_ms(bwd, 5)
+        p = cuda_ms(lambda: cuda_mlp.fused_group_backward_plain(
+            fold, table, xyz, cent, w0x, ws, bs, idx, plain_out, ct), 1)
+        del ref, plain_out
+        # bf16 products: the forward's layers 1.. recomputed, then per layer
+        # j >= 1 the dW and dz products; layer 0's geometry lanes are few
+        macs = 3 * sum(a * b for a, b in zip(widths, widths[1:]))
+        ops_n = 2.0 * B * S * K * macs
+        nb = nbytes(table, None if fold else xyz, cent, w0x, *ws, *bs, idx, out, ct,
+                    *(t for _, t in _named(got)))
+        tag = ""
+        if name != "small":
+            bound = tally.add(k, p, nb, ops_n, PEAK_BF16_PER_MS)
+            tally.err = max(tally.err, err)
+            tag = " (rcnn stage)"
+        else:
+            bound = max(nb / PEAK_BYTES_PER_MS, ops_n / PEAK_BF16_PER_MS)
+        log(f"mlp backward {name}{tag} B={B} N={N} C={C} S={S} K={K} {widths} {mode}: "
+            f"deterministic, no dropped tie, worst {worst:.3e} of the plain version's norm "
+            f"(tol {MLP_BWD_REL_TOL}), max abs err {err:.3e}; kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
     return tally
 
 
@@ -682,21 +818,140 @@ def phase_train(train_launches):
 
     _train_against_cpu()
 
-    # checkpoint save -> load into a fresh state -> the next step's loss
+    # checkpoint save -> load into a fresh state -> the next step's loss;
+    # the checkpoint is the rcnn stage's RPN
     ckpt_dir = os.path.join(REPO, "pointrcnn_tpu_torch", "_build", "smoke_ckpt")
-    try:
-        path = checkpoint.save_checkpoint(ckpt_dir, state, epoch=1, it=state.step)
-        state, tb = step(state, batch)
-        del state
-        _, (fresh, _) = train_entry(batch=TRAIN_BATCH, device="cuda", seed=1)
-        fresh, epoch, it = checkpoint.load_checkpoint(path, fresh)
-        fresh, tb2 = step(fresh, batch)
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    path = checkpoint.save_checkpoint(ckpt_dir, state, epoch=1, it=state.step)
+    state, tb = step(state, batch)
+    del state
+    _, (fresh, _) = train_entry(batch=TRAIN_BATCH, device="cuda", seed=1)
+    fresh, epoch, it = checkpoint.load_checkpoint(path, fresh)
+    fresh, tb2 = step(fresh, batch)
     if not torch.equal(tb["loss"], tb2["loss"]):
         raise AssertionError(f"resumed step loss {tb2['loss'].item()} != {tb['loss'].item()}")
     log(f"checkpoint resume (epoch {epoch}, it {it}): next-step loss bit-equal "
         f"({tb2['loss'].item():.6f})")
+    return path
+
+
+def _rcnn_against_cpu(rpn_ckpt):
+    """A batch-1 rcnn step on the card against the port's CPU path: the
+    same weights, the same target draws, and the card's RPN outputs handed
+    to the CPU model (the RPN is fixed, and its eval forward is held to the
+    CPU path in phase_default)."""
+    from pointrcnn_tpu_torch.entry import train_entry
+    from pointrcnn_tpu_torch.models.target import target_draws
+    from pointrcnn_tpu_torch.train.state import loss_and_grads
+
+    _, (state, batch) = train_entry(batch=1, device="cuda", seed=5, stage="rcnn", rpn_ckpt=rpn_ckpt)
+    model, cfg = state.model, state.model.cfg
+    cpu_model = copy.deepcopy(model).cpu()
+    seen = {}
+    model.register_forward_hook(lambda m, a, o: seen.update(card=o))
+    cpu_model.register_forward_hook(lambda m, a, o: seen.update(cpu=o))
+    with torch.no_grad():
+        rpn_out = model.rpn(batch["pts_input"])
+    model.rpn.forward = lambda pts, generator=None: dict(rpn_out)
+    cpu_model.rpn.forward = lambda pts, generator=None: {k: v.cpu() for k, v in rpn_out.items()}
+    draws = target_draws(cfg, torch.Generator(device="cuda").manual_seed(11), 1,
+                         cfg.TRAIN.RPN_POST_NMS_TOP_N, device="cuda")
+    gl, gtb, gg = loss_and_grads(model, cfg, batch, targets=draws)
+    t0 = time.perf_counter()
+    cl, _, cg = loss_and_grads(cpu_model, cfg, {k: v.cpu() for k, v in batch.items()},
+                               targets={k: v.cpu() for k, v in draws.items()})
+    log(f"rcnn step vs cpu: cpu reference step {time.perf_counter() - t0:.1f} s")
+    for k in ("cls_label", "reg_valid_mask"):
+        if not torch.equal(seen["card"][k].cpu(), seen["cpu"][k]):
+            raise AssertionError(f"rcnn step vs cpu: the target layer's {k} differs")
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in cg.values())))
+    card_norm = float(torch.sqrt(sum((g.double().cpu() ** 2).sum() for g in gg.values())))
+    e_loss, e_norm = abs(gl.item() / cl.item() - 1), abs(card_norm / gnorm - 1)
+    share = max(float((gg[k].cpu() - g).norm()) / gnorm for k, g in cg.items()
+                if k.startswith("rcnn_net."))
+    log(f"rcnn step vs cpu (batch 1, {int(gtb['rcnn_cls_fg'])} fg / {int(gtb['rcnn_cls_bg'])} bg "
+        f"rois, same decisions): loss {gl.item():.6f} vs {cl.item():.6f} (rel {e_loss:.2e}, tol "
+        f"{RCNN_LOSS_RTOL}), grad norm {card_norm:.6f} vs {gnorm:.6f} (rel {e_norm:.2e}, tol "
+        f"{RCNN_GNORM_RTOL}), worst RCNN gradient leaf {share:.2e} of the global norm "
+        f"(tol {RCNN_LEAF_SHARE})")
+    if e_loss > RCNN_LOSS_RTOL or e_norm > RCNN_GNORM_RTOL or share > RCNN_LEAF_SHARE:
+        raise AssertionError("the card's rcnn step differs from the CPU path")
+
+
+def phase_rcnn_train(rcnn_launches, rpn_ckpt):
+    """The rcnn training stage at batch 4 x 16384 points, the RPN from the
+    rpn stage's checkpoint."""
+    from pointrcnn_tpu_torch.entry import KITTI_TRAIN_FRAMES, TRAIN_EPOCHS, train_entry
+    from pointrcnn_tpu_torch.models import layers
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+    from pointrcnn_tpu_torch.train.optimizer import build_optimizer, steps_for
+
+    step, (state, batch) = train_entry(device="cuda", seed=0, stage="rcnn", rpn_ckpt=rpn_ckpt)
+    model = state.model
+    if batch["pts_input"].shape[0] != RCNN_BATCH:
+        raise AssertionError(f"rcnn stage batch {batch['pts_input'].shape[0]}")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    rpn_params = {k: v for k, v in model.named_parameters() if k.startswith("rpn.")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    layers.generic_grouped_train = 0
+    cuda_mlp.reset_nomatch()
+    for _ in range(TRAIN_WARMUP):
+        state, tb = step(state, batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        state, tb = step(state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_TIMED
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"rcnn train batch {RCNN_BATCH} x {batch['pts_input'].shape[1]} points: "
+        f"{1000 * dt:.3f} ms/step, {RCNN_BATCH / dt:.3f} frames/s ({TRAIN_TIMED} steps after "
+        f"{TRAIN_WARMUP} warm-up), peak memory {peak / 2 ** 30:.3f} GiB")
+    loss, gnorm = tb["loss"].item(), tb["grad_norm"].item()
+    log(f"rcnn train launches over {TRAIN_TIMED} steps: {counts}; loss {loss:.6f}, grad norm "
+        f"{gnorm:.6f}, rcnn_cls_fg {int(tb['rcnn_cls_fg'])}, rcnn_cls_bg {int(tb['rcnn_cls_bg'])}, "
+        f"rcnn_reg_fg {int(tb['rcnn_reg_fg'])}")
+    if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"rcnn train step: loss {loss}, grad norm {gnorm}")
+    for name, n in RCNN_STEP_LAUNCHES.items():
+        if counts[name] != n * TRAIN_TIMED:
+            raise AssertionError(f"rcnn train step: {name} launched {counts[name]} times in "
+                                 f"{TRAIN_TIMED} steps, not {n} a step")
+    for name in RCNN_TRAIN_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the rcnn train path")
+    if layers.generic_grouped_train or cuda_mlp.nomatch_count():
+        raise AssertionError(f"rcnn train step: {layers.generic_grouped_train} SA stacks off the "
+                             f"fused route, {cuda_mlp.nomatch_count()} dropped maxima")
+    rcnn_launches.update(counts)
+
+    after = model.state_dict()
+    rcnn = [k for k, _ in model.named_parameters() if k.startswith("rcnn_net.")]
+    still = [k for k in rcnn if torch.equal(after[k], before[k])]
+    if still:
+        raise AssertionError(f"rcnn train step: RCNN parameters unchanged: {still}")
+    # the fixed RPN: zero gradients, so Adam's update is 0 and each step
+    # applies the weight decay alone, p <- p - lr * (wd * p), in the
+    # optimizer's f32 arithmetic; its BN statistics do not move
+    opt = build_optimizer(model.cfg, *steps_for(KITTI_TRAIN_FRAMES, RCNN_BATCH, TRAIN_EPOCHS))
+    for k in rpn_params:
+        p = before[k].clone()
+        for count in range(TRAIN_WARMUP + TRAIN_TIMED):
+            u = 0.0 + opt.weight_decay * p
+            p = p + (-opt.lr(count) * u)
+        if not torch.equal(after[k], p):
+            raise AssertionError(f"rcnn train step: RPN parameter {k} moved by "
+                                 f"{(after[k] - before[k]).abs().max().item()}, not by the "
+                                 f"weight decay alone")
+    moved_stats = [k for k, _ in model.named_buffers() if not torch.equal(after[k], before[k])]
+    if moved_stats:
+        raise AssertionError(f"rcnn train step: RPN BN statistics moved: {moved_stats[:3]}")
+    log(f"rcnn train step: all {len(rcnn)} RCNN parameters updated; all {len(rpn_params)} RPN "
+        f"parameters moved by the weight decay alone (bit-equal), BN statistics unchanged")
+    del state, step, batch, model
+    _rcnn_against_cpu(rpn_ckpt)
 
 
 def main() -> int:
@@ -708,18 +963,26 @@ def main() -> int:
     card = phase_card()
     phase_build()
     tallies = {"fps": check_fps(), "three_nn": check_knn(), "group_gather": check_gather(),
-               "fused_group_mlp_max": check_mlp(), "gather_backward": check_gather_bwd()}
+               "fused_group_mlp_max": check_mlp(), "gather_backward": check_gather_bwd(),
+               "fused_group_mlp_backward": check_mlp_bwd()}
     tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
-    launches, train_launches = {}, {}
+    launches, train_launches, rcnn_launches = {}, {}, {}
     phase_default(launches)
     phase_exact()
-    phase_train(train_launches)
+    ckpt = phase_train(train_launches)
+    try:
+        phase_rcnn_train(rcnn_launches, ckpt)
+    finally:
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
     # launches: the count of the eval forward's run, or for a kernel that
-    # only the training stage runs, of the training run; train_launches: the
-    # training run's
+    # only a training stage runs, of that stage's run (the rpn stage's for
+    # the gather backward, the rcnn stage's for the MLP backward);
+    # train_launches and rcnn_train_launches: each training run's
     rows = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": launches[name] if name in EVAL_KERNELS else train_launches[name],
-             "train_launches": train_launches[name], **tallies[name].row()}
+             "launches": launches[name] if name in EVAL_KERNELS else
+             (train_launches[name] if name in TRAIN_KERNELS else rcnn_launches[name]),
+             "train_launches": train_launches[name], "rcnn_train_launches": rcnn_launches[name],
+             **tallies[name].row()}
             for name, source, replaces, _, _ in KERNELS]
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,8 @@
 """The port's entry points, on random weights drawn from a seed and synthetic
 scenes: :func:`entry`, the counterpart of ``__graft_entry__.entry()`` (the
 two-stage eval forward of ``cfgs/default.yaml``), and :func:`train_entry`,
-the ``rpn`` training stage (``tools/train.py --train_mode rpn``).
+the ``rpn`` and ``rcnn`` training stages (``tools/train.py --train_mode rpn``
+and ``--train_mode rcnn``).
 
 The default is the config as it stands (blockwise FPS, the approximate
 stride-class ball query, ``auto`` roipool), as ``bench.py`` runs it.
@@ -19,6 +20,8 @@ import torch
 
 from pointrcnn_tpu_torch.config import load_config
 from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
+from pointrcnn_tpu_torch.models.proposal import proposal_layer
+from pointrcnn_tpu_torch.train.checkpoint import load_params_partial
 from pointrcnn_tpu_torch.train.optimizer import bn_momentum_for_epoch, build_optimizer, steps_for
 from pointrcnn_tpu_torch.train.state import create_train_state, make_train_step
 
@@ -109,23 +112,66 @@ def rpn_config(overrides: list[str] | None = None):
                           + list(overrides or []))
 
 
-def train_entry(batch: int = 16, device: str | torch.device | None = None, seed: int = 0,
-                cfg=None):
-    """Return ``(step_fn, (state, batch_dict))`` for the ``rpn`` training
-    stage of ``cfg`` (default :func:`rpn_config`) on ``device`` (default
-    ``cuda``): weights drawn from ``seed``, a :func:`synthetic_scene` batch,
-    ``adam_onecycle`` over 200 epochs of the KITTI train split, BN momentum
-    of epoch 0.  ``step_fn(state, batch_dict) -> (state, metrics)``."""
+def rcnn_config(overrides: list[str] | None = None):
+    """``cfgs/default.yaml`` as ``tools/train.py --train_mode rcnn`` sets it
+    (a fixed RPN, the RCNN on online proposals and targets) + ``overrides``."""
+    return default_config(["RPN.ENABLED", "True", "RPN.FIXED", "True", "RCNN.ENABLED", "True"]
+                          + list(overrides or []))
+
+
+def gt_on_proposals(model: PointRCNN, data: dict) -> dict:
+    """The scene's gt boxes moved onto the fixed RPN's best proposals: each
+    frame's valid boxes become its first valid TRAIN proposals (as many as
+    it has boxes, fewer if it has fewer proposals).  Behind an RPN of random
+    weights no proposal overlaps a planted box, and the rcnn stage would
+    sample no foreground roi; behind a trained RPN it samples up to
+    ``FG_RATIO`` of them, which this restores."""
+    with torch.no_grad():
+        out = model.rpn(data["pts_input"])
+        rois, _, roi_valid = proposal_layer(model.cfg, "TRAIN", out["rpn_cls"][..., 0],
+                                            out["rpn_reg"], out["backbone_xyz"])
+    boxes, valid = data["gt_boxes3d"].clone(), torch.zeros_like(data["gt_valid"])
+    for b in range(boxes.shape[0]):
+        sel = torch.nonzero(roi_valid[b])[:, 0][: int(data["gt_valid"][b].sum())]
+        boxes[b, : len(sel)] = rois[b, sel]
+        valid[b, : len(sel)] = True
+    return {**data, "gt_boxes3d": boxes, "gt_valid": valid}
+
+
+# the stages' configs and batch sizes (``tools/bench_train.py``)
+STAGES = {"rpn": (rpn_config, 16), "rcnn": (rcnn_config, 4)}
+
+
+def train_entry(batch: int | None = None, device: str | torch.device | None = None,
+                seed: int = 0, cfg=None, stage: str = "rpn", rpn_ckpt: str | None = None):
+    """Return ``(step_fn, (state, batch_dict))`` for the ``stage`` (``"rpn"``
+    or ``"rcnn"``) training stage of ``cfg`` (default :func:`rpn_config` or
+    :func:`rcnn_config`) at ``batch`` frames (default 16 or 4) on ``device``
+    (default ``cuda``): weights drawn from ``seed``, the RPN's taken from the
+    checkpoint ``rpn_ckpt`` where given (the rpn -> rcnn hand-off), a
+    :func:`synthetic_scene` batch (for ``rcnn`` with its gt boxes moved
+    onto the RPN's proposals, :func:`gt_on_proposals`), ``adam_onecycle``
+    over 200 epochs of the
+    KITTI train split, BN momentum of epoch 0.
+    ``step_fn(state, batch_dict[, targets]) -> (state, metrics)``."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {sorted(STAGES)}, got {stage!r}")
+    make_cfg, default_batch = STAGES[stage]
+    batch = default_batch if batch is None else batch
     device = torch.device("cuda" if device is None else device)
-    cfg = rpn_config() if cfg is None else cfg
+    cfg = make_cfg() if cfg is None else cfg
     tx = build_optimizer(cfg, *steps_for(KITTI_TRAIN_FRAMES, batch, TRAIN_EPOCHS))
     state = create_train_state(cfg, tx, seed=seed, device=device)
+    if rpn_ckpt is not None:
+        load_params_partial(rpn_ckpt, state.model, ("rpn",))
     scene = synthetic_scene(batch, cfg.RPN.NUM_POINTS, cfg.RCNN.MAX_GT_BOXES, seed)
     data = {k: torch.from_numpy(v).to(device) for k, v in scene.items()}
+    if stage == "rcnn":
+        data = gt_on_proposals(state.model, data)
     train_step = make_train_step(cfg, tx, seed)
     momentum = bn_momentum_for_epoch(cfg, 0)
 
-    def step_fn(state, batch_dict):
-        return train_step(state, batch_dict, momentum)
+    def step_fn(state, batch_dict, targets=None):
+        return train_step(state, batch_dict, momentum, targets)
 
     return step_fn, (state, data)

@@ -34,6 +34,7 @@ from torch import nn
 
 from pointrcnn_tpu_torch.ops.cuda_mlp import (
     fold_geometry_profitable,
+    fused_group_bwd_supported,
     fused_group_mlp_max,
     fused_group_mlp_max_supported,
     fused_mlp_max,
@@ -41,6 +42,10 @@ from pointrcnn_tpu_torch.ops.cuda_mlp import (
 from pointrcnn_tpu_torch.ops.grouping import group_points
 
 BN_EPS = 1e-5
+
+# training forwards of BN-free grouped stacks that missed the fused route
+# (the fused forward or backward predicate failed) and took the generic one
+generic_grouped_train = 0
 
 
 # --- initialisers: (fan_in, fan_out, generator) -> (fan_in, fan_out) tensor
@@ -170,10 +175,13 @@ class SharedMLP(nn.Module):
     weights and the stack runs through the fused gather + MLP + max kernel
     where the TPU predicate admits it, else through ``group_points`` and the
     unfused ``fused_mlp_max``, exactly as ``models/layers.py:154-184``
-    dispatches.  In training the neighbourhoods are grouped (the gather
-    kernels, forward and backward, where admitted) and every layer is a bf16
-    dot with f32 accumulation, BN on the batch's statistics and ReLU, then
-    the max over K (``models/layers.py:219-248``).
+    dispatches.  In training a BN-free grouped stack takes the fused kernel
+    with its fused backward where both predicates admit the stage
+    (``models/layers.py:186-217``); otherwise the neighbourhoods are grouped
+    (the gather kernels, forward and backward, where admitted) and every
+    layer is a bf16 dot with f32 accumulation, BN on the batch's statistics
+    (or the bias) and ReLU, then the max over K
+    (``models/layers.py:219-248``).
     """
 
     def __init__(self, cin, features, bn=True, kernel_init=torch_conv_init,
@@ -236,12 +244,20 @@ class SharedMLP(nn.Module):
         return x
 
     def _train_forward(self, x, reduce_max, group_args, dt):
+        global generic_grouped_train
         if group_args is not None:
-            if not self.bn:
-                raise NotImplementedError(
-                    "training a BN-free grouped SharedMLP (the rcnn stage's fused "
-                    "gather + MLP backward, ROADMAP B7) is not ported")
             g_xyz, g_feats, g_new_xyz, g_idx, g_use_xyz = group_args
+            if not self.bn:
+                # a BN-free stack (the RCNN SA stack) has no batch statistics:
+                # the fused kernels in both directions, where both admit the
+                # stage (models/layers.py:186-217); else the generic route
+                if fused_group_mlp_max_supported(g_feats, g_idx, dt) \
+                        and fused_group_bwd_supported(g_feats, g_idx):
+                    ws, bs = self.folded()
+                    return fused_group_mlp_max(
+                        g_xyz, g_feats, g_new_xyz, g_idx, ws, bs, g_use_xyz,
+                        fold_geometry=self.fold_geometry and fold_geometry_profitable(g_feats))
+                generic_grouped_train += 1
             x = group_points(g_xyz, g_feats, g_new_xyz, g_idx, g_use_xyz, out_dtype=dt)
             reduce_max = True
         for i in range(self.n):

@@ -43,21 +43,26 @@ class RCNNNet(nn.Module):
                 fold_geometry=bool(c.SA_FOLD_GEOMETRY), gen=gen))
             cin = sa.MLPS[k][-1]
         cls_channel = 1 if num_classes == 2 else num_classes
-        self.cls_head = HeadMLP(cin, c.CLS_FC, cls_channel, bn=c.USE_BN, kernel_init=xavier_normal,
-                                out_kernel_init=xavier_normal, dtype=dtype, gen=gen)
+        self.cls_head = HeadMLP(cin, c.CLS_FC, cls_channel, bn=c.USE_BN, dp_ratio=c.DP_RATIO,
+                                kernel_init=xavier_normal, out_kernel_init=xavier_normal,
+                                dtype=dtype, gen=gen)
         reg_channels = reg_channel_count(c.LOC_SCOPE, c.LOC_BIN_SIZE, c.NUM_HEAD_BIN,
                                          get_xz_fine=True, get_y_by_bin=c.LOC_Y_BY_BIN,
                                          loc_y_scope=c.LOC_Y_SCOPE, loc_y_bin_size=c.LOC_Y_BIN_SIZE)
-        self.reg_head = HeadMLP(cin, c.REG_FC, reg_channels, bn=c.USE_BN, kernel_init=xavier_normal,
+        self.reg_head = HeadMLP(cin, c.REG_FC, reg_channels, bn=c.USE_BN, dp_ratio=c.DP_RATIO,
+                                kernel_init=xavier_normal,
                                 out_kernel_init=final_layer_init(0.001), dtype=dtype, gen=gen)
 
-    def forward(self, pts_input):
-        """(R, num_points, C) -> dict(rcnn_cls (R, 1), rcnn_reg (R, C))."""
+    def forward(self, pts_input, generator: torch.Generator | None = None):
+        """(R, num_points, C) -> dict(rcnn_cls (R, 1), rcnn_reg (R, C)).  In
+        training the SA stacks take the fused kernels in both directions
+        where admitted (BN-free), and ``generator`` draws the heads' dropout
+        masks (``RCNN.DP_RATIO``)."""
         xyz = pts_input[..., 0:3].contiguous()
         xyz_feature = self.xyz_up_layer(pts_input[..., 0:self.in_ch])
         merged = torch.cat([xyz_feature, pts_input[..., self.in_ch:]], dim=-1)
         l_xyz, l_features = xyz, self.merge_down_layer(merged)
         for k in range(self.n_sa):
             l_xyz, l_features = getattr(self, f"SetAbstraction_{k}")(l_xyz, l_features)
-        return {"rcnn_cls": self.cls_head(l_features)[:, 0, :],
-                "rcnn_reg": self.reg_head(l_features)[:, 0, :]}
+        return {"rcnn_cls": self.cls_head(l_features, generator)[:, 0, :],
+                "rcnn_reg": self.reg_head(l_features, generator)[:, 0, :]}

@@ -1,6 +1,7 @@
-"""Fused neighbourhood gather + shared MLP + max over K: CUDA kernel
-``csrc/mlp.cu``, its plain PyTorch version, and the operand build around
-them (counterpart of ``pointrcnn_tpu/ops/pallas_mlp.py``, forward only).
+"""Fused neighbourhood gather + shared MLP + max over K, forward and
+backward: CUDA kernels ``csrc/mlp.cu``, their plain PyTorch versions, the
+operand build around them and the autograd function (counterpart of
+``pointrcnn_tpu/ops/pallas_mlp.py``).
 
 The operands follow ``_prepare_operands`` of the JAX module:
 
@@ -14,6 +15,15 @@ The operands follow ``_prepare_operands`` of the JAX module:
 
 Widths are zero-padded to multiples of 16 (the WMMA tile); padded lanes
 carry zero weights and biases and stay zero through the ReLUs.
+
+The backward (``_pallas_bwd``) works on the same operands: it recomputes the
+forward, splits each output cotangent evenly among the tied maxima, and
+returns the table, centroid and parameter gradients of the padded operands
+(:func:`fused_group_backward_plain` spells out its rounding points);
+:func:`_assemble` maps them back to ``xyz``, ``features``, ``new_xyz`` and
+the unpadded weights and biases, in plain torch as the JAX module does.
+:class:`FusedGroupMLP` is the autograd function: the kernels on CUDA
+tensors, the plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,22 +35,29 @@ import torch
 from pointrcnn_tpu_torch.ops.common import gather_points, split_hilo
 
 launches = 0
+bwd_launches = 0
 
-# dispatch constants of the TPU predicate (pallas_mlp.py), kept so the port
+# dispatch constants of the TPU predicates (pallas_mlp.py), kept so the port
 # routes every stage as the TPU does; tests may lower them
 _CHUNK_S_MAX = 64
 _MAX_ROWS = 8192
+_MAX_ROWS_BWD = 2048
 _MAX_N = 2048
 _MAX_OH_CELLS = 1 << 22
 _FOLD_MIN_N = 256
 
-# the kernel takes up to 64 neighbours (one block's rows) and 2-4 layers
+# the kernels take up to 64 neighbours (one block's rows) and 2-4 layers
 _MAX_K = 64
 _MAX_LAYERS = 4
 
+# the backward's count of (b, s, channel) whose recomputed activations held
+# no value equal to the forward's maximum (a cotangent dropped): one int32
+# on each device, added to by every launch; must stay 0
+_nomatch: dict = {}
 
-def _pick_chunk(S: int, K: int) -> int:
-    chunk = min(_CHUNK_S_MAX, S, max(1, _MAX_ROWS // K))
+
+def _pick_chunk(S: int, K: int, max_rows: int | None = None) -> int:
+    chunk = min(_CHUNK_S_MAX, S, max(1, (_MAX_ROWS if max_rows is None else max_rows) // K))
     while S % chunk:
         chunk -= 1
     return chunk
@@ -54,6 +71,18 @@ def fused_group_mlp_max_supported(features, idx, compute_dtype) -> bool:
     N = features.shape[1]
     S, K = idx.shape[1], idx.shape[2]
     chunk = _pick_chunk(S, K)
+    return N <= _MAX_N and chunk >= 8 and chunk * K * N <= _MAX_OH_CELLS
+
+
+def fused_group_bwd_supported(features, idx) -> bool:
+    """Whether the fused backward takes a stage (``fused_group_bwd_supported``
+    of the TPU without its backend check: the smaller row budget of its
+    centroid chunk)."""
+    if features is None:
+        return False
+    N = features.shape[1]
+    S, K = idx.shape[1], idx.shape[2]
+    chunk = _pick_chunk(S, K, _MAX_ROWS_BWD)
     return N <= _MAX_N and chunk >= 8 and chunk * K * N <= _MAX_OH_CELLS
 
 
@@ -72,10 +101,14 @@ def _pad(a: torch.Tensor, widths) -> torch.Tensor:
     return torch.nn.functional.pad(a, pads)
 
 
+def _bf16(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
 def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16 operands, f32 accumulation: products of bf16 values are exact in
     f32, so this is the TPU's MXU arithmetic up to summation order."""
-    return a.to(torch.bfloat16).to(torch.float32) @ b.to(torch.bfloat16).to(torch.float32)
+    return _bf16(a) @ _bf16(b)
 
 
 def prepare_operands(fold: bool, xyz, features, new_xyz, weights, biases):
@@ -105,28 +138,86 @@ def prepare_operands(fold: bool, xyz, features, new_xyz, weights, biases):
     return table, cent, w0x, ws, bs
 
 
-def fused_group_plain(fold, table, xyz, cent, w0x, ws, bs, idx):
-    """Plain version of the kernel on its own operands -> (B, S, CoutP) f32."""
+def _layer0_rel(xyz, cent, idx):
+    """hilo: the gathered relative geometry the kernels form, (B, S, K, 6)
+    ``[bf16(hi - c), lo]`` as f32."""
+    hi, lo = split_hilo(xyz)
+    ghi = gather_points(hi.to(torch.float32), idx)
+    glo = gather_points(lo.to(torch.float32), idx)
+    return torch.cat([_bf16(ghi - cent[:, :, None, :]), glo], -1)
+
+
+def _plain_acts(fold, table, xyz, cent, w0x, ws, bs, idx):
+    """The plain forward's f32 activations of every layer (and, in hilo
+    mode, the relative geometry of layer 0)."""
     x = gather_points(table, idx).to(torch.float32)
+    rel = None
     if fold:
         x = x - cent[:, :, None, :]
     else:
-        hi, lo = split_hilo(xyz)
-        ghi = gather_points(hi.to(torch.float32), idx)
-        glo = gather_points(lo.to(torch.float32), idx)
-        rel = (ghi - cent[:, :, None, :]).to(torch.bfloat16).to(torch.float32)
+        rel = _layer0_rel(xyz, cent, idx)
         w = w0x.to(torch.float32)
-        x = x + torch.cat([rel, glo], -1) @ torch.cat([w, w], 0)
-    x = torch.relu(x + bs[0])
+        x = x + rel @ torch.cat([w, w], 0)
+    acts = [torch.relu(x + bs[0])]
     for w, b in zip(ws, bs[1:]):
-        x = torch.relu(_bf16_matmul(x, w) + b)
-    return x.amax(dim=2)
+        acts.append(torch.relu(_bf16_matmul(acts[-1], w) + b))
+    return acts, rel
 
 
-def _launch(fold, table, xyz, cent, w0x, ws, bs, idx):
-    from pointrcnn_tpu_torch import _build
+def fused_group_plain(fold, table, xyz, cent, w0x, ws, bs, idx):
+    """Plain version of the forward kernel on its own operands ->
+    (B, S, CoutP) f32."""
+    return _plain_acts(fold, table, xyz, cent, w0x, ws, bs, idx)[0][-1].amax(dim=2)
 
-    global launches
+
+def _scatter_rows(idx, src, N: int):
+    """(B, S, K) indices, (B, S, K, C) f32 -> (B, N, C) f32 sums of the rows
+    landing on each table row (``index_add_``)."""
+    B, S, K, C = src.shape
+    rows = (idx.long() + torch.arange(B, device=idx.device)[:, None, None] * N).reshape(-1)
+    out = torch.zeros((B * N, C), dtype=torch.float32, device=src.device)
+    out.index_add_(0, rows, src.reshape(B * S * K, C))
+    return out.reshape(B, N, C)
+
+
+def fused_group_backward_plain(fold, table, xyz, cent, w0x, ws, bs, idx, out, ct):
+    """Plain version of the backward kernel on the forward's operands, its
+    output ``out`` (B, S, CoutP) and the cotangent ``ct`` (B, S, CoutP) ->
+    (dtable (B, N, F0P), dxyz (B, N, 3) or None, dcent (B, S, F0P | 3),
+    dw0x (6, F0P) or None, dws [padded], dbs [padded]), all f32.
+
+    The rounding points of ``_make_bwd_kernel`` written out (not autograd,
+    which would keep ``dz`` in f32): the tie split and ReLU masks on the f32
+    activations; ``dW = bf16(a)^T bf16(dz)``, ``dz' = (bf16(dz) bf16(W)^T) *
+    [a > 0]``, ``db = sum dz``; ``dtable`` the scatter of ``bf16(dz_0)``;
+    fold: ``dcent = -sum_K dz_0``; hilo: ``drel = bf16(dz_0) bf16(w0x)^T``,
+    ``dcent = -sum_K drel``, ``dw0x = rel^T bf16(dz_0)`` and ``dxyz`` the
+    scatter of ``bf16(drel)``."""
+    B, N = table.shape[:2]
+    acts, rel = _plain_acts(fold, table, xyz, cent, w0x, ws, bs, idx)
+    a_last = acts[-1]
+    eq = a_last == out[:, :, None, :]
+    cnt = torch.clamp(eq.sum(dim=2).to(torch.float32), min=1.0)
+    dz = torch.where(eq & (a_last > 0), (ct / cnt)[:, :, None, :], 0.0)
+    dws, dbs = [None] * len(ws), [None] * (len(ws) + 1)
+    for i in range(len(ws), 0, -1):
+        a_prev = acts[i - 1]
+        dws[i - 1] = torch.einsum("bskc,bskf->cf", _bf16(a_prev), _bf16(dz))
+        dbs[i] = dz.sum(dim=(0, 1, 2))
+        dz = torch.where(a_prev > 0, _bf16(dz) @ _bf16(ws[i - 1]).t(), 0.0)
+    dbs[0] = dz.sum(dim=(0, 1, 2))
+    dxyz = dw0x = None
+    if fold:
+        dcent = -dz.sum(dim=2)
+    else:
+        drel = _bf16(dz) @ w0x.to(torch.float32).t()
+        dcent = -drel.sum(dim=2)
+        dw0x = torch.einsum("bskc,bskf->cf", rel, _bf16(dz))
+        dxyz = _scatter_rows(idx, _bf16(drel), N)
+    return _scatter_rows(idx, _bf16(dz), N), dxyz, dcent, dw0x, dws, dbs
+
+
+def _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx):
     B, N, f0p = table.shape
     S, K = idx.shape[1], idx.shape[2]
     n_layers = 1 + len(ws)
@@ -150,26 +241,51 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx):
             raise ValueError(f"fused_group_mlp: layer weight {tuple(w.shape)} {w.dtype} "
                              f"after width {cin}")
         cin = w.shape[1]
+
+
+def pad_idx(idx, N: int):
+    """Check the indices against [0, N) (a host sync) and pad K to the
+    kernels' 16-row tile by repeating each row's first neighbour (a
+    duplicate cannot change the max; the backward gives it no cotangent)
+    -> contiguous int32 (B, S, 16 | 32 | 64)."""
+    B, S, K = idx.shape
     if idx.numel():
         lo, hi = (int(v) for v in torch.aminmax(idx))
         if lo < 0 or hi >= N:
             raise ValueError(f"fused_group_mlp: indices outside [0, {N})")
-    # pad K to the 16-row tile by repeating each row's first neighbour: a
-    # duplicate cannot change the max over the neighbourhood
     kp = 16 if K <= 16 else (32 if K <= 32 else 64)
     idx = idx.to(torch.int32)
     if kp != K:
         idx = torch.cat([idx, idx[..., :1].expand(B, S, kp - K)], dim=-1)
-    idx = idx.contiguous()
+    return idx.contiguous()
+
+
+def _layer_args(table, ws, bs):
+    n_layers = 1 + len(ws)
+    widths = [table.shape[2]] + [w.shape[1] for w in ws]
+    w_ptrs = (ctypes.c_void_p * n_layers)(0, *[w.data_ptr() for w in ws])
+    b_ptrs = (ctypes.c_void_p * n_layers)(*[b.data_ptr() for b in bs])
+    return n_layers, widths, w_ptrs, b_ptrs, (ctypes.c_int * n_layers)(*widths)
+
+
+def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
+    """The forward kernel on CUDA tensors; ``checked`` idx comes from
+    :func:`pad_idx` already."""
+    from pointrcnn_tpu_torch import _build
+
+    global launches
+    _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx)
+    B, N, _ = table.shape
+    S = idx.shape[1]
+    if not checked:
+        idx = pad_idx(idx, N)
+    kp = idx.shape[2]
     table, cent = table.contiguous(), cent.contiguous()
     ws = [w.contiguous() for w in ws]
     bs = [b.contiguous() for b in bs]
-    widths = [f0p] + [w.shape[1] for w in ws]
+    n_layers, widths, w_ptrs, b_ptrs, c_widths = _layer_args(table, ws, bs)
     out = torch.empty((B, S, widths[-1]), dtype=torch.float32, device=table.device)
-    w_ptrs = (ctypes.c_void_p * n_layers)(0, *[w.data_ptr() for w in ws])
-    b_ptrs = (ctypes.c_void_p * n_layers)(*[b.data_ptr() for b in bs])
-    c_widths = (ctypes.c_int * n_layers)(*widths)
-    lib = _build.load("mlp")
+    lib = _build.load("mlp", _build.NO_FMAD)
     fn = lib.fused_group_mlp_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 5)
@@ -185,18 +301,178 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx):
     return out
 
 
-def fused_group(fold, table, xyz, cent, w0x, ws, bs, idx):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+def _nomatch_counter(device) -> torch.Tensor:
+    if device not in _nomatch:
+        _nomatch[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _nomatch[device]
+
+
+def nomatch_count(device=None) -> int:
+    """The backward's dropped-cotangent count on ``device`` (a host sync)."""
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    return int(_nomatch_counter(torch.device(device)).item())
+
+
+def reset_nomatch(device=None) -> None:
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    _nomatch_counter(torch.device(device)).zero_()
+
+
+def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
+    """The backward kernel on CUDA tensors.  ``idx`` (B, S, kp) is the
+    forward's checked and padded index tensor (:func:`pad_idx`), ``K`` the
+    real neighbour count, ``out`` the forward's (B, S, CoutP) output, ``ct``
+    its cotangent -> as :func:`fused_group_backward_plain`."""
+    from pointrcnn_tpu_torch import _build
+
+    global bwd_launches
+    _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx)
+    B, N, f0p = table.shape
+    S, kp = idx.shape[1], idx.shape[2]
+    if idx.dtype != torch.int32 or not idx.is_contiguous() or kp not in (16, 32, 64) or not \
+            1 <= K <= kp:
+        raise ValueError(f"fused_group_mlp backward: idx {tuple(idx.shape)} {idx.dtype} "
+                         f"with K={K} is not the forward's padded index")
+    table, cent = table.contiguous(), cent.contiguous()
+    ws = [w.contiguous() for w in ws]
+    bs = [b.contiguous() for b in bs]
+    n_layers, widths, w_ptrs, b_ptrs, c_widths = _layer_args(table, ws, bs)
+    cout = widths[-1]
+    if out.shape != (B, S, cout) or ct.shape != (B, S, cout):
+        raise ValueError(f"fused_group_mlp backward: out {tuple(out.shape)}, ct "
+                         f"{tuple(ct.shape)}, need {(B, S, cout)}")
+    out = out.to(torch.float32).contiguous()
+    ct = ct.to(torch.float32).contiguous()
+    dev = table.device
+    lib = _build.load("mlp", _build.NO_FMAD)
+    size_fn = lib.fused_group_mlp_grad_size
+    size_fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    size_fn.restype = ctypes.c_int
+    size = size_fn(n_layers, c_widths)
+    dtable = torch.zeros((B, N, f0p), dtype=torch.float32, device=dev)
+    dxyz = None if fold else torch.zeros((B, N, 3), dtype=torch.float32, device=dev)
+    dcent = torch.empty((B, S, f0p if fold else 3), dtype=torch.float32, device=dev)
+    part = torch.zeros((B, size), dtype=torch.float32, device=dev)
+    grads = torch.empty((size,), dtype=torch.float32, device=dev)
+    fn = lib.fused_group_mlp_bwd_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 12)
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(int(fold), table.data_ptr(), 0 if fold else xyz.contiguous().data_ptr(),
+             cent.data_ptr(), 0 if fold else w0x.contiguous().data_ptr(), idx.data_ptr(),
+             B, N, S, kp, K, n_layers, w_ptrs, b_ptrs, c_widths, out.data_ptr(),
+             ct.data_ptr(), dtable.data_ptr(), 0 if fold else dxyz.data_ptr(),
+             dcent.data_ptr(), part.data_ptr(), grads.data_ptr(),
+             _nomatch_counter(dev).data_ptr(), stream)
+    _build.check(err, "fused_group_mlp_bwd_launch")
+    bwd_launches += 1
+    # the partial layout of csrc/mlp.cu (grad_layout)
+    off, dws, dbs = 0, [], []
+    for j in range(1, n_layers):
+        dws.append(grads[off: off + widths[j - 1] * widths[j]].view(widths[j - 1], widths[j]))
+        off += widths[j - 1] * widths[j]
+    for j in range(n_layers):
+        dbs.append(grads[off: off + widths[j]])
+        off += widths[j]
+    dw0x = None if fold else grads[off: off + 6 * f0p].view(6, f0p)
+    return dtable, dxyz, dcent, dw0x, dws, dbs
+
+
+def fused_group(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
+    """The forward kernel for CUDA tensors, the plain version for CPU
+    tensors."""
     if table.is_cuda:
-        return _launch(fold, table, xyz, cent, w0x, ws, bs, idx)
+        return _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked=checked)
     if table.device.type == "cpu":
         return fused_group_plain(fold, table, xyz, cent, w0x, ws, bs, idx)
     raise ValueError(f"fused_group_mlp: unsupported device {table.device}")
 
 
+def fused_group_backward(fold, table, xyz, cent, w0x, ws, bs, idx, K, out, ct):
+    """The backward kernel for CUDA tensors, the plain version for CPU
+    tensors (whose ``idx`` is unpadded)."""
+    if table.is_cuda:
+        return _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K, out, ct)
+    if table.device.type == "cpu":
+        return fused_group_backward_plain(fold, table, xyz, cent, w0x, ws, bs, idx, out, ct)
+    raise ValueError(f"fused_group_mlp backward: unsupported device {table.device}")
+
+
+def _assemble(fold, xyz, features, new_xyz, weights, grads, need_geometry=(True, True)):
+    """The padded operands' gradients -> (dxyz, dfeatures, dnew_xyz,
+    [dweights], [dbiases]) in parameter space (``_pallas_bwd``'s assembly
+    after the kernel; ``need_geometry`` skips dxyz / dnew_xyz)."""
+    dtable, dxyz_k, dcent, dw0x, dws, dbs = grads
+    w0 = weights[0].to(torch.float32)
+    f0 = w0.shape[1]
+    w0x3, w0f = w0[:3], w0[3:]
+    dP = dtable[..., :f0]
+    dfeatures = _bf16(dP) @ _bf16(w0f).t()
+    dw0f = torch.einsum("bnc,bnf->cf", _bf16(features), _bf16(dP))
+    dxyz = dnew_xyz = None
+    if fold:
+        dcent_f = dcent[..., :f0]
+        if need_geometry[0]:
+            dxyz = dP @ w0x3.t()
+        if need_geometry[1]:
+            dnew_xyz = dcent_f @ w0x3.t()
+        dw0x3 = (torch.einsum("bnc,bnf->cf", xyz.to(torch.float32), dP)
+                 + torch.einsum("bsc,bsf->cf", new_xyz.to(torch.float32), dcent_f))
+    else:
+        # x rides the kernel as a hi/lo pair: the hi lanes carry its
+        # gradient, the lo cast has zero derivative; the hi and lo rows of
+        # w0x are the same parameter
+        dxyz, dnew_xyz = dxyz_k, dcent[..., :3]
+        dw0x3 = dw0x[0:3, :f0] + dw0x[3:6, :f0]
+    dweights = [torch.cat([dw0x3, dw0f], 0)]
+    for w, dw in zip(weights[1:], dws):
+        dweights.append(dw[: w.shape[0], : w.shape[1]])
+    dbiases = [db[: w.shape[1]] for db, w in zip(dbs, weights)]
+    return dxyz, dfeatures, dnew_xyz, dweights, dbiases
+
+
+class FusedGroupMLP(torch.autograd.Function):
+    """Fused gather + MLP + max: the forward kernel (K2) and the backward
+    kernel (K7) on CUDA tensors, the plain versions on CPU tensors.  The
+    backward takes the forward's operands, checked and padded indices and
+    output from the context; it does not check the indices again."""
+
+    @staticmethod
+    def forward(ctx, fold, xyz, features, new_xyz, idx, n_layers, *params):
+        weights, biases = params[:n_layers], params[n_layers:]
+        ops = prepare_operands(fold, xyz, features, new_xyz, weights, biases)
+        ctx.K = idx.shape[2]
+        if ops[0].is_cuda:
+            idx = pad_idx(idx, features.shape[1])
+        out = fused_group(fold, ops[0], xyz, *ops[1:], idx, checked=True)
+        table, cent, w0x, ws, bs = ops
+        ctx.fold, ctx.n_ws = fold, len(ws)
+        ctx.save_for_backward(xyz, features, new_xyz, idx, out, table, cent,
+                              w0x if w0x is not None else table.new_empty(0),
+                              *ws, *bs, *weights)
+        return out[..., : weights[-1].shape[1]].clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        xyz, features, new_xyz, idx, out, table, cent, w0x, *rest = ctx.saved_tensors
+        ws, bs = rest[: ctx.n_ws], rest[ctx.n_ws: 2 * ctx.n_ws + 1]
+        weights = rest[2 * ctx.n_ws + 1:]
+        ct = _pad(ct.to(torch.float32), out.shape)
+        grads = fused_group_backward(ctx.fold, table, xyz, cent, None if ctx.fold else w0x,
+                                     ws, bs, idx, ctx.K, out, ct)
+        need = ctx.needs_input_grad
+        dxyz, dfeat, dnew, dws, dbs = _assemble(ctx.fold, xyz, features, new_xyz, weights,
+                                                grads, need_geometry=(need[1], need[3]))
+        cast = lambda g, like, i: g.to(like.dtype) if need[i] and g is not None else None
+        return (None, cast(dxyz, xyz, 1), cast(dfeat, features, 2), cast(dnew, new_xyz, 3),
+                None, None, *dws, *dbs)
+
+
 def fused_group_mlp_max(xyz, features, new_xyz, idx, weights, biases,
                         use_xyz: bool = True, fold_geometry: bool = False):
-    """Fused ``group_points`` + MLP stack (BN folded) + max over K.
+    """Fused ``group_points`` + MLP stack + max over K; differentiable in
+    ``xyz``, ``features``, ``new_xyz``, ``weights`` and ``biases``.
 
     :param xyz: (B, N, 3) f32; features: (B, N, C); new_xyz: (B, S, 3)
     :param idx: (B, S, K) neighbourhood indices
@@ -207,10 +483,8 @@ def fused_group_mlp_max(xyz, features, new_xyz, idx, weights, biases,
         raise NotImplementedError("fused_group_mlp_max: use_xyz=False is not ported")
     if len(weights) < 2:
         raise NotImplementedError("fused_group_mlp_max: single-layer stacks are not ported")
-    table, cent, w0x, ws, bs = prepare_operands(
-        fold_geometry, xyz, features, new_xyz, weights, biases)
-    out = fused_group(fold_geometry, table, xyz, cent, w0x, ws, bs, idx)
-    return out[..., : weights[-1].shape[1]]
+    return FusedGroupMLP.apply(bool(fold_geometry), xyz, features, new_xyz, idx, len(weights),
+                               *weights, *biases)
 
 
 def fused_mlp_max(grouped, weights, biases, compute_dtype=torch.bfloat16):

@@ -1,18 +1,22 @@
-"""Where the ``rpn`` training step's time goes on the card.
+"""Where a training step's time goes on the card.
 
-    python3 -m pointrcnn_tpu_torch.profile_train
+    python3 -m pointrcnn_tpu_torch.profile_train [--stage rpn|rcnn]
 
-Drives the train step of :func:`pointrcnn_tpu_torch.entry.train_entry`
-(``cfgs/default.yaml`` with ``RCNN.ENABLED`` False) at batch 16 x 16384
-points on a seeded scene and, after two warm-up steps, prints for 3 steps:
+Drives the train step of :func:`pointrcnn_tpu_torch.entry.train_entry`:
+the ``rpn`` stage (``cfgs/default.yaml`` with ``RCNN.ENABLED`` False) at
+batch 16, or the ``rcnn`` stage (a fixed RPN, online proposals and targets)
+at batch 4, x 16384 points on a seeded scene and, after two warm-up steps,
+prints for 3 steps:
 
 - the wall time of an unprofiled step (host clock around synchronised
   steps) and the peak device memory of a step;
 - per phase of the step (the ``train.state.phase`` ranges: forward, loss
-  with the labels, backward, optimizer) the device span between CUDA
-  events recorded before and after it, and per forward
-  stage (RPN SA/FP stages and heads) its span likewise, in steps run
-  without the profiler and in the profiled ones;
+  with the labels, backward, optimizer; in the rcnn stage also "targets",
+  the target layer inside the forward) the device span between CUDA
+  events recorded before and after it, and per forward stage (RPN SA/FP
+  stages and heads; in the rcnn stage also the proposal layer and the RCNN
+  stages) its span likewise, in steps run without the profiler and in the
+  profiled ones;
 - the kernels by device time, and the device's busy time and idle share
   of the profiled step.
 
@@ -21,17 +25,18 @@ Every time is per step, on the card named in the first line.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pointrcnn_tpu_torch.entry import train_entry
-from pointrcnn_tpu_torch.profile_forward import _Spans, _self_device
+from pointrcnn_tpu_torch.entry import STAGES, train_entry
+from pointrcnn_tpu_torch.models import point_rcnn
+from pointrcnn_tpu_torch.profile_forward import _Spans, _self_device, _stages
 from pointrcnn_tpu_torch.train import state as train_state
 
-BATCH = 16
 ITERS = 3
 
 
@@ -43,12 +48,16 @@ def _rpn_stages(model):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--stage", choices=sorted(STAGES), default="rpn")
+    stage = ap.parse_args().stage
+    BATCH = STAGES[stage][1]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"{card}; rpn train step, batch {BATCH}, {ITERS} steps")
-    step_fn, (state, batch) = train_entry(batch=BATCH, device="cuda", seed=0)
+    print(f"{card}; {stage} train step, batch {BATCH}, {ITERS} steps")
+    step_fn, (state, batch) = train_entry(batch=BATCH, device="cuda", seed=0, stage=stage)
     for _ in range(2):
         state, _ = step_fn(state, batch)
     torch.cuda.synchronize()
@@ -61,8 +70,9 @@ def main() -> None:
     print(f"unprofiled step: {wall:.3f} ms ({1000 * BATCH / wall:.3f} frames/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
-    spans = _Spans(state.model, _rpn_stages(state.model))
-    train_state.phase = spans.span
+    stages = _stages(state.model) if stage == "rcnn" else _rpn_stages(state.model)
+    spans = _Spans(state.model, stages)
+    train_state.phase = point_rcnn.phase = spans.span
     for _ in range(ITERS):
         state, _ = step_fn(state, batch)
     plain_span_ms = spans.ms()

@@ -2,9 +2,12 @@
 ``pointrcnn_tpu/train/state.py``).
 
 One train step: forward in training mode (batch-statistics BN, whose
-running statistics update in place with the step's momentum, dropout from
-a generator seeded from (seed, step) as JAX's ``fold_in(rng, step)``),
-on-device labels, loss, backward, clip, optimizer update.  The gradient
+running statistics update in place with the step's momentum; dropout and,
+in the ``rcnn`` stage, the target layer's draws from two generators seeded
+from (seed, step), the two streams JAX splits from ``fold_in(rng, step)``),
+on-device labels, loss, backward, clip, optimizer update.  A fixed RPN
+(``RPN.FIXED``) gets zero gradients, and the optimizer's weight decay still
+shrinks it, as in JAX.  The gradient
 norm is the clip's record.  Eager PyTorch: the step updates the state's
 model and optimizer state in place and returns the same state.
 """
@@ -50,13 +53,19 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((seed << 32) + step)
 
 
-def loss_and_grads(model, cfg, batch: dict, generator=None):
+def target_generator(seed: int, step: int, device) -> torch.Generator:
+    """The target layer's stream of one step, apart from the dropout one."""
+    return torch.Generator(device=device).manual_seed((1 << 63) | ((seed << 32) + step))
+
+
+def loss_and_grads(model, cfg, batch: dict, generator=None, target_gen=None, targets=None):
     """Forward in training mode, loss and gradients of every parameter ->
-    (loss, metrics, {name: grad})."""
+    (loss, metrics, {name: grad}); ``targets`` (the target layer's draws)
+    or ``target_gen`` feed the ``rcnn`` stage's target layer."""
     model.train()
     params = dict(model.named_parameters())
     with phase("forward"):
-        out = model(batch, generator=generator)
+        out = model(batch, generator=generator, target_generator=target_gen, targets=targets)
     with phase("loss + labels"):
         loss, tb = model_loss(cfg, out, batch)
     with phase("backward"):
@@ -65,16 +74,20 @@ def loss_and_grads(model, cfg, batch: dict, generator=None):
 
 
 def make_train_step(cfg, tx, seed: int = 0):
-    """The train step ``(state, batch, bn_momentum) -> (state, metrics)``;
-    ``batch`` holds device tensors ``pts_input`` and either the labels or
-    ``gt_boxes3d`` + ``gt_valid``."""
+    """The train step ``(state, batch, bn_momentum[, targets]) -> (state,
+    metrics)``; ``batch`` holds device tensors ``pts_input`` and either the
+    labels or ``gt_boxes3d`` + ``gt_valid`` (the ``rcnn`` stage needs the
+    boxes)."""
 
-    def step_fn(state: TrainState, batch: dict, bn_momentum: float):
+    def step_fn(state: TrainState, batch: dict, bn_momentum: float, targets=None):
+        """``targets``: the target layer's draws for this step, in place of
+        the step's own target stream."""
         model = state.model
         set_bn_momentum(model, bn_momentum)
         device = batch["pts_input"].device
         _, tb, grads = loss_and_grads(model, cfg, batch,
-                                      dropout_generator(seed, state.step, device))
+                                      dropout_generator(seed, state.step, device),
+                                      target_generator(seed, state.step, device), targets)
         tb = {k: v.detach() for k, v in tb.items()}
         with phase("optimizer"):
             tb["grad_norm"] = tx.update(dict(model.named_parameters()), grads, state.opt_state)

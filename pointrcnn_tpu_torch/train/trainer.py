@@ -18,7 +18,12 @@ from pointrcnn_tpu_torch.models.layers import set_bn_momentum
 from pointrcnn_tpu_torch.train.checkpoint import save_checkpoint
 from pointrcnn_tpu_torch.train.loss import model_loss
 from pointrcnn_tpu_torch.train.optimizer import bn_momentum_for_epoch
-from pointrcnn_tpu_torch.train.state import TrainState, dropout_generator, make_train_step
+from pointrcnn_tpu_torch.train.state import (
+    TrainState,
+    dropout_generator,
+    make_train_step,
+    target_generator,
+)
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -66,8 +71,8 @@ class Trainer:
 
     def eval_epoch(self, state: TrainState, val_loader) -> float:
         """Loss-only validation: the training-mode forward (batch statistics,
-        dropout from a fixed stream) with BN momentum 0, so the running
-        statistics stay as they are."""
+        dropout and target draws from fixed streams) with BN momentum 0, so
+        the running statistics stay as they are."""
         model = state.model
         device = next(model.parameters()).device
         set_bn_momentum(model, 0.0)
@@ -76,7 +81,8 @@ class Trainer:
         with torch.no_grad():
             for batch in val_loader:
                 batch = batch_to_device(batch, device)
-                out = model(batch, generator=dropout_generator(self.seed, 0, device))
+                out = model(batch, generator=dropout_generator(self.seed, 0, device),
+                            target_generator=target_generator(self.seed, 0, device))
                 total += float(model_loss(self.cfg, out, batch)[0])
                 count += 1
         return total / max(count, 1)

@@ -56,3 +56,13 @@ def points_in_boxes3d(pts: torch.Tensor, boxes3d: torch.Tensor) -> torch.Tensor:
     z_rot = (x - cx) * sina + (z - cz) * cosa
     fine = (x_rot >= -l / 2.0) & (x_rot <= l / 2.0) & (z_rot >= -w / 2.0) & (z_rot <= w / 2.0)
     return coarse & fine
+
+
+def height_overlap(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Vertical overlap (..., N, M) of y-down bottom-anchored boxes
+    (..., N, 7) x (..., M, 7)."""
+    a_min = (boxes_a[..., 1] - boxes_a[..., 3])[..., :, None]
+    a_max = boxes_a[..., 1][..., :, None]
+    b_min = (boxes_b[..., 1] - boxes_b[..., 3])[..., None, :]
+    b_max = boxes_b[..., 1][..., None, :]
+    return torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), min=0.0)

@@ -46,7 +46,7 @@ from pointrcnn_tpu.ops import pallas_ballquery
 from pointrcnn_tpu.ops.roipool3d import roipool3d as jax_roipool3d
 
 from pointrcnn_tpu_torch.convert import load_jax_variables
-from pointrcnn_tpu_torch.entry import EXACT_OVERRIDES, synthetic_cloud
+from pointrcnn_tpu_torch.entry import EXACT_OVERRIDES, synthetic_cloud, synthetic_scene
 from pointrcnn_tpu_torch.models import pointnet2 as tpointnet2
 from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
 from pointrcnn_tpu_torch.models.proposal import proposal_layer
@@ -367,13 +367,22 @@ def test_port_config_equals_jax_config(name):
 
 
 def test_training_mode_raises():
-    """The rpn stage trains (``tests/test_torch_train_*.py``); the rcnn stage
-    (TRAIN with the RCNN) and the offline RCNN (RPN disabled) still raise."""
-    with pytest.raises(NotImplementedError, match="rcnn training stage"):
-        PointRCNN(_cfg("float32"), mode="TRAIN")
+    """Both training stages are ported (``tests/test_torch_train_*.py``,
+    ``tests/test_torch_rcnn_*.py``); the offline RCNN (RPN disabled) and
+    rotated NMS (``NMS_TYPE: rotate``) still raise."""
     offline = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RPN.ENABLED", "False"])
     for mode in ("TRAIN", "TEST"):
         with pytest.raises(NotImplementedError, match="offline RCNN"):
             PointRCNN(offline, mode=mode)
+    rotate = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RPN.NMS_TYPE", "rotate",
+                                                               "RPN.FIXED", "True"])
+    model = PointRCNN(rotate, mode="TRAIN", generator=torch.Generator().manual_seed(0))
+    scene = synthetic_scene(1, rotate.RPN.NUM_POINTS, rotate.RCNN.MAX_GT_BOXES)
+    with pytest.raises(NotImplementedError, match="'rotate'"):
+        model({k: torch.from_numpy(v) for k, v in scene.items()})
     rpn_only = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RCNN.ENABLED", "False"])
     assert PointRCNN(rpn_only, mode="TRAIN").training
+    rcnn = PointRCNN(load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RPN.FIXED", "True"]),
+                     mode="TRAIN")
+    # a fixed RPN stays in eval mode in training
+    assert rcnn.training and rcnn.rcnn_net.training and not rcnn.rpn.training

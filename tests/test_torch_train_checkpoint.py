@@ -240,8 +240,9 @@ def test_opt_state_bridge_rejects_mismatches():
 
 
 def test_port_imports_nothing_of_jax():
-    """The train package, the entry points and chip_smoke.py import neither
-    jax nor the JAX package."""
+    """The train package, the target layer, the IoU module, the entry points,
+    the profilers and chip_smoke.py import neither jax nor the JAX
+    package."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -249,6 +250,8 @@ def test_port_imports_nothing_of_jax():
         "import pointrcnn_tpu_torch.train.loss, pointrcnn_tpu_torch.train.optimizer\n"
         "import pointrcnn_tpu_torch.train.state, pointrcnn_tpu_torch.train.trainer\n"
         "import pointrcnn_tpu_torch.entry, pointrcnn_tpu_torch.convert, chip_smoke\n"
+        "import pointrcnn_tpu_torch.models.target, pointrcnn_tpu_torch.ops.iou3d\n"
+        "import pointrcnn_tpu_torch.profile_train, pointrcnn_tpu_torch.profile_forward\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'optax', 'pointrcnn_tpu'))\n"
         "assert not bad, bad\n"

@@ -292,12 +292,21 @@ def test_shared_mlp_train_equals_jax(monkeypatch, dtype):
 
 
 def test_bn_free_grouped_training_raises():
-    m = tlayers.SharedMLP(5, (4,), bn=False).train()
-    x = torch.zeros(1, 300, 3)
-    with pytest.raises(NotImplementedError, match="B7"):
-        m(None, group_args=(x, torch.zeros(1, 300, 2), x[:, :8], torch.zeros(1, 8, 4,
-                                                                             dtype=torch.int32),
-                            True))
+    """A BN-free grouped stack trains: in f32 on the generic route (its
+    output the max over K of relu(grouped @ w + b)); in bf16 the fused
+    route takes it, and a single-layer stack, which the fused kernels do
+    not take, raises."""
+    x = torch.rand(1, 300, 3, generator=torch.Generator().manual_seed(0))
+    feats = torch.rand(1, 300, 2, generator=torch.Generator().manual_seed(1))
+    idx = torch.randint(0, 300, (1, 8, 4), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(2))
+    m = tlayers.SharedMLP(5, (4,), bn=False, gen=torch.Generator().manual_seed(3)).train()
+    out = m(None, group_args=(x, feats, x[:, :8], idx, True))
+    g = torch.cat([x[0, idx[0].long()] - x[0, :8, None], feats[0, idx[0].long()]], -1)
+    torch.testing.assert_close(out[0], torch.relu(g @ m.w0 + m.b0).amax(1))
+    m16 = tlayers.SharedMLP(5, (4,), bn=False, dtype=torch.bfloat16).train()
+    with pytest.raises(NotImplementedError, match="single-layer"):
+        m16(None, group_args=(x, feats, x[:, :8], idx, True))
 
 
 # -------------------------------------------------------------- optimizer
