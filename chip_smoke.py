@@ -32,10 +32,11 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    parameters and BN statistics updated, a batch-2 step against the port's
    CPU path, and a checkpoint resume that reproduces the next step's loss;
 8. the fused MLP backward (K7) against its plain version at the ``rcnn``
-   training stage's shapes (RCNN SA1 fold, SA2 hilo, batch 4) and a small
-   three-layer K=32 shape: deterministic, no dropped tie, within the stated
-   norm bound of the plain version on the card (checked with the kernels
-   in phase 3);
+   training stage's shapes (RCNN SA1 fold, SA2 hilo, batch 4) and at the
+   shapes its tiles branch on (three layers at K=32, four ragged layers at
+   K=8, K=16, the widest stack it takes): deterministic, no dropped tie,
+   within the stated norm bound of the plain version on the card (checked
+   with the kernels in phase 3); TFLOP/s and share of the bound per shape;
 9. the ``rcnn`` training stage (``train_entry(stage="rcnn")``: a fixed RPN
    from the rpn stage's checkpoint, online proposals and targets) at batch
    4 x 16384 points: ms/step, frames/s and peak memory, the launches of a
@@ -146,6 +147,11 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _rate(ops: float, ms: float, bound_ms: float) -> str:
+    """A bf16 kernel's achieved rate and its time's share of the bound."""
+    return f"{ops / ms / 1e9:.1f} TFLOP/s, bound / kernel {bound_ms / ms:.3f}"
 
 
 def nbytes(*tensors) -> int:
@@ -418,6 +424,10 @@ def check_mlp():
             if not (torch.isfinite(got).all() and e <= MLP_REL_TOL * scale):
                 raise AssertionError(f"fused mlp {name} K={K} {mode}: max err {e} vs scale {scale}")
             k = cuda_ms(lambda: cuda_mlp._launch(fold, *ops[:1], xyz, *ops[1:], idx), 10)
+            # the kernel alone: the wrapper's index check (a host sync) done once
+            idx_p = cuda_mlp.pad_idx(idx, N)
+            alone = cuda_ms(lambda: cuda_mlp._launch(fold, *ops[:1], xyz, *ops[1:], idx_p,
+                                                     checked=True), 10)
             p = cuda_ms(lambda: cuda_mlp.fused_group_plain(fold, *ops[:1], xyz, *ops[1:], idx), 3)
             table, cent, w0x, lws, lbs = ops
             nb = nbytes(table, None if fold else xyz, cent, w0x, *lws, *lbs, idx, got)
@@ -429,7 +439,8 @@ def check_mlp():
             bound = max(nb / PEAK_BYTES_PER_MS, ops_n / PEAK_BF16_PER_MS)
             log(f"fused mlp {name} B={B} N={N} C={C} S={S} K={K} {widths} {mode}{tag}: "
                 f"max err {e:.3e} (scale {scale:.3e}, tol {MLP_REL_TOL} x scale); "
-                f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
+                f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms; {_rate(ops_n, k, bound)}; "
+                f"kernel alone {alone:.4f} ms, {_rate(ops_n, alone, bound)}")
     # off the forward's shapes: K padded 8 -> 16, a ragged last block of
     # centroids (S=10), widths padded to 16, four layers
     g = torch.Generator().manual_seed(3)
@@ -453,15 +464,24 @@ def check_mlp():
 
 
 # (name, B, N, C, S, K, widths, mode): K7 at the rcnn training stage's SA
-# stages at batch 4 (64 rois a frame), and a smaller three-layer K=32 shape
+# stages at batch 4 (64 rois a frame); then the shapes its tiles branch on:
+# a smaller three-layer K=32 shape, four layers with widths off the 16-grid
+# (padded to (32, 48, 48, 32)) at K=8 (padded to 16), a K=16 shape, and the
+# widest stack its shared memory takes (SA2's widths; here in fold mode)
 MLP_BWD_SHAPES = (
     ("RCNN SA1", 4 * 64, 512, 128, 128, 64, (128, 128, 128), "fold"),
     ("RCNN SA2", 4 * 64, 128, 128, 32, 64, (128, 128, 256), "hilo"),
     ("small", 8, 256, 32, 64, 32, (32, 48, 64), "fold"),
     ("small", 8, 256, 32, 64, 32, (32, 48, 64), "hilo"),
+    ("ragged 4-layer", 8, 256, 20, 64, 8, (24, 40, 36, 20), "hilo"),
+    ("ragged 4-layer", 8, 256, 20, 64, 8, (24, 40, 36, 20), "fold"),
+    ("K=16", 8, 256, 32, 64, 16, (64, 64, 128), "hilo"),
+    ("widest", 16, 256, 128, 64, 32, (128, 128, 256), "fold"),
 )
+# the shapes of the rcnn stage's main path (the tally's)
+MLP_BWD_MAIN = ("RCNN SA1", "RCNN SA2")
 # K7 against its plain version on the card, each fed its own forward's
-# output: the same products in another summation order (WMMA tiles and f32
+# output: the same products in another summation order (wgmma steps and f32
 # partial sums against cuBLAS and index_add_), so each output is held in
 # norm, ||kernel - plain|| <= MLP_BWD_REL_TOL ||plain||.  A maximum within an
 # f32 ulp of its runner-up can go to the other neighbour (a few dozen of the
@@ -546,7 +566,7 @@ def check_mlp_bwd():
         nb = nbytes(table, None if fold else xyz, cent, w0x, *ws, *bs, idx, out, ct,
                     *(t for _, t in _named(got)))
         tag = ""
-        if name != "small":
+        if name in MLP_BWD_MAIN:
             bound = tally.add(k, p, nb, ops_n, PEAK_BF16_PER_MS)
             tally.err = max(tally.err, err)
             tag = " (rcnn stage)"
@@ -554,7 +574,8 @@ def check_mlp_bwd():
             bound = max(nb / PEAK_BYTES_PER_MS, ops_n / PEAK_BF16_PER_MS)
         log(f"mlp backward {name}{tag} B={B} N={N} C={C} S={S} K={K} {widths} {mode}: "
             f"deterministic, no dropped tie, worst {worst:.3e} of the plain version's norm "
-            f"(tol {MLP_BWD_REL_TOL}), max abs err {err:.3e}; kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
+            f"(tol {MLP_BWD_REL_TOL}), max abs err {err:.3e}; kernel {k:.4f} ms, plain {p:.4f} ms, "
+            f"bound {bound:.4f} ms; {_rate(ops_n, k, bound)}")
     return tally
 
 

@@ -1,8 +1,10 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
-``nvcc`` into ``_build/<name>-<hash>.so``; the hash covers the source and
-the flags, so an edited source is rebuilt and a stale library never loads.
+``nvcc`` into ``_build/<name>-<hash>.so``; the hash covers the source, every
+header of ``csrc/`` (``*.cuh``, which the sources include by relative path)
+and the flags, so an edited source or header is rebuilt and a stale library
+never loads.
 No PyTorch headers are included, which keeps a build to seconds.
 """
 
@@ -42,9 +44,16 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def sources(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and the headers it may include."""
+    return [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))]
+
+
 def library_path(name: str, flags: tuple[str, ...]) -> pathlib.Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(ARCH_FLAGS + BASE_FLAGS + flags).encode())
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(ARCH_FLAGS + BASE_FLAGS + flags).encode())
     return _BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 

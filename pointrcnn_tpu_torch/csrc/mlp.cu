@@ -1,5 +1,5 @@
 // Fused neighbourhood gather + shared MLP stack + max over K: the forward
-// and its backward.
+// (K2) and its backward (K7), on Hopper's warpgroup matrix multiply.
 //
 // Forward replaces: pointrcnn_tpu/ops/pallas_mlp.py::_make_kernel (entry
 // _fused_group, operands from _prepare_operands).  Same contract and the
@@ -15,23 +15,39 @@
 //
 // What bounds it on the H100: tensor-core FLOPs.  The RCNN SA stacks run
 // 400 rois x 128 centroids x 64 neighbours = 3.3M rows through two 128-wide
-// layers (~110 GFLOP per batch of 4 scenes); the inputs (a bf16 table of a
-// few MB per stage and the indices) and the (B, S, Cout) output are small.
-// The TPU version spent as many FLOPs again on its one-hot gather matmul.
+// layers (~217 GFLOP at SA1); the inputs (a bf16 table of a few MB and the
+// indices) and the (B, S, Cout) output are small.
 //
-// What the design does about it: rows are gathered by index (no one-hot
-// matmul); a block takes 64 neighbour rows (1, 2 or 4 centroids), keeps their
-// activations in shared memory as bf16 between layers, and runs each layer
-// as 16x16x16 bf16 WMMA tiles with f32 accumulation, eight warps over the
-// output tiles, weights read from L2.  The max over K is taken from the last
-// layer's accumulators, so no (rows, Cout) tensor reaches device memory.
-// Speed (wgmma, TMA, larger tiles) is later work.
+// What the design does about it:
+// - persistent blocks walk tiles of 64 (or 128) neighbour rows, whole
+//   centroids, of all (batch row, centroid group) pairs;
+// - every layer's weights are staged into shared memory once per block, in
+//   the no-swizzle core-matrix layout wgmma reads (wgmma.cuh); where they
+//   leave room for two to four tiles' buffers, each warpgroup walks 64-row
+//   tiles of its own (RCNN SA1, SA2), so one warpgroup's epilogue or gather
+//   overlaps another's products; else the block's two warpgroups share each
+//   tile, and a layer too large to stay (RPN SA4) streams through two slots
+//   of column blocks, the next one's copy in flight while one multiplies;
+// - hidden and last layers are wgmma m64nNk16 products (A: the tile's bf16
+//   activations, B: the weights, both in shared memory; f32 accumulators in
+//   registers), N cut into pieces of 64, 32 and 16 columns; the epilogue
+//   (+ bias, ReLU, bf16) runs on the registers and writes the next layer's
+//   activations in shared memory;
+// - the max over K comes from the last layer's accumulators: a shuffle over
+//   each warp's 16 rows, then a pass over the warps of each centroid;
+// - rows are gathered by index (no one-hot matmul) with 16-byte cp.async
+//   copies, the next tile's rows (and the tile after that's indices) in
+//   flight while the current tile's layers run.
+// What holds it back now: not the tensor cores (about an eighth of their
+// peak at RCNN SA1) but the scalar work around them, layer 0, the
+// epilogues, the gather and the barriers between them, which the few
+// warps on an SM cannot hide.
 //
 // Backward replaces: pointrcnn_tpu/ops/pallas_mlp.py::_make_bwd_kernel
 // (entry _pallas_bwd).  It recomputes the forward with the SAME device
-// functions as the forward kernel (load_rows, layer0, hidden_layer,
-// last_tile), so every activation is bit-identical to the one the forward
-// took its max from, then backpropagates in-block with the TPU kernel's
+// functions (gather_tile, layer0, layer_product with the forward's pieces,
+// hidden_epilogue), so every activation is bit-identical to the one the
+// forward took its max from, then backpropagates with the TPU kernel's
 // rounding points:
 //   tie split:  the cotangent of (centroid, channel) is split evenly among
 //               the neighbours whose last-layer activation equals the stored
@@ -46,213 +62,71 @@
 //               dw0x rows (hi - c, lo) = geo^T @ bf16(dz_0), and dxyz the
 //               scatter-add of bf16(drel) (the table's hi lanes in JAX).
 // Padded neighbours (k >= K, the forward repeats neighbour 0) and the
-// centroids past S of a ragged last block carry no cotangent.
+// centroids past S of a ragged last tile carry no cotangent.
 //
-// What bounds the backward: tensor-core FLOPs again (the recompute plus four
-// products per hidden layer: ~412 GFLOP at RCNN SA1, batch 4).  Design: one
-// block per batch row walks that row's 64-row chunks in order.  It owns the
-// row's slice of dtable (and dxyz), so the scatter needs no atomics: thread f
-// adds lane f of the chunk's rows in ascending (s, k) order, in global memory
-// (a batch row's f32 table, 256 KB at RCNN SA1, does not fit in shared
-// memory).  dW and db go to a per-block partial in global memory (the WMMA
-// accumulators are loaded from and stored back to it per chunk), summed over
-// the blocks in block order by a second kernel.  Every sum has a fixed
-// order, so the backward is deterministic.  The partials' traffic (a dW
-// read and write per chunk, served from L2) and one block per batch row are
-// what a faster version would remove.
+// What bounds the backward: tensor-core FLOPs again (the recompute plus two
+// products per layer: ~412 GFLOP at RCNN SA1, batch 4).  Design: persistent
+// blocks whose two warpgroups share 64- or 128-row tiles, the grid filling
+// the card;
+// dW_i (wgmma with both operands read transposed), dz_{i-1} (W read as a
+// K-major operand from the same shared copy) and the tie split run on the
+// accumulators.  dW is added per tile into the block's own partial in
+// global memory (a register file cannot hold SA2's 49k dW values beside the
+// working accumulators); the partials are summed in block order by a second
+// kernel.  db and dw0x are summed in shared memory per warpgroup.  The
+// blocks write bf16(dz_0) (and bf16(drel)) per (b, s, k) row, and the
+// deterministic scatter of scatter.cuh adds them onto the table rows in
+// ascending (s, k) order, the order a sequential index_add_ takes.  Every
+// sum has a fixed order, so the backward is deterministic.  What holds it
+// back now: the per-tile read and write of the dW partials through L2
+// (about 0.4 MB a 64-row tile at RCNN SA2) and the same scalar work as the
+// forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include <algorithm>
+#include <mutex>
+#include <vector>
+
+#include "scatter.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using bf16 = __nv_bfloat16;
+using hop::cm_off;
+
+constexpr int kThreads = 256;  // a block whose two warpgroups share tiles
 constexpr int kMaxLayers = 4;
-constexpr size_t kMaxSmem = 232448;
+constexpr int kMaxWidth = 512;
+constexpr int kMaxSmem = 232448;
+constexpr int kCap = 64;        // widest N piece of a forward-layer product
+constexpr int kStreamCap = 32;  // ... of a streamed layer (a pass holds two)
+constexpr int kSlack = 1024;    // bytes after an activation buffer: dW's M overhang
+constexpr int kRedCols = 128;   // columns of a warpgroup's reduction scratch (4 warps
+                                // x 128 columns, twice: the max epilogue alternates)
 
 struct Layers {
-  const __nv_bfloat16* w[kMaxLayers];  // w[j]: (width[j-1], width[j]), j >= 1
-  const float* b[kMaxLayers];          // b[j]: (width[j])
-  int width[kMaxLayers];               // padded to multiples of 16
+  const bf16* w[kMaxLayers];  // w[j]: (width[j-1], width[j]), j >= 1
+  const float* b[kMaxLayers];  // b[j]: (width[j])
+  int width[kMaxLayers];       // multiples of 16
   int n_layers;
 };
 
-__device__ __forceinline__ float bf(const __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// The block's rows: centroids s0 .. s0 + kRows/kp - 1 of batch row b, row r
-// is neighbour r % kp of centroid s0 + r / kp.  rid[r] is its table row;
-// in hilo mode geo[r] holds bf16(hi - c) in 0:3 and lo in 3:6.
-__device__ __forceinline__ void load_rows(int fold, const float* __restrict__ xyz,
-                                          const float* __restrict__ cent,
-                                          const int* __restrict__ idx, int b, int n,
-                                          int s, int s0, int kp, int* rid, float* geo) {
-  const int tid = threadIdx.x;
-  if (tid < kRows) {
-    const int sc = s0 + tid / kp;
-    const int j = sc < s ? idx[((size_t)b * s + sc) * kp + tid % kp] : 0;
-    rid[tid] = j;
-    if (!fold) {
-      // relative geometry exactly as the TPU kernel forms it:
-      // bf16(hi - c) in lanes 0:3 and lo (already bf16) in lanes 3:6
-      for (int c = 0; c < 3; ++c) {
-        const float x = xyz[((size_t)b * n + j) * 3 + c];
-        const float hi = __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
-        const float lo = bf(__float2bfloat16_rn(x - hi));
-        const float cc = sc < s ? cent[((size_t)b * s + sc) * 3 + c] : 0.f;
-        geo[tid * 6 + c] = bf(__float2bfloat16_rn(hi - cc));
-        geo[tid * 6 + 3 + c] = lo;
-      }
-    }
-  }
-}
-
-// layer 0: gathered table row, geometry term, bias, ReLU -> bf16 act
-__device__ __forceinline__ void layer0(int fold, const __nv_bfloat16* __restrict__ table,
-                                       const float* __restrict__ cent,
-                                       const __nv_bfloat16* __restrict__ w0x,
-                                       const float* __restrict__ b0, int b, int n, int s,
-                                       int s0, int kp, int f0p, const int* rid,
-                                       const float* geo, __nv_bfloat16* act, int ca) {
-  for (int e = threadIdx.x; e < kRows * f0p; e += kThreads) {
-    const int r = e / f0p;
-    const int f = e - r * f0p;
-    const float t = bf(table[((size_t)b * n + rid[r]) * f0p + f]);
-    float x;
-    if (fold) {
-      const int sc = s0 + r / kp;
-      x = t - (sc < s ? cent[((size_t)b * s + sc) * f0p + f] : 0.f);
-    } else {
-      // products of bf16 values are exact in f32, so a contracted FMA
-      // rounds as the separate multiply and add do
-      const float* g = geo + r * 6;
-      const float wx = bf(w0x[f]), wy = bf(w0x[f0p + f]), wz = bf(w0x[2 * f0p + f]);
-      const float acc =
-          g[0] * wx + g[1] * wy + g[2] * wz + g[3] * wx + g[4] * wy + g[5] * wz;
-      x = t + acc;
-    }
-    act[r * ca + f] = __float2bfloat16_rn(fmaxf(x + b0[f], 0.f));
-  }
-}
-
-// a hidden layer: in (kRows x cin) -> nxt (kRows x cout), bf16 ReLU outputs;
-// st is this warp's 16x16 f32 staging tile
-__device__ __forceinline__ void hidden_layer(const __nv_bfloat16* in, __nv_bfloat16* nxt,
-                                             const __nv_bfloat16* __restrict__ W,
-                                             const float* __restrict__ bias, int cin,
-                                             int cout, int ca, float* st) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int ctiles = cout / 16;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  for (int t = warp; t < (kRows / 16) * ctiles; t += kWarps) {
-    const int rt = t % (kRows / 16);
-    const int ct = t / (kRows / 16);
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < cin / 16; ++kk) {
-      wmma::load_matrix_sync(fa, in + rt * 16 * ca + kk * 16, ca);
-      wmma::load_matrix_sync(fb, W + (size_t)kk * 16 * cout + ct * 16, cout);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int q = 0; q < 8; ++q) {
-      const int e = lane + 32 * q;
-      const int rr = e >> 4, cc = e & 15;
-      const float v = fmaxf(st[e] + bias[ct * 16 + cc], 0.f);
-      nxt[(rt * 16 + rr) * ca + ct * 16 + cc] = __float2bfloat16_rn(v);
-    }
-    __syncwarp();
-  }
-}
-
-// the last layer's f32 accumulator tile (rows rt*16.., channels ct*16..),
-// before bias and ReLU -> st
-__device__ __forceinline__ void last_tile(const __nv_bfloat16* in,
-                                          const __nv_bfloat16* __restrict__ W, int cin,
-                                          int cout, int ca, int rt, int ct, float* st) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-  for (int kk = 0; kk < cin / 16; ++kk) {
-    wmma::load_matrix_sync(fa, in + rt * 16 * ca + kk * 16, ca);
-    wmma::load_matrix_sync(fb, W + (size_t)kk * 16 * cout + ct * 16, cout);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-  wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_group_mlp_kernel(int fold, const __nv_bfloat16* __restrict__ table,
-                       const float* __restrict__ xyz,
-                       const float* __restrict__ cent,
-                       const __nv_bfloat16* __restrict__ w0x,
-                       const int* __restrict__ idx, int n, int s, int kp,
-                       int ca, Layers L, float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* stage = reinterpret_cast<float*>(smem);                  // kWarps*256
-  __nv_bfloat16* act0 = reinterpret_cast<__nv_bfloat16*>(stage + kWarps * 256);
-  __nv_bfloat16* act1 = act0 + kRows * ca;
-  int* rid = reinterpret_cast<int*>(act1 + kRows * ca);           // kRows
-  float* geo = reinterpret_cast<float*>(rid + kRows);             // kRows*6
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.y;
-  const int cpb = kRows / kp;  // centroids per block
-  const int s0 = blockIdx.x * cpb;
-
-  load_rows(fold, xyz, cent, idx, b, n, s, s0, kp, rid, geo);
-  __syncthreads();
-  layer0(fold, table, cent, w0x, L.b[0], b, n, s, s0, kp, L.width[0], rid, geo, act0, ca);
-  __syncthreads();
-
-  float* st = stage + warp * 256;
-  for (int j = 1; j < L.n_layers; ++j) {
-    const int cin = L.width[j - 1];
-    const int cout = L.width[j];
-    const __nv_bfloat16* in = (j & 1) ? act0 : act1;
-    __nv_bfloat16* nxt = (j & 1) ? act1 : act0;
-    if (j < L.n_layers - 1) {
-      hidden_layer(in, nxt, L.w[j], L.b[j], cin, cout, ca, st);
-    } else {
-      // last layer: max over each centroid's kp rows, straight from the
-      // f32 accumulators (ReLU outputs are >= 0, so 0 starts the max)
-      const int ctiles = cout / 16;
-      for (int t = warp; t < cpb * ctiles; t += kWarps) {
-        const int cl = t % cpb;
-        const int ct = t / cpb;
-        float m = 0.f;
-        for (int rt = cl * kp / 16; rt < (cl + 1) * kp / 16; ++rt) {
-          last_tile(in, L.w[j], cin, cout, ca, rt, ct, st);
-          if (lane < 16) {
-            const float bb = L.b[j][ct * 16 + lane];
-            for (int rr = 0; rr < 16; ++rr) {
-              m = fmaxf(m, fmaxf(st[rr * 16 + lane] + bb, 0.f));
-            }
-          }
-          __syncwarp();
-        }
-        const int sc = s0 + cl;
-        if (lane < 16 && sc < s) {
-          out[((size_t)b * s + sc) * cout + ct * 16 + lane] = m;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
+// A block's shared memory as byte offsets (-1: absent), planned on the host.
+struct Plan {
+  int tm;                  // rows per tile: 64 or 128 (whole centroids)
+  int streamed;            // bit j: layer j's weights stream through the ring
+  int slot;                // bytes of one of the ring's two slots
+  int w[kMaxLayers];       // resident weights of layer j >= 1
+  int act[kMaxLayers];     // activations of layer j < L - 1; act[L-1]: bwd dz_L
+  int ring, stage, rid, xyz, cent, bias, w0x, red, gsc, dbacc, dw0x, geo, drel, wsum;
+  int wg_bytes;            // > 0: each warpgroup walks its own tiles, its tile
+                           // buffers (stage .. geo) wg_bytes apart
+  int bytes;
+};
 
 // Offsets (in floats) of the backward's parameter gradients in one partial
 // slot: dW_1 .. dW_{L-1}, then db_0 .. db_{L-1}, then the six dw0x rows.
@@ -281,215 +155,981 @@ __host__ __device__ inline GradLayout grad_layout(const int* width, int n_layers
   return g;
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_group_mlp_bwd_kernel(int fold, const __nv_bfloat16* __restrict__ table,
-                           const float* __restrict__ xyz,
-                           const float* __restrict__ cent,
-                           const __nv_bfloat16* __restrict__ w0x,
-                           const int* __restrict__ idx, int n, int s, int kp,
-                           int k_real, int ca, int cmax, Layers L,
-                           const float* __restrict__ fwd_out,
-                           const float* __restrict__ ct_in,
-                           float* __restrict__ dtable, float* __restrict__ dxyz,
-                           float* __restrict__ dcent, float* __restrict__ part,
-                           int* __restrict__ nomatch) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* stage = reinterpret_cast<float*>(smem);                  // kWarps*256
-  float* dzf = stage + kWarps * 256;                              // kRows*cmax
-  __nv_bfloat16* dzb0 = reinterpret_cast<__nv_bfloat16*>(dzf + kRows * cmax);
-  __nv_bfloat16* dzb1 = dzb0 + kRows * cmax;
-  __nv_bfloat16* acts = dzb1 + kRows * cmax;                      // (L-1)*kRows*ca
-  int* rid = reinterpret_cast<int*>(acts + (L.n_layers - 1) * kRows * ca);
-  float* geo = reinterpret_cast<float*>(rid + kRows);             // kRows*6
-  float* drel = geo + kRows * 6;                                  // kRows*3
+// The kernels' operands.
+struct Args {
+  int fold;
+  const bf16* table;   // (B, N, F0P)
+  const float* xyz;    // (B, N, 3), hilo
+  const float* cent;   // (B, S, F0P) fold, (B, S, 3) hilo
+  const bf16* w0x;     // (3, F0P), hilo
+  const int* idx;      // (B, S, kp)
+  int n, s, kp, kps, k_real;  // kps = log2(kp)
+  int tiles_per_b, total;
+  float* out;          // forward: (B, S, Cout)
+  const float* fwd_out;
+  const float* ct;     // backward: the forward's output and its cotangent
+  bf16* dz0;           // (B, S, kp, F0P) bf16(dz_0)
+  bf16* drel;          // (B, S, kp, 3) bf16(drel), hilo
+  float* dcent;        // (B, S, F0P | 3)
+  float* part;         // (grid, grad size)
+  int* nomatch;
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b = blockIdx.x;
-  const int cpb = kRows / kp;
+// N pieces of a product `width` columns wide: as many `cap`s as fit, then
+// halves down to 16.  pieces(..., p, &n0) -> the width of piece p (0: none).
+__host__ __device__ inline int piece(int width, int cap, int p, int* n0) {
+  int off = 0, i = 0;
+  for (int w = cap; w >= 16; w >>= 1) {
+    while (width - off >= w) {
+      if (i == p) {
+        *n0 = off;
+        return w;
+      }
+      off += w;
+      ++i;
+    }
+  }
+  return 0;
+}
+
+__host__ __device__ inline int n_pieces(int width, int cap) {
+  int n0, p = 0;
+  while (piece(width, cap, p, &n0)) ++p;
+  return p;
+}
+
+
+template <class T>
+__device__ __forceinline__ T* at(unsigned char* sm, int off) {
+  return reinterpret_cast<T*>(sm + off);
+}
+
+// layer j's bias in shared memory
+__device__ __forceinline__ const float* bias_of(unsigned char* sm, const Plan& P,
+                                                const Layers& L, int j) {
+  int off = 0;
+  for (int i = 0; i < j; ++i) off += L.width[i];
+  return at<float>(sm, P.bias) + off;
+}
+
+__device__ __forceinline__ float bf(const bf16 v) { return __bfloat162float(v); }
+
+// ---------------------------------------------------------------------------
+// wgmma operands.  K-major: the stored columns are the reduction dimension;
+// MN-major: the stored rows are.  The descriptor's leading-dimension offset
+// is the stride between cores along K, the stride-dimension offset the one
+// along M/N (the probe-checked assignment for no-swizzle layouts).
+
+template <int T>
+__device__ __forceinline__ uint64_t desc(const bf16* p, int C) {
+  return T ? hop::make_desc(p, 16 * C, 128) : hop::make_desc(p, 128, 16 * C);
+}
+
+// acc (64 x n) = A (64 x 16 ksteps) B (16 ksteps x n), n <= NMAX; a and b
+// point at the (m0, k0) and (k0, n0) corners of tiles stored ca and cb
+// columns wide.
+// issue() starts the product as one wgmma group; product() also waits for it
+template <int TA, int TB, int NMAX>
+__device__ __forceinline__ void issue(float* acc, int n, const bf16* a, int ca, const bf16* b,
+                                      int cb, int ksteps) {
+  // a 16-deep step moves two cores along K: 256 bytes K-major, 16 rows of
+  // 2C bytes MN-major; the descriptor's address field counts 16 bytes
+  const uint64_t da = desc<TA>(a, ca), db = desc<TB>(b, cb);
+  const uint32_t a_step = TA ? 2 * ca : 16, b_step = TB ? 2 * cb : 16;
+  hop::fence_regs(acc, NMAX / 2);
+  hop::wg_fence();
+  for (int kk = 0; kk < ksteps; ++kk) {
+    hop::mma<TA, TB, NMAX>(n, acc, da + kk * a_step, db + kk * b_step, kk > 0);
+  }
+  hop::wg_commit();
+}
+
+template <int TA, int TB, int NMAX>
+__device__ __forceinline__ void product(float* acc, int n, const bf16* a, int ca,
+                                        const bf16* b, int cb, int ksteps) {
+  issue<TA, TB, NMAX>(acc, n, a, ca, b, cb, ksteps);
+  hop::wg_wait();
+  hop::fence_regs(acc, NMAX / 2);
+}
+
+// Items first, first + step, ... < items of one warpgroup: start(it, acc)
+// issues item it's products, finish(it, acc) runs its epilogue once they
+// have landed.
+template <int NREG, class Start, class Finish>
+__device__ __forceinline__ void for_items(int first, int step, int items, Start start,
+                                          Finish finish) {
+  float acc[NREG];
+  for (int it = first; it < items; it += step) {
+    start(it, acc);
+    hop::wg_wait();
+    hop::fence_regs(acc, NREG);
+    finish(it, acc);
+  }
+}
+
+// Thread coordinates inside a warpgroup's 64 x n accumulator tile.
+struct Frag {
+  int wg, w, l, t;  // warpgroup, warp in it, lane, thread in it
+  __device__ Frag() {
+    t = threadIdx.x & 127;
+    wg = threadIdx.x >> 7;
+    w = t >> 5;
+    l = t & 31;
+  }
+  __device__ int row(int i) const { return 16 * w + (l >> 2) + 8 * i; }
+  __device__ int col(int n8) const { return 8 * n8 + 2 * (l & 3); }
+};
+
+// The threads that share a tile: the whole block, or one warpgroup when
+// each warpgroup walks tiles of its own (bar: its named barrier; 0, the
+// block's).
+struct Group {
+  int tid, nthr, bar;
+  __device__ void sync() const {
+    if (bar) {
+      hop::bar_sync(bar, nthr);
+    } else {
+      __syncthreads();
+    }
+  }
+};
+
+// sum (or max) over the 16 rows a warp holds: lanes differing in bits 2..4
+__device__ __forceinline__ float warp_rows_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+__device__ __forceinline__ float warp_rows_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+  return v;
+}
+
+// the row and 8-column chunk of the q-th 16 bytes of a core-matrix layout
+// with cpr chunks a row (8 threads fill one core: 8 rows of one chunk)
+struct Chunk {
+  int r, c8;
+};
+__device__ __forceinline__ Chunk chunk_of(int q, int cpr) {
+  const int core = q >> 3;
+  const int rg = (cpr & (cpr - 1)) ? core / cpr : core >> (__ffs(cpr) - 1);
+  return {rg * 8 + (q & 7), core - rg * cpr};
+}
+
+// ---------------------------------------------------------------------------
+// Tiles: tile t is centroids s0 .. s0 + tm/kp - 1 of batch row b; its row r
+// is neighbour r % kp of centroid s0 + r / kp.
+
+struct Tile {
+  int b, s0;
+};
+
+__device__ __forceinline__ Tile tile_of(const Args& A, const Plan& P, int t) {
+  return {t / A.tiles_per_b, (t % A.tiles_per_b) * (P.tm >> A.kps)};
+}
+
+// the tile's indices -> rid (cp.async; 0 past S)
+__device__ __forceinline__ void load_idx(const Args& A, const Plan& P, const Group& G, int t,
+                                         int* rid) {
+  const Tile T = tile_of(A, P, t);
+  for (int r = G.tid; r < P.tm; r += G.nthr) {
+    const int sc = T.s0 + (r >> A.kps);
+    if (sc < A.s) {
+      hop::cp_async4(rid + r, A.idx + ((size_t)T.b * A.s + sc) * A.kp + (r & (A.kp - 1)));
+    } else {
+      rid[r] = 0;
+    }
+  }
+}
+
+// the tile's table rows -> stage (core-matrix layout, F0P columns), and its
+// centroids (fold: F0P floats each; hilo: xyz) and, hilo, the rows' xyz
+__device__ __forceinline__ void gather_tile(const Args& A, const Plan& P, const Group& G, int f0p,
+                                            int t, const int* rid, bf16* stage, float* xyzb,
+                                            float* centb) {
+  const Tile T = tile_of(A, P, t);
+  const int cpr = f0p >> 3;
+  // chunk q is the q-th 16 bytes of the layout: 8 threads fill one core
+  // (8 rows), a warp 8 rows x 4 chunks
+  for (int q = G.tid; q < P.tm * cpr; q += G.nthr) {
+    const Chunk ch = chunk_of(q, cpr);
+    const int r = ch.r, c8 = ch.c8;
+    hop::cp_async16(stage + 8 * q, A.table + ((size_t)T.b * A.n + rid[r]) * f0p + 8 * c8);
+  }
+  const int cpt = P.tm >> A.kps;
+  if (A.fold) {
+    const int c4n = f0p >> 2;
+    for (int q = G.tid; q < cpt * c4n; q += G.nthr) {
+      const int cl = q / c4n, c4 = q - cl * c4n;
+      const int sc = T.s0 + cl;
+      float* dst = centb + cl * f0p + 4 * c4;
+      if (sc < A.s) {
+        hop::cp_async16(dst, A.cent + ((size_t)T.b * A.s + sc) * f0p + 4 * c4);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int e = G.tid; e < P.tm * 3; e += G.nthr) {
+      const int r = e / 3;
+      hop::cp_async4(xyzb + e, A.xyz + ((size_t)T.b * A.n + rid[r]) * 3 + (e - 3 * r));
+    }
+    for (int e = G.tid; e < cpt * 3; e += G.nthr) {
+      const int cl = e / 3;
+      const int sc = T.s0 + cl;
+      if (sc < A.s) {
+        hop::cp_async4(centb + e, A.cent + ((size_t)T.b * A.s + sc) * 3 + (e - 3 * cl));
+      } else {
+        centb[e] = 0.f;
+      }
+    }
+  }
+}
+
+// eight floats from 16-byte aligned shared memory
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// hilo: row r's relative geometry exactly as the TPU kernel forms it,
+// bf16(hi - c) in g[0:3] and lo (already bf16) in g[3:6]
+__device__ __forceinline__ void row_geo(const float* xyzb, const float* centb, int r, int cl,
+                                        float* g) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float x = xyzb[r * 3 + c];
+    const float hi = __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
+    g[3 + c] = bf(__float2bfloat16_rn(x - hi));
+    g[c] = bf(__float2bfloat16_rn(hi - centb[cl * 3 + c]));
+  }
+}
+
+// layer 0: gathered table row, geometry term, bias, ReLU -> bf16 act (F0P
+// columns; act may be stage itself: each thread rewrites its own 16 bytes);
+// b0s, w0xs: the bias and (hilo) the bf16 w0x rows as f32; geo: (hilo) the
+// rows' relative geometry, filled here
+__device__ __forceinline__ void layer0(const Args& A, const Plan& P, const Group& G, int f0p,
+                                       const bf16* stage, const float* xyzb, const float* centb,
+                                       const float* b0s, const float* w0xs, float* geo, bf16* act) {
+  const int cpr = f0p >> 3;
+  if (!A.fold) {
+    for (int r = G.tid; r < P.tm; r += G.nthr) row_geo(xyzb, centb, r, r >> A.kps, geo + 6 * r);
+    G.sync();
+  }
+  for (int q = G.tid; q < P.tm * cpr; q += G.nthr) {
+    const Chunk ch = chunk_of(q, cpr);
+    const int r = ch.r, c0 = ch.c8 * 8;
+    const int cl = r >> A.kps;
+    const uint4 raw = *reinterpret_cast<const uint4*>(stage + 8 * q);
+    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+    float t[8];  // bf16 -> f32 is exact: the bits shifted up
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      t[2 * e] = __uint_as_float(words[e] << 16);
+      t[2 * e + 1] = __uint_as_float(words[e] & 0xFFFF0000u);
+    }
+    float x[8];
+    if (A.fold) {
+      float cc[8];
+      load8(centb + cl * f0p + c0, cc);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = t[e] - cc[e];
+    } else {
+      float g[6], wx[8], wy[8], wz[8];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) g[c] = geo[6 * r + c];
+      load8(w0xs + c0, wx);
+      load8(w0xs + f0p + c0, wy);
+      load8(w0xs + 2 * f0p + c0, wz);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        // the six products in order; each is of two bf16 values, exact in
+        // f32, so fma(a, b, s) rounds as s + a * b does
+        float acc = g[0] * wx[e];
+        acc = __fmaf_rn(g[1], wy[e], acc);
+        acc = __fmaf_rn(g[2], wz[e], acc);
+        acc = __fmaf_rn(g[3], wx[e], acc);
+        acc = __fmaf_rn(g[4], wy[e], acc);
+        acc = __fmaf_rn(g[5], wz[e], acc);
+        x[e] = t[e] + acc;
+      }
+    }
+    float bb[8];
+    load8(b0s + c0, bb);
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t lo =
+          __bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(x[2 * e] + bb[2 * e], 0.f)));
+      const uint32_t hi =
+          __bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(x[2 * e + 1] + bb[2 * e + 1], 0.f)));
+      o[e] = lo | (hi << 16);
+    }
+    *reinterpret_cast<uint4*>(act + 8 * q) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// hidden layer epilogue: relu(acc + b) -> bf16 rows m0.., columns n0.. of
+// `out` (cout columns)
+__device__ __forceinline__ void hidden_epilogue(const Frag& F, const float* acc, int n, int m0,
+                                                int n0, const float* bias, bf16* out,
+                                                int cout) {
+  // (row + 8i, col + 8 n8) lies 8 cout i + 64 n8 elements past (row, col)
+  bf16* base = out + cm_off(m0 + F.row(0), n0 + F.col(0), cout);
+#pragma unroll
+  for (int n8 = 0; n8 < 8; ++n8) {
+    if (8 * n8 < n) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + n0 + F.col(n8));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float v0 = fmaxf(acc[4 * n8 + 2 * i] + bb.x, 0.f);
+        const float v1 = fmaxf(acc[4 * n8 + 2 * i + 1] + bb.y, 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(base + i * 8 * cout + n8 * 64) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// last layer epilogue of the forward: max over each centroid's rows of
+// relu(acc + b) -> out.  Consecutive items alternate between red's halves,
+// so the next item's barrier also keeps this item's reads from being
+// overwritten.
+__device__ __forceinline__ void max_epilogue(const Args& A, const Frag& F, const float* acc, int n,
+                                             int m0, int n0, const float* bias, int cout, Tile T,
+                                             float* red) {
+#pragma unroll
+  for (int n8 = 0; n8 < 8; ++n8) {
+    if (8 * n8 < n) {
+      const int c = F.col(n8);
+      const float2 b2 = *reinterpret_cast<const float2*>(bias + n0 + c);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        // x -> relu(x + b) is monotone in f32, so the max of the rows'
+        // relu(acc + b) is relu(max acc + b), bit for bit
+        const float v = warp_rows_max(fmaxf(acc[4 * n8 + j], acc[4 * n8 + 2 + j]));
+        if (F.l < 4) red[F.w * kRedCols + c + j] = fmaxf(v + (j ? b2.y : b2.x), 0.f);
+      }
+    }
+  }
+  hop::bar_sync(1 + F.wg, 128);
+  const int wpc = A.kp >> 4;  // warps per centroid
+  const int ncent = 4 / wpc;
+  for (int e = F.t; e < ncent * n; e += 128) {
+    const int cl = e / n, c = e - cl * n;
+    float m = red[cl * wpc * kRedCols + c];
+    for (int u = 1; u < wpc; ++u) m = fmaxf(m, red[(cl * wpc + u) * kRedCols + c]);
+    const int sc = T.s0 + (m0 >> A.kps) + cl;
+    if (sc < A.s) A.out[((size_t)T.b * A.s + sc) * cout + n0 + c] = m;
+  }
+}
+
+// one streamed pass: columns [c0, c0 + pw) of W (cin x cout) -> slot, laid
+// out pw columns wide
+__device__ __forceinline__ void load_pass(const bf16* __restrict__ W, int cin, int cout, int c0,
+                                          int pw, bf16* slot) {
+  const int cpr = pw >> 3;
+  for (int q = threadIdx.x; q < cin * cpr; q += (int)blockDim.x) {
+    const Chunk ch = chunk_of(q, cpr);
+    const int r = ch.r, c8 = ch.c8;
+    hop::cp_async16(slot + 8 * q, W + (size_t)r * cout + c0 + 8 * c8);
+  }
+}
+
+// Layer j of the forward on the tile's activations `in` (tm x cin): each
+// warpgroup takes the items (64-row block, N piece) i = wg, wg + 2, ...;
+// hidden layers write relu(. + b) to `out`, the last layer (out == nullptr)
+// its max over K.  The backward's recompute calls this too, so the pieces
+// and the order of the 16-deep steps are the forward's.  A warpgroup with
+// a tile of its own takes every item (first 0, step 1).
+__device__ __forceinline__ void layer_product(const Args& A, const Layers& L, const Plan& P,
+                                              unsigned char* sm, int j, const bf16* in, bf16* out,
+                                              Tile T, int first, int step) {
+  const Frag F;
+  const int cin = L.width[j - 1], cout = L.width[j];
+  float acc[kCap / 2];
+  float* red = at<float>(sm, P.red) + F.wg * 8 * kRedCols;
+  if (!((P.streamed >> j) & 1)) {
+    const int np = n_pieces(cout, kCap);
+    const bf16* W = at<bf16>(sm, P.w[j]);
+    const int mt = P.tm >> 6;
+    const int items = mt * np;
+    auto start = [&](int it, float* d) {
+      int n0;
+      const int n = piece(cout, kCap, it / mt, &n0);
+      issue<0, 1, kCap>(d, n, in + cm_off(64 * (it % mt), 0, cin), cin, W + cm_off(0, n0, cout),
+                        cout, cin >> 4);
+    };
+    auto finish = [&](int it, const float* d) {
+      int n0;
+      const int n = piece(cout, kCap, it / mt, &n0);
+      if (out) {
+        hidden_epilogue(F, d, n, 64 * (it % mt), n0, bias_of(sm, P, L, j), out, cout);
+      } else {
+        max_epilogue(A, F, d, n, 64 * (it % mt), n0, bias_of(sm, P, L, j), cout, T,
+                     red + ((it - first) / step & 1) * 4 * kRedCols);
+      }
+    };
+    for_items<kCap / 2>(first, step, items, start, finish);
+    return;
+  }
+  // streamed (tm = 64): pass q holds pieces 2q (warpgroup 0) and 2q + 1,
+  // columns [c0, c0 + pw) of W; pass q + 1 is copied in while q multiplies
+  const int np = n_pieces(cout, kStreamCap);
+  bf16* ring = at<bf16>(sm, P.ring);
+  const int slot_el = P.slot / 2;
+  const int nq = (np + 1) / 2;
+  auto span = [&](int q, int* c0) {
+    int n1;
+    piece(cout, kStreamCap, 2 * q, c0);
+    const int w1 = piece(cout, kStreamCap, min(2 * q + 1, np - 1), &n1);
+    return n1 + w1 - *c0;
+  };
+  int c0;
+  int pw = span(0, &c0);
+  load_pass(L.w[j], cin, cout, c0, pw, ring);
+  hop::cp_async_commit();
+  for (int q = 0; q < nq; ++q) {
+    pw = span(q, &c0);
+    if (q + 1 < nq) {
+      int c0n;
+      const int pwn = span(q + 1, &c0n);
+      load_pass(L.w[j], cin, cout, c0n, pwn, ring + ((q + 1) & 1) * slot_el);
+      hop::cp_async_commit();
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      hop::cp_async_wait_all();
+    }
+    hop::fence_async_smem();
+    __syncthreads();
+    const bf16* slot = ring + (q & 1) * slot_el;
+    const int p = 2 * q + F.wg;
+    if (p < np) {
+      int n0;
+      const int n = piece(cout, kStreamCap, p, &n0);
+      product<0, 1, kCap>(acc, n, in, cin, slot + cm_off(0, n0 - c0, pw), pw, cin >> 4);
+      if (out) {
+        hidden_epilogue(F, acc, n, 0, n0, bias_of(sm, P, L, j), out, cout);
+      } else {
+        max_epilogue(A, F, acc, n, 0, n0, bias_of(sm, P, L, j), cout, T, red);
+      }
+    }
+    __syncthreads();  // the slot is refilled by pass q + 2
+  }
+}
+
+// shared memory set up once per block: resident weights, b0, w0x
+__device__ __forceinline__ void load_constants(const Args& A, const Layers& L, const Plan& P,
+                                               unsigned char* sm) {
+  for (int j = 1; j < L.n_layers; ++j) {
+    if ((P.streamed >> j) & 1) continue;
+    load_pass(L.w[j], L.width[j - 1], L.width[j], 0, L.width[j], at<bf16>(sm, P.w[j]));
+  }
+  const int f0p = L.width[0];
+  float* bias = at<float>(sm, P.bias);
+  for (int j = 0; j < L.n_layers; bias += L.width[j], ++j) {
+    for (int f = threadIdx.x; f < L.width[j]; f += (int)blockDim.x) bias[f] = L.b[j][f];
+  }
+  if (!A.fold) {
+    float* w0xs = at<float>(sm, P.w0x);
+    for (int e = threadIdx.x; e < 3 * f0p; e += (int)blockDim.x) w0xs[e] = bf(A.w0x[e]);
+  }
+  hop::cp_async_commit();
+}
+
+// The pipeline of both kernels: the tile's rows are copied in before its
+// layer 0; then the next tile's rows (and the indices of the one after)
+// are copied in while this tile's layers run.  Tiles t, t + step, ... go
+// to one group; sm here is the group's own tile buffers.
+struct Pipe {
+  int* rid[2];
+  float* xyz[2];
+  float* cent[2];
+  bf16* stage;
+  int step;
+  __device__ Pipe(const Args& A, const Plan& P, unsigned char* sm, int f0p, int step_)
+      : step(step_) {
+    const int cw = A.fold ? f0p : 3;
+    const int cpt = P.tm >> A.kps;
+    stage = at<bf16>(sm, P.stage);
+    for (int i = 0; i < 2; ++i) {
+      rid[i] = at<int>(sm, P.rid) + i * P.tm;
+      xyz[i] = A.fold ? nullptr : at<float>(sm, P.xyz) + i * P.tm * 3;
+      cent[i] = at<float>(sm, P.cent) + i * cpt * cw;
+    }
+  }
+  // before the first tile t
+  __device__ void start(const Args& A, const Plan& P, const Group& G, int f0p, int t) {
+    load_idx(A, P, G, t, rid[0]);
+    hop::cp_async_commit();
+    hop::cp_async_wait_all();
+    G.sync();
+    gather_tile(A, P, G, f0p, t, rid[0], stage, xyz[0], cent[0]);
+    if (t + step < A.total) load_idx(A, P, G, t + step, rid[1]);
+    hop::cp_async_commit();
+    hop::cp_async_wait_all();
+    hop::fence_async_smem();
+    G.sync();
+  }
+  // once tile t (parity p) no longer needs the stage
+  __device__ void prefetch(const Args& A, const Plan& P, const Group& G, int f0p, int t, int p) {
+    if (t + step < A.total) {
+      gather_tile(A, P, G, f0p, t + step, rid[p ^ 1], stage, xyz[p ^ 1], cent[p ^ 1]);
+    }
+    if (t + 2 * step < A.total) load_idx(A, P, G, t + 2 * step, rid[p]);
+    hop::cp_async_commit();
+  }
+  __device__ void finish(const Group& G) {
+    hop::cp_async_wait_all();
+    hop::fence_async_smem();
+    G.sync();
+  }
+};
+
+__global__ void __launch_bounds__(2 * kThreads, 1)
+fused_group_mlp_kernel(Args A, Layers L, Plan P) {
+  extern __shared__ __align__(128) unsigned char sm[];
   const int f0p = L.width[0];
   const int nl = L.n_layers;
-  const int coutl = L.width[nl - 1];
+  const int nwg = blockDim.x >> 7, wg = threadIdx.x >> 7;
+  // a tile per warpgroup (its buffers wg_bytes apart) or one per block
+  const bool own = P.wg_bytes > 0;
+  const Group G = own ? Group{(int)threadIdx.x & 127, 128, 1 + wg}
+                      : Group{(int)threadIdx.x, (int)blockDim.x, 0};
+  unsigned char* tsm = sm + (own ? wg * P.wg_bytes : 0);
+  const int step = own ? gridDim.x * nwg : gridDim.x;
+  int t = own ? blockIdx.x * nwg + wg : blockIdx.x;
+  load_constants(A, L, P, sm);
+  hop::cp_async_wait_all();
+  hop::fence_async_smem();
+  __syncthreads();
+  if (t >= A.total) return;
+  Pipe pipe(A, P, tsm, f0p, step);
+  pipe.start(A, P, G, f0p, t);
+  for (int it = 0; t < A.total; t += step, ++it) {
+    const int p = it & 1;
+    const Tile T = tile_of(A, P, t);
+    layer0(A, P, G, f0p, pipe.stage, pipe.xyz[p], pipe.cent[p], at<float>(sm, P.bias),
+           at<float>(sm, P.w0x), at<float>(tsm, P.geo), at<bf16>(tsm, P.act[0]));
+    hop::fence_async_smem();
+    G.sync();
+    for (int j = 1; j < nl; ++j) {
+      layer_product(A, L, P, sm, j, at<bf16>(tsm, P.act[j - 1]),
+                    j < nl - 1 ? at<bf16>(tsm, P.act[j]) : nullptr, T, own ? 0 : wg,
+                    own ? 1 : 2);
+      // the last layer writes nothing a product reads: finish() syncs
+      if (j < nl - 1 || nl == 2) {
+        hop::fence_async_smem();
+        G.sync();
+      }
+      // the stage (layer 0's activations) is free once layer 1 has read it
+      if (j == 1) pipe.prefetch(A, P, G, f0p, t, p);
+    }
+    pipe.finish(G);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward's pieces.
+
+// this warp's 16-row sums of columns c, c + 1 -> red[warp][c..]
+__device__ __forceinline__ void put_warp_sums(const Frag& F, float* red, int c, float v0,
+                                              float v1) {
+  v0 = warp_rows_sum(v0);
+  v1 = warp_rows_sum(v1);
+  if (F.l < 4) {
+    red[F.w * kRedCols + c] = v0;
+    red[F.w * kRedCols + c + 1] = v1;
+  }
+}
+
+// sum over the four warps' rows, in warp order, of columns 0 .. n - 1 of red
+// added to acc[0 .. n - 1]
+__device__ __forceinline__ void add_column_sums(const Frag& F, const float* red, int n,
+                                                float* acc) {
+  for (int c = F.t; c < n; c += 128) {
+    acc[c] += ((red[c] + red[kRedCols + c]) + red[2 * kRedCols + c]) + red[3 * kRedCols + c];
+  }
+}
+
+// The last layer, recomputed with the forward's product, and the tie split:
+// dz_L = ct / (number of neighbours equal to the forward's max) where the
+// activation equals it and is > 0 -> bf16 into the dz buffer; db_L.
+__device__ __forceinline__ void tie_split(const Args& A, const Layers& L, const Plan& P,
+                                          unsigned char* sm, const bf16* in, Tile T, float* db) {
+  const Frag F;
+  const int j = L.n_layers - 1;
+  const int cin = L.width[j - 1], cout = L.width[j];
+  const int np = n_pieces(cout, kCap), mt = P.tm >> 6;
+  const bf16* W = at<bf16>(sm, P.w[j]);
+  bf16* dz = at<bf16>(sm, P.act[j]);
+  float* red = at<float>(sm, P.red) + F.wg * 8 * kRedCols;
+  float* gsc = at<float>(sm, P.gsc) + F.wg * 4 * kRedCols;
+  const float* bias = bias_of(sm, P, L, j);
+  const int wpc = A.kp >> 4, ncent = 4 / wpc;
+  auto start = [&](int it, float* d) {
+    int n0;
+    const int n = piece(cout, kCap, it / mt, &n0);
+    issue<0, 1, kCap>(d, n, in + cm_off(64 * (it % mt), 0, cin), cin, W + cm_off(0, n0, cout),
+                      cout, cin >> 4);
+  };
+  auto finish = [&](int it, const float* acc) {
+    const int m = it % mt;
+    int n0;
+    const int n = piece(cout, kCap, it / mt, &n0);
+    // this thread's two rows belong to one centroid
+    const int lr = F.row(0);
+    const int sc = T.s0 + ((64 * m + lr) >> A.kps);
+    const int k0 = (lr & (A.kp - 1));
+    const bool valid = sc < A.s;
+    const bool live0 = valid && k0 < A.k_real, live1 = valid && k0 + 8 < A.k_real;
+    const float* orow = A.fwd_out + ((size_t)T.b * A.s + (valid ? sc : 0)) * cout + n0;
+    // the forward's maxima and the biases of this thread's columns, loaded
+    // before any store so the loads overlap
+    float om[8][2], bv[8][2];
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const bool in = 8 * n8 < n;
+        om[n8][jj] = in && valid ? orow[F.col(n8) + jj] : 0.f;
+        bv[n8][jj] = in ? bias[n0 + F.col(n8) + jj] : 0.f;
+      }
+    }
+    // 1. the ties of each (centroid, column)
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8) {
+      if (8 * n8 < n) {
+        const int c = F.col(n8);
+        float cnt[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float bb = bv[n8][jj];
+          const float o = om[n8][jj];
+          const float a0 = fmaxf(acc[4 * n8 + jj] + bb, 0.f);
+          const float a1 = fmaxf(acc[4 * n8 + 2 + jj] + bb, 0.f);
+          cnt[jj] = (float)((live0 && a0 == o) + (live1 && a1 == o));
+        }
+        put_warp_sums(F, red, c, cnt[0], cnt[1]);
+      }
+    }
+    hop::bar_sync(1 + F.wg, 128);
+    // 2. per column: each centroid's share g of the cotangent, and db_L:
+    //    the rows that take g are the ties, where the maximum is > 0
+    for (int c = F.t; c < n; c += 128) {
+      float dbc = 0.f;
+      for (int cl = 0; cl < ncent; ++cl) {
+        float cnt = 0.f;
+        for (int u = 0; u < wpc; ++u) cnt += red[(cl * wpc + u) * kRedCols + c];
+        const int s2 = T.s0 + ((64 * m) >> A.kps) + cl;
+        float g = 0.f;
+        if (s2 < A.s) {
+          if (cnt == 0.f) atomicAdd(A.nomatch, 1);
+          const size_t at2 = ((size_t)T.b * A.s + s2) * cout + n0 + c;
+          g = A.ct[at2] / (cnt > 0.f ? cnt : 1.f);
+          if (A.fwd_out[at2] > 0.f) dbc += g * cnt;
+        }
+        gsc[cl * kRedCols + c] = g;
+      }
+      db[n0 + c] += dbc;
+    }
+    hop::bar_sync(1 + F.wg, 128);
+    // 3. dz_L (red and gsc are rewritten only after the next item's first
+    //    barrier, which every thread reaches after this loop)
+    const float* g = gsc + (lr >> A.kps) * kRedCols;
+    bf16* dzb = dz + cm_off(64 * m + F.row(0), n0 + F.col(0), cout);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8) {
+      if (8 * n8 < n) {
+        const int c = F.col(n8);
+        float d[2][2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float bb = bv[n8][jj];
+          const float o = om[n8][jj];
+          const float a0 = fmaxf(acc[4 * n8 + jj] + bb, 0.f);
+          const float a1 = fmaxf(acc[4 * n8 + 2 + jj] + bb, 0.f);
+          d[0][jj] = (live0 && a0 == o && a0 > 0.f) ? g[c + jj] : 0.f;
+          d[1][jj] = (live1 && a1 == o && a1 > 0.f) ? g[c + jj] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          *reinterpret_cast<__nv_bfloat162*>(dzb + i * 8 * cout + n8 * 64) =
+              __floats2bfloat162_rn(d[i][0], d[i][1]);
+        }
+      }
+    }
+  };
+  for_items<kCap / 2>(F.wg, 2, mt * np, start, finish);
+}
+
+// dW_i += bf16(a_{i-1})^T bf16(dz_i) over the tile's rows, into the block's
+// partial: M = cin in 64-row blocks (the last one's overhang is computed
+// and dropped), both operands read MN-major
+__device__ __forceinline__ void dw_product(const Layers& L, const Plan& P, int i,
+                                           const bf16* aprev, const bf16* dz, float* dW) {
+  const Frag F;
+  const int cin = L.width[i - 1], cout = L.width[i];
+  const int mt = (cin + 63) >> 6;
+  const int cap = mt * ((cout + 127) >> 7) >= 2 ? 128 : 64;
+  const int np = n_pieces(cout, cap);
+  auto start = [&](int it, float* d) {
+    int n0;
+    const int n = piece(cout, cap, it / mt, &n0);
+    issue<1, 1, 128>(d, n, aprev + cm_off(0, 64 * (it % mt), cin), cin,
+                     dz + cm_off(0, n0, cout), cout, P.tm >> 4);
+  };
+  auto finish = [&](int it, const float* acc) {
+    const int m = it % mt;
+    int n0;
+    const int n = piece(cout, cap, it / mt, &n0);
+    // all loads of the partial first, then the adds and stores: one round
+    // trip to L2 per half, not one per element
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float2 v[8][2];
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 64 * m + F.row(h);
+          if (8 * (8 * half + n8) < n && r < cin) {
+            v[n8][h] = *reinterpret_cast<const float2*>(
+                dW + (size_t)r * cout + n0 + F.col(8 * half + n8));
+          }
+        }
+      }
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 64 * m + F.row(h);
+          const int a = 4 * (8 * half + n8) + 2 * h;
+          if (8 * (8 * half + n8) < n && r < cin) {
+            *reinterpret_cast<float2*>(dW + (size_t)r * cout + n0 + F.col(8 * half + n8)) =
+                make_float2(v[n8][h].x + acc[a], v[n8][h].y + acc[a + 1]);
+          }
+        }
+      }
+    }
+  };
+  for_items<64>(F.wg, 2, mt * np, start, finish);
+}
+
+// dz_{i-1} = (bf16(dz_i) bf16(W_i)^T) * [a_{i-1} > 0], written as bf16 over
+// a_{i-1} in place; db_{i-1}; for i = 1 in fold mode dcent = -sum_K dz_0
+__device__ __forceinline__ void dz_product(const Args& A, const Layers& L, const Plan& P,
+                                           unsigned char* sm, int i, const bf16* dz, bf16* aprev,
+                                           Tile T, float* db) {
+  const Frag F;
+  const int cin = L.width[i - 1], cout = L.width[i];
+  const int mt = P.tm >> 6;
+  const int cap = mt * ((cin + 127) >> 7) >= 2 ? 128 : 64;
+  const int np = n_pieces(cin, cap);
+  const bf16* W = at<bf16>(sm, P.w[i]);
+  float* red = at<float>(sm, P.red) + F.wg * 8 * kRedCols;
+  float* cred = at<float>(sm, P.gsc) + F.wg * 4 * kRedCols;
+  const bool dcent = i == 1 && A.fold;
+  const int wpc = A.kp >> 4, ncent = 4 / wpc;
+  auto start = [&](int it, float* d) {
+    int n0;
+    const int n = piece(cin, cap, it / mt, &n0);
+    issue<0, 0, 128>(d, n, dz + cm_off(64 * (it % mt), 0, cout), cout,
+                     W + cm_off(n0, 0, cout), cout, cout >> 4);
+  };
+  auto finish = [&](int it, const float* acc) {
+    const int m = it % mt;
+    int n0;
+    const int n = piece(cin, cap, it / mt, &n0);
+    const int lr = F.row(0);
+    const int sc = T.s0 + ((64 * m + lr) >> A.kps);
+    const int k0 = (lr & (A.kp - 1));
+    const bool live0 = sc < A.s && k0 < A.k_real, live1 = sc < A.s && k0 + 8 < A.k_real;
+    bf16* ab = aprev + cm_off(64 * m + F.row(0), n0 + F.col(0), cin);
+#pragma unroll
+    for (int n8 = 0; n8 < 16; ++n8) {
+      if (8 * n8 < n) {
+        const int c = F.col(n8);
+        float d[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __nv_bfloat162* pa = reinterpret_cast<__nv_bfloat162*>(ab + h * 8 * cin + n8 * 64);
+          const __nv_bfloat162 a = *pa;
+          d[h][0] = __low2float(a) > 0.f ? acc[4 * n8 + 2 * h] : 0.f;
+          d[h][1] = __high2float(a) > 0.f ? acc[4 * n8 + 2 * h + 1] : 0.f;
+          *pa = __floats2bfloat162_rn(d[h][0], d[h][1]);
+        }
+        put_warp_sums(F, red, c, d[0][0] + d[1][0], d[0][1] + d[1][1]);
+        if (dcent) {
+          put_warp_sums(F, cred, c, (live0 ? d[0][0] : 0.f) + (live1 ? d[1][0] : 0.f),
+                        (live0 ? d[0][1] : 0.f) + (live1 ? d[1][1] : 0.f));
+        }
+      }
+    }
+    hop::bar_sync(1 + F.wg, 128);
+    add_column_sums(F, red, n, db + n0);
+    if (dcent) {
+      for (int e = F.t; e < ncent * n; e += 128) {
+        const int cl = e / n, c = e - cl * n;
+        float sum = 0.f;
+        for (int u = 0; u < wpc; ++u) sum += cred[(cl * wpc + u) * kRedCols + c];
+        const int s2 = T.s0 + ((64 * m) >> A.kps) + cl;
+        if (s2 < A.s) A.dcent[((size_t)T.b * A.s + s2) * cin + n0 + c] = -sum;
+      }
+    }
+    hop::bar_sync(1 + F.wg, 128);
+  };
+  for_items<64>(F.wg, 2, mt * np, start, finish);
+}
+
+// layer 0's backward on bf16(dz_0) (dz0s, the tile's F0P-wide rows):
+// the rows to global memory for the scatter; hilo: drel, dcent, dw0x (from
+// the geometry layer 0 left in P.geo) and bf16(drel)
+__device__ __forceinline__ void layer0_bwd(const Args& A, const Plan& P, unsigned char* sm,
+                                           int f0p, const bf16* dz0s, Tile T) {
+  const int cpr = f0p >> 3;
+  for (int q = threadIdx.x; q < P.tm * cpr; q += kThreads) {
+    const Chunk ch = chunk_of(q, cpr);
+    const int r = ch.r, c8 = ch.c8;
+    const int sc = T.s0 + (r >> A.kps);
+    if (sc < A.s) {
+      // streaming stores: read once by the scatter, they should not push the
+      // dW partials out of L2
+      __stcs(reinterpret_cast<uint4*>(A.dz0 + (((size_t)T.b * A.s + sc) * A.kp +
+                                               (r & (A.kp - 1))) * f0p + 8 * c8),
+             *reinterpret_cast<const uint4*>(dz0s + 8 * q));
+    }
+  }
+  if (A.fold) return;
+  float* geo = at<float>(sm, P.geo);
+  float* drel = at<float>(sm, P.drel);
+  const float* w0xs = at<float>(sm, P.w0x);
+  float* dw0x = at<float>(sm, P.dw0x);
+  // drel: warp w takes rows w, w + 8, ..., its lanes the columns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < P.tm; r += kThreads / 32) {
+    float s3[3] = {0.f, 0.f, 0.f};
+    for (int f = lane; f < f0p; f += 32) {
+      const float d = bf(dz0s[cm_off(r, f, f0p)]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s3[c] += d * w0xs[c * f0p + f];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s3[c] += __shfl_xor_sync(0xffffffffu, s3[c], o);
+    }
+    if (lane == 0) {
+      drel[3 * r] = s3[0];
+      drel[3 * r + 1] = s3[1];
+      drel[3 * r + 2] = s3[2];
+    }
+  }
+  __syncthreads();
+  const int cpt = P.tm >> A.kps;
+  for (int e = threadIdx.x; e < cpt * 3; e += kThreads) {
+    const int cl = e / 3, c = e - 3 * cl;
+    const int sc = T.s0 + cl;
+    if (sc >= A.s) continue;
+    float sum = 0.f;
+    for (int k = 0; k < A.k_real; ++k) sum += drel[(cl * A.kp + k) * 3 + c];
+    A.dcent[((size_t)T.b * A.s + sc) * 3 + c] = -sum;
+  }
+  for (int e = threadIdx.x; e < P.tm * 3; e += kThreads) {
+    const int r = e / 3;
+    const int sc = T.s0 + (r >> A.kps);
+    if (sc < A.s) {
+      A.drel[(((size_t)T.b * A.s + sc) * A.kp + (r & (A.kp - 1))) * 3 + (e - 3 * r)] =
+          __float2bfloat16_rn(drel[e]);
+    }
+  }
+  // dw0x: item (h, f) sums the six geometry lanes against column f over
+  // the h-th of `halves` row ranges; the ranges are added in order
+  float* wsum = at<float>(sm, P.wsum);
+  const int halves = f0p < kThreads ? kThreads / f0p : 1;
+  for (int w = threadIdx.x; w < halves * f0p; w += kThreads) {
+    const int h = w / f0p, f = w - h * f0p;
+    float acc6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int r = h * P.tm / halves; r < (h + 1) * P.tm / halves; ++r) {
+      const float d = bf(dz0s[cm_off(r, f, f0p)]);
+#pragma unroll
+      for (int c = 0; c < 6; ++c) acc6[c] += geo[6 * r + c] * d;
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) wsum[(h * 6 + c) * f0p + f] = acc6[c];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 6 * f0p; e += kThreads) {
+    float sum = 0.f;
+    for (int h = 0; h < halves; ++h) sum += wsum[h * 6 * f0p + e];
+    dw0x[e] += sum;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fused_group_mlp_bwd_kernel(Args A, Layers L, Plan P) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  const int f0p = L.width[0];
+  const int nl = L.n_layers;
   const GradLayout G = grad_layout(L.width, nl);
-  float* pb = part + (size_t)b * G.size;
-  float* st = stage + warp * 256;
-
-  for (int s0 = 0; s0 < s; s0 += cpb) {
-    // ---- recompute the forward, bit-identical to the forward kernel ----
-    load_rows(fold, xyz, cent, idx, b, n, s, s0, kp, rid, geo);
+  const int sumw = G.dw0x - G.db[0];
+  int t = blockIdx.x;
+  if (t >= A.total) return;
+  float* db = at<float>(sm, P.dbacc);
+  for (int e = threadIdx.x; e < 2 * sumw; e += kThreads) db[e] = 0.f;
+  if (!A.fold) {
+    float* dw0x = at<float>(sm, P.dw0x);
+    for (int e = threadIdx.x; e < 6 * f0p; e += kThreads) dw0x[e] = 0.f;
+  }
+  float* slot = A.part + (size_t)blockIdx.x * G.size;
+  const Frag F;
+  float* db_wg = db + F.wg * sumw - G.db[0];  // indexed by grad-layout offsets
+  const Group blk{(int)threadIdx.x, kThreads, 0};
+  load_constants(A, L, P, sm);
+  Pipe pipe(A, P, sm, f0p, gridDim.x);
+  pipe.start(A, P, blk, f0p, t);
+  for (int it = 0; t < A.total; t += gridDim.x, ++it) {
+    const int p = it & 1;
+    const Tile T = tile_of(A, P, t);
+    bf16* a0 = at<bf16>(sm, P.act[0]);
+    layer0(A, P, blk, f0p, pipe.stage, pipe.xyz[p], pipe.cent[p], at<float>(sm, P.bias),
+           at<float>(sm, P.w0x), at<float>(sm, P.geo), a0);
+    hop::fence_async_smem();
     __syncthreads();
-    layer0(fold, table, cent, w0x, L.b[0], b, n, s, s0, kp, f0p, rid, geo, acts, ca);
-    __syncthreads();
+    pipe.prefetch(A, P, blk, f0p, t, p);
+    // ---- recompute, bit-identical to the forward kernel ----
     for (int j = 1; j < nl - 1; ++j) {
-      hidden_layer(acts + (j - 1) * kRows * ca, acts + j * kRows * ca, L.w[j], L.b[j],
-                   L.width[j - 1], L.width[j], ca, st);
+      layer_product(A, L, P, sm, j, at<bf16>(sm, P.act[j - 1]), at<bf16>(sm, P.act[j]), T, F.wg,
+                    2);
+      hop::fence_async_smem();
       __syncthreads();
     }
-    {
-      // the last layer's activations, f32, into dzf
-      const __nv_bfloat16* in = acts + (nl - 2) * kRows * ca;
-      const int cin = L.width[nl - 2];
-      for (int t = warp; t < (kRows / 16) * (coutl / 16); t += kWarps) {
-        const int rt = t % (kRows / 16);
-        const int ct = t / (kRows / 16);
-        last_tile(in, L.w[nl - 1], cin, coutl, ca, rt, ct, st);
-        for (int q = 0; q < 8; ++q) {
-          const int e = lane + 32 * q;
-          const int rr = e >> 4, cc = e & 15;
-          dzf[(rt * 16 + rr) * cmax + ct * 16 + cc] =
-              fmaxf(st[e] + L.b[nl - 1][ct * 16 + cc], 0.f);
-        }
-        __syncwarp();
-      }
-    }
+    tie_split(A, L, P, sm, at<bf16>(sm, P.act[nl - 2]), T, db_wg + G.db[nl - 1]);
+    hop::fence_async_smem();
     __syncthreads();
-
-    // ---- max over K: the cotangent split evenly among tied maxima ----
-    for (int e = tid; e < cpb * coutl; e += kThreads) {
-      const int cl = e / coutl;
-      const int c = e - cl * coutl;
-      const int sc = s0 + cl;
-      float g = 0.f, o = 0.f;
-      if (sc < s) {
-        o = fwd_out[((size_t)b * s + sc) * coutl + c];
-        int cnt = 0;
-        for (int k = 0; k < k_real; ++k) cnt += dzf[(cl * kp + k) * cmax + c] == o;
-        if (cnt == 0) atomicAdd(nomatch, 1);
-        g = ct_in[((size_t)b * s + sc) * coutl + c] / (float)(cnt > 0 ? cnt : 1);
-      }
-      for (int k = 0; k < kp; ++k) {
-        const int r = (cl * kp + k) * cmax + c;
-        const float a = dzf[r];
-        const float d = (sc < s && k < k_real && a == o && a > 0.f) ? g : 0.f;
-        dzf[r] = d;
-        dzb0[r] = __float2bfloat16_rn(d);
-      }
-    }
-    __syncthreads();
-
-    // ---- back through the hidden layers ----
-    __nv_bfloat16* dzb = dzb0;
-    __nv_bfloat16* dzn = dzb1;
+    // ---- back through the layers; dz_i lives in act[i] ----
     for (int i = nl - 1; i >= 1; --i) {
-      const int cin = L.width[i - 1];
-      const int cout = L.width[i];
-      const __nv_bfloat16* a_prev = acts + (i - 1) * kRows * ca;
-      // db_i: this chunk's rows in order, added to the block's partial
-      for (int c = tid; c < cout; c += kThreads) {
-        float sum = 0.f;
-        for (int r = 0; r < kRows; ++r) sum += dzf[r * cmax + c];
-        pb[G.db[i] + c] += sum;
-      }
-      // dW_i += bf16(a_prev)^T @ bf16(dz), tiles accumulated in the partial
-      {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        const int mtiles = cin / 16;
-        for (int t = warp; t < mtiles * (cout / 16); t += kWarps) {
-          const int mt = t % mtiles;
-          const int nt = t / mtiles;
-          float* P = pb + G.dw[i] + mt * 16 * cout + nt * 16;
-          wmma::load_matrix_sync(acc, P, cout, wmma::mem_row_major);
-          for (int kk = 0; kk < kRows / 16; ++kk) {
-            wmma::load_matrix_sync(fa, a_prev + kk * 16 * ca + mt * 16, ca);
-            wmma::load_matrix_sync(fb, dzb + kk * 16 * cmax + nt * 16, cmax);
-            wmma::mma_sync(acc, fa, fb, acc);
-          }
-          wmma::store_matrix_sync(P, acc, cout, wmma::mem_row_major);
-        }
-      }
+      const bf16* dz = at<bf16>(sm, P.act[i]);
+      bf16* aprev = at<bf16>(sm, P.act[i - 1]);
+      dw_product(L, P, i, aprev, dz, slot + G.dw[i]);
       __syncthreads();
-      // dz_{i-1} = (bf16(dz) @ bf16(W_i)^T) * [a_prev > 0]
-      {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        const __nv_bfloat16* W = L.w[i];
-        for (int t = warp; t < (kRows / 16) * (cin / 16); t += kWarps) {
-          const int rt = t % (kRows / 16);
-          const int nt = t / (kRows / 16);
-          wmma::fill_fragment(acc, 0.f);
-          for (int kk = 0; kk < cout / 16; ++kk) {
-            wmma::load_matrix_sync(fa, dzb + rt * 16 * cmax + kk * 16, cmax);
-            wmma::load_matrix_sync(fb, W + (size_t)nt * 16 * cout + kk * 16, cout);
-            wmma::mma_sync(acc, fa, fb, acc);
-          }
-          wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int q = 0; q < 8; ++q) {
-            const int e = lane + 32 * q;
-            const int r = rt * 16 + (e >> 4), c = nt * 16 + (e & 15);
-            const float d = bf(a_prev[r * ca + c]) > 0.f ? st[e] : 0.f;
-            dzf[r * cmax + c] = d;
-            dzn[r * cmax + c] = __float2bfloat16_rn(d);
-          }
-          __syncwarp();
-        }
-      }
+      dz_product(A, L, P, sm, i, dz, aprev, T, db_wg + G.db[i - 1]);
+      hop::fence_async_smem();
       __syncthreads();
-      __nv_bfloat16* tmp = dzb;
-      dzb = dzn;
-      dzn = tmp;
     }
-
-    // ---- layer 0 ----
-    for (int c = tid; c < f0p; c += kThreads) {
-      float sum = 0.f;
-      for (int r = 0; r < kRows; ++r) sum += dzf[r * cmax + c];
-      pb[G.db[0] + c] += sum;
-    }
-    if (fold) {
-      for (int e = tid; e < cpb * f0p; e += kThreads) {
-        const int cl = e / f0p;
-        const int f = e - cl * f0p;
-        const int sc = s0 + cl;
-        if (sc >= s) continue;
-        float sum = 0.f;
-        for (int k = 0; k < k_real; ++k) sum += dzf[(cl * kp + k) * cmax + f];
-        dcent[((size_t)b * s + sc) * f0p + f] = -sum;
-      }
-    } else {
-      for (int e = tid; e < kRows * 3; e += kThreads) {
-        const int r = e / 3;
-        const int c = e - r * 3;
-        float sum = 0.f;
-        for (int f = 0; f < f0p; ++f) sum += bf(dzb[r * cmax + f]) * bf(w0x[c * f0p + f]);
-        drel[e] = sum;
-      }
-      for (int e = tid; e < 6 * f0p; e += kThreads) {
-        const int c = e / f0p;
-        const int f = e - c * f0p;
-        float sum = 0.f;
-        for (int r = 0; r < kRows; ++r) sum += geo[r * 6 + c] * bf(dzb[r * cmax + f]);
-        pb[G.dw0x + e] += sum;
-      }
-      __syncthreads();
-      for (int e = tid; e < cpb * 3; e += kThreads) {
-        const int cl = e / 3;
-        const int c = e - cl * 3;
-        const int sc = s0 + cl;
-        if (sc >= s) continue;
-        float sum = 0.f;
-        for (int k = 0; k < k_real; ++k) sum += drel[(cl * kp + k) * 3 + c];
-        dcent[((size_t)b * s + sc) * 3 + c] = -sum;
-      }
-    }
-    // transposed gather: thread f adds lane f of each real row, in order
-    const int lanes = f0p + (fold ? 0 : 3);
-    for (int f = tid; f < lanes; f += kThreads) {
-      for (int r = 0; r < kRows; ++r) {
-        if (s0 + r / kp >= s || r % kp >= k_real) continue;
-        const size_t row = (size_t)b * n + rid[r];
-        if (f < f0p) {
-          dtable[row * f0p + f] += bf(dzb[r * cmax + f]);
-        } else {
-          dxyz[row * 3 + (f - f0p)] += bf(__float2bfloat16_rn(drel[r * 3 + (f - f0p)]));
-        }
-      }
-    }
-    __syncthreads();
+    layer0_bwd(A, P, sm, f0p, a0, T);
+    pipe.finish(blk);
+  }
+  for (int e = threadIdx.x; e < sumw; e += kThreads) slot[G.db[0] + e] = db[e] + db[sumw + e];
+  if (!A.fold) {
+    const float* dw0x = at<float>(sm, P.dw0x);
+    for (int e = threadIdx.x; e < 6 * f0p; e += kThreads) slot[G.dw0x + e] = dw0x[e];
   }
 }
 
@@ -503,56 +1143,234 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int slots, i
   grads[e] = sum;
 }
 
-// Layers from the C arguments; ca = the widest input of a layer with a
-// successor, cmax = the widest layer.  Returns false on a shape the kernels
-// do not take.
+// ---------------------------------------------------------------------------
+// Host side: shapes, shared-memory plans, launches.
+
+// Layers from the C arguments; false on a shape the kernels do not take.
 bool make_layers(int n_layers, int kp, const void* const* ws, const float* const* bs,
-                 const int* widths, Layers* L, int* ca, int* cmax) {
-  if (n_layers < 2 || n_layers > kMaxLayers || kp % 16 != 0 || kp > kRows ||
-      kRows % kp != 0) {
-    return false;
-  }
-  *ca = *cmax = 0;
+                 const int* widths, Layers* L) {
+  if (n_layers < 2 || n_layers > kMaxLayers || (kp != 16 && kp != 32 && kp != 64)) return false;
   for (int j = 0; j < kMaxLayers; ++j) {
-    L->w[j] = j < n_layers ? static_cast<const __nv_bfloat16*>(ws[j]) : nullptr;
-    L->b[j] = j < n_layers ? bs[j] : nullptr;
+    L->w[j] = j < n_layers && ws ? static_cast<const bf16*>(ws[j]) : nullptr;
+    L->b[j] = j < n_layers && bs ? bs[j] : nullptr;
     L->width[j] = j < n_layers ? widths[j] : 0;
-    if (j < n_layers && (widths[j] % 16 != 0 || widths[j] <= 0)) return false;
-    if (j < n_layers - 1 && widths[j] > *ca) *ca = widths[j];
-    if (j < n_layers && widths[j] > *cmax) *cmax = widths[j];
+    if (j < n_layers && (widths[j] % 16 != 0 || widths[j] <= 0 || widths[j] > kMaxWidth)) {
+      return false;
+    }
   }
   L->n_layers = n_layers;
   return true;
 }
 
+// the shared-memory layout of one block for tile rows tm, the layers in
+// `streamed` streamed (forward only), forward or backward buffers; own > 0:
+// that many warpgroups each with tile buffers of their own, after the
+// block's shared regions
+Plan layout(const Layers& L, int kp, int fold, int tm, int streamed, bool bwd, int own = 0) {
+  Plan P;
+  int off = 0;
+  auto take = [&](long long bytes) {
+    const int o = off;
+    off += (int)((bytes + 127) / 128 * 128);
+    return o;
+  };
+  const int nl = L.n_layers, f0p = L.width[0], cpt = tm / kp;
+  const int groups = own ? own : 2;  // warpgroups with reduction scratch
+  P.tm = tm;
+  P.streamed = streamed;
+  P.slot = 0;
+  for (int j = 0; j < kMaxLayers; ++j) P.w[j] = P.act[j] = -1;
+  // the block's own regions
+  for (int j = 1; j < nl; ++j) {
+    if ((streamed >> j) & 1) {
+      P.slot = std::max(P.slot, L.width[j - 1] * 2 * kStreamCap * 2);
+    } else {
+      P.w[j] = take((long long)L.width[j - 1] * L.width[j] * 2);
+    }
+  }
+  P.ring = P.slot ? take(2LL * P.slot) : -1;
+  int sumw = 0;
+  for (int j = 0; j < nl; ++j) sumw += L.width[j];
+  P.bias = take((long long)sumw * 4);
+  P.w0x = fold ? -1 : take(3LL * f0p * 4);
+  P.red = take((long long)groups * 8 * kRedCols * 4);  // two halves a warpgroup
+  P.gsc = bwd ? take(2LL * 4 * kRedCols * 4) : -1;
+  P.dbacc = P.dw0x = P.geo = P.drel = P.wsum = -1;
+  if (bwd) {
+    P.dbacc = take(2LL * sumw * 4);
+    if (!fold) {
+      P.dw0x = take(6LL * f0p * 4);
+      P.drel = take((long long)tm * 3 * 4);
+      P.wsum = take(6LL * std::max(kThreads, f0p) * 4);
+    }
+  }
+  // the tile's regions (repeated for each warpgroup that owns its tiles)
+  const int tile0 = off;
+  P.stage = take((long long)tm * f0p * 2);
+  if (bwd) {
+    // every layer's activations stay for the backward pass; act[L-1]: dz_L
+    for (int j = 0; j < nl; ++j) P.act[j] = take((long long)tm * L.width[j] * 2 + kSlack);
+  } else {
+    // layer 0 rewrites the gathered rows in place (the next tile's rows land
+    // there once layer 1 has read them); deeper layers alternate between two
+    // more buffers
+    int odd = 0, even = 0;
+    for (int j = 1; j < nl - 1; ++j) {
+      int& w = j & 1 ? odd : even;
+      w = std::max(w, L.width[j]);
+    }
+    const int b = odd ? take((long long)tm * odd * 2) : -1;
+    const int c = even ? take((long long)tm * even * 2) : -1;
+    P.act[0] = P.stage;
+    for (int j = 1; j < nl - 1; ++j) P.act[j] = (j & 1) ? b : c;
+  }
+  P.rid = take(2LL * tm * 4);
+  P.xyz = fold ? -1 : take(2LL * tm * 3 * 4);
+  P.cent = take(2LL * cpt * (fold ? f0p : 3) * 4);
+  P.geo = fold ? -1 : take((long long)tm * 6 * 4);
+  P.wg_bytes = own ? off - tile0 : 0;
+  P.bytes = off + (own ? (own - 1) * P.wg_bytes : 0);
+  return P;
+}
+
+// blocks of `kernel` with `smem` bytes resident on one SM of the current
+// device (remembered: the queries cost more than a small launch)
+int blocks_per_sm(const void* kernel, int smem, int threads = kThreads) {
+  struct Entry {
+    int dev;
+    const void* kernel;
+    int smem, threads, nb;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> seen;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : seen) {
+    if (e.dev == dev && e.kernel == kernel && e.smem == smem && e.threads == threads) return e.nb;
+  }
+  int nb = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, threads, smem) != cudaSuccess) {
+    return 0;
+  }
+  seen.push_back({dev, kernel, smem, threads, nb});
+  return nb;
+}
+
+// The forward's plan.  With every weight resident, as many warpgroups (up
+// to four) as fit each walk 64-row tiles of their own, so one's epilogue
+// overlaps another's products; where fewer than two fit, the block's two
+// warpgroups share 64- or 128-row tiles (the size that keeps the most rows
+// in flight), and where no tile fits, 64-row tiles with the largest layers
+// streamed.  -> blocks per SM (0: no plan fits) and the block's threads.
+int plan_forward(const Layers& L, int kp, int fold, Plan* out, int* threads) {
+  const void* kernel = reinterpret_cast<const void*>(fused_group_mlp_kernel);
+  for (int own = 4; own >= 2; --own) {
+    const Plan P = layout(L, kp, fold, 64, 0, false, own);
+    if (P.bytes > kMaxSmem) continue;
+    const int nb = blocks_per_sm(kernel, P.bytes, own * 128);
+    if (nb > 0) {
+      *out = P;
+      *threads = own * 128;
+      return nb;
+    }
+  }
+  *threads = kThreads;
+  int best = 0, best_nb = 0;
+  for (int tm = 128; tm >= 64; tm -= 64) {
+    const Plan P = layout(L, kp, fold, tm, 0, false);
+    if (P.bytes > kMaxSmem) continue;
+    const int nb = blocks_per_sm(kernel, P.bytes);
+    if (nb > 0 && tm * nb >= best) {
+      best = tm * nb;
+      best_nb = nb;
+      *out = P;
+    }
+  }
+  if (best_nb) return best_nb;
+  int streamed = 0;
+  for (;;) {
+    const Plan P = layout(L, kp, fold, 64, streamed, false);
+    if (P.bytes <= kMaxSmem) {
+      *out = P;
+      return blocks_per_sm(kernel, P.bytes);
+    }
+    int jmax = 0;
+    long long wmax = 0;
+    for (int j = 1; j < L.n_layers; ++j) {
+      const long long wb = (long long)L.width[j - 1] * L.width[j];
+      if (!((streamed >> j) & 1) && wb > wmax) {
+        wmax = wb;
+        jmax = j;
+      }
+    }
+    if (!jmax) return 0;
+    streamed |= 1 << jmax;
+  }
+}
+
+// The backward's plan: resident weights, 128-row tiles where they fit (half
+// the dW partial traffic per row), else 64.  -> blocks per SM, 0: none fits.
+int plan_backward(const Layers& L, int kp, int fold, Plan* out) {
+  const void* kernel = reinterpret_cast<const void*>(fused_group_mlp_bwd_kernel);
+  for (int tm = 128; tm >= 64; tm -= 64) {
+    const Plan P = layout(L, kp, fold, tm, 0, true);
+    if (P.bytes > kMaxSmem) continue;
+    *out = P;
+    return blocks_per_sm(kernel, P.bytes);
+  }
+  return 0;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+void set_tiles(const Plan& P, int batch, Args* A) {
+  const int cpt = P.tm / A->kp;
+  A->tiles_per_b = (A->s + cpt - 1) / cpt;
+  A->total = batch * A->tiles_per_b;
+}
+
 }  // namespace
 
-extern "C" int fused_group_mlp_launch(int fold, const void* table,
-                                      const float* xyz, const float* cent,
-                                      const void* w0x, const int* idx,
-                                      int batch, int n, int s, int kp,
-                                      int n_layers, const void* const* ws,
-                                      const float* const* bs,
-                                      const int* widths, float* out,
-                                      void* stream) {
+// The forward.  table (batch, n, f0p) bf16; xyz (batch, n, 3) f32 (hilo);
+// cent (batch, s, f0p) fold | (batch, s, 3) hilo; w0x (3, f0p) bf16 (hilo);
+// idx (batch, s, kp) int32; out (batch, s, cout) f32.
+extern "C" int fused_group_mlp_launch(int fold, const void* table, const float* xyz,
+                                      const float* cent, const void* w0x, const int* idx,
+                                      int batch, int n, int s, int kp, int n_layers,
+                                      const void* const* ws, const float* const* bs,
+                                      const int* widths, float* out, void* stream) {
   Layers L;
-  int ca, cmax;
-  if (!make_layers(n_layers, kp, ws, bs, widths, &L, &ca, &cmax)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = kWarps * 256 * sizeof(float) +
-                      2 * (size_t)kRows * ca * sizeof(__nv_bfloat16) +
-                      kRows * sizeof(int) + kRows * 6 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_group_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int cpb = kRows / kp;
-  dim3 grid((s + cpb - 1) / cpb, batch);
-  fused_group_mlp_kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      fold, static_cast<const __nv_bfloat16*>(table), xyz, cent,
-      static_cast<const __nv_bfloat16*>(w0x), idx, n, s, kp, ca, L, out);
+  Plan P;
+  int threads;
+  if (!make_layers(n_layers, kp, ws, bs, widths, &L)) return (int)cudaErrorInvalidValue;
+  const int nb = plan_forward(L, kp, fold, &P, &threads);
+  if (nb <= 0) return (int)cudaErrorInvalidValue;
+  Args A = {};
+  A.fold = fold;
+  A.table = static_cast<const bf16*>(table);
+  A.xyz = xyz;
+  A.cent = cent;
+  A.w0x = static_cast<const bf16*>(w0x);
+  A.idx = idx;
+  A.n = n;
+  A.s = s;
+  A.kp = kp;
+  A.kps = __builtin_ctz(kp);
+  A.k_real = kp;
+  A.out = out;
+  set_tiles(P, batch, &A);
+  if (A.total == 0) return 0;
+  const int per_block = P.wg_bytes > 0 ? threads / 128 : 1;  // tiles a block takes at once
+  const int grid = std::min((A.total + per_block - 1) / per_block, nb * sm_count());
+  fused_group_mlp_kernel<<<grid, threads, P.bytes, static_cast<cudaStream_t>(stream)>>>(A, L, P);
   return (int)cudaGetLastError();
 }
 
@@ -561,42 +1379,76 @@ extern "C" int fused_group_mlp_grad_size(int n_layers, const int* widths) {
   return grad_layout(widths, n_layers).size;
 }
 
+// The backward's grid (its number of partial slots); <= 0 if the shape does
+// not fit.
+extern "C" int fused_group_mlp_bwd_grid(int fold, int batch, int s, int kp, int n_layers,
+                                        const int* widths) {
+  Layers L;
+  Plan P;
+  if (!make_layers(n_layers, kp, nullptr, nullptr, widths, &L)) return -1;
+  const int nb = plan_backward(L, kp, fold, &P);
+  if (nb <= 0) return -1;
+  Args A = {};
+  A.s = s;
+  A.kp = kp;
+  A.kps = __builtin_ctz(kp);
+  set_tiles(P, batch, &A);
+  return std::min(A.total, nb * sm_count());
+}
+
 // The backward.  idx: (batch, s, kp) int32 in [0, n), padded as the forward
 // took it, k_real <= kp real neighbours; fwd_out, ct: (batch, s, cout) f32.
-// Outputs: dtable (batch, n, f0p) and dxyz (batch, n, 3, hilo) zeroed by the
-// caller and accumulated; dcent (batch, s, f0p | 3) written; part (batch,
-// grad size) zeroed scratch; grads (grad size) written; nomatch incremented.
+// Scratch: dz0 (batch, s, kp, f0p) and (hilo) drel (batch, s, kp, 3) bf16;
+// part (grid, grad size) f32 zeroed, grid from fused_group_mlp_bwd_grid.
+// Outputs, all written: dtable (batch, n, f0p), dxyz (batch, n, 3, hilo),
+// dcent (batch, s, f0p | 3), grads (grad size); nomatch incremented.
 extern "C" int fused_group_mlp_bwd_launch(
-    int fold, const void* table, const float* xyz, const float* cent,
-    const void* w0x, const int* idx, int batch, int n, int s, int kp, int k_real,
-    int n_layers, const void* const* ws, const float* const* bs,
-    const int* widths, const float* fwd_out, const float* ct, float* dtable,
-    float* dxyz, float* dcent, float* part, float* grads, int* nomatch,
-    void* stream) {
+    int fold, const void* table, const float* xyz, const float* cent, const void* w0x,
+    const int* idx, int batch, int n, int s, int kp, int k_real, int n_layers,
+    const void* const* ws, const float* const* bs, const int* widths, const float* fwd_out,
+    const float* ct, void* dz0, void* drel, float* dtable, float* dxyz, float* dcent,
+    float* part, int grid, float* grads, int* nomatch, void* stream) {
   Layers L;
-  int ca, cmax;
-  if (!make_layers(n_layers, kp, ws, bs, widths, &L, &ca, &cmax) || k_real < 1 ||
-      k_real > kp) {
+  Plan P;
+  if (!make_layers(n_layers, kp, ws, bs, widths, &L) || k_real < 1 || k_real > kp ||
+      n <= 0 || batch <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = kWarps * 256 * sizeof(float) +
-                      (size_t)kRows * cmax * sizeof(float) +
-                      2 * (size_t)kRows * cmax * sizeof(__nv_bfloat16) +
-                      (size_t)(n_layers - 1) * kRows * ca * sizeof(__nv_bfloat16) +
-                      kRows * sizeof(int) + kRows * 9 * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int nb = plan_backward(L, kp, fold, &P);
+  if (nb <= 0) return (int)cudaErrorInvalidValue;
+  Args A = {};
+  A.fold = fold;
+  A.table = static_cast<const bf16*>(table);
+  A.xyz = xyz;
+  A.cent = cent;
+  A.w0x = static_cast<const bf16*>(w0x);
+  A.idx = idx;
+  A.n = n;
+  A.s = s;
+  A.kp = kp;
+  A.kps = __builtin_ctz(kp);
+  A.k_real = k_real;
+  A.fwd_out = fwd_out;
+  A.ct = ct;
+  A.dz0 = static_cast<bf16*>(dz0);
+  A.drel = static_cast<bf16*>(drel);
+  A.dcent = dcent;
+  A.part = part;
+  A.nomatch = nomatch;
+  set_tiles(P, batch, &A);
+  if (grid != std::min(A.total, nb * sm_count())) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_group_mlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_group_mlp_bwd_kernel<<<batch, kThreads, smem, st>>>(
-      fold, static_cast<const __nv_bfloat16*>(table), xyz, cent,
-      static_cast<const __nv_bfloat16*>(w0x), idx, n, s, kp, k_real, ca, cmax, L,
-      fwd_out, ct, dtable, dxyz, dcent, part, nomatch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (grid > 0) {
+    fused_group_mlp_bwd_kernel<<<grid, kThreads, P.bytes, st>>>(A, L, P);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const int size = grad_layout(widths, n_layers).size;
-  sum_partials_kernel<<<(size + 255) / 256, 256, 0, st>>>(part, batch, size, grads);
-  return (int)cudaGetLastError();
+  sum_partials_kernel<<<(size + 255) / 256, 256, 0, st>>>(part, grid, size, grads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int f0p = widths[0];
+  err = scatter::scatter_rows(idx, A.dz0, batch, n, s * kp, kp, k_real, f0p, dtable, st);
+  if (err != cudaSuccess || fold) return (int)err;
+  return (int)scatter::scatter_rows(idx, A.drel, batch, n, s * kp, kp, k_real, 3, dxyz, st);
 }

@@ -13,8 +13,11 @@ The operands follow ``_prepare_operands`` of the JAX module:
   N >= ``_FOLD_MIN_N``): the table is ``bf16(P + xyz @ w0x)`` and the
   kernel subtracts ``c @ w0x`` (f32) after the gather.
 
-Widths are zero-padded to multiples of 16 (the WMMA tile); padded lanes
-carry zero weights and biases and stay zero through the ReLUs.
+Widths are zero-padded to multiples of 16 (the depth of one wgmma step and
+the narrowest N piece the kernels cut a layer into); padded lanes carry zero
+weights and biases and stay zero through the ReLUs.  The kernels take the
+weights as they are (row-major bf16) and lay them out for wgmma in shared
+memory themselves; nothing is packed on the host.
 
 The backward (``_pallas_bwd``) works on the same operands: it recomputes the
 forward, splits each output cotangent evenly among the tied maxima, and
@@ -260,6 +263,13 @@ def pad_idx(idx, N: int):
     return idx.contiguous()
 
 
+def _check_aligned(*tensors):
+    """The kernels copy table rows, fold centroids and weights in 16-byte
+    pieces."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("fused_group_mlp: operands must start on a 16-byte boundary")
+
+
 def _layer_args(table, ws, bs):
     n_layers = 1 + len(ws)
     widths = [table.shape[2]] + [w.shape[1] for w in ws]
@@ -277,9 +287,6 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
     _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx)
     B, N, _ = table.shape
     S = idx.shape[1]
-    if not checked:
-        idx = pad_idx(idx, N)
-    kp = idx.shape[2]
     table, cent = table.contiguous(), cent.contiguous()
     ws = [w.contiguous() for w in ws]
     bs = [b.contiguous() for b in bs]
@@ -291,10 +298,16 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
                    + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     xyz_c = xyz.contiguous() if not fold else None
+    w0x_c = w0x.contiguous() if not fold else None
+    _check_aligned(table, cent, *ws)
     stream = torch.cuda.current_stream(table.device).cuda_stream
+    # the index check waits for the card: everything else is ready first, so
+    # the launch follows it at once
+    if not checked:
+        idx = pad_idx(idx, N)
     err = fn(int(fold), table.data_ptr(), 0 if fold else xyz_c.data_ptr(),
-             cent.data_ptr(), 0 if fold else w0x.contiguous().data_ptr(),
-             idx.data_ptr(), B, N, S, kp, n_layers, w_ptrs, b_ptrs, c_widths,
+             cent.data_ptr(), 0 if fold else w0x_c.data_ptr(),
+             idx.data_ptr(), B, N, S, idx.shape[2], n_layers, w_ptrs, b_ptrs, c_widths,
              out.data_ptr(), stream)
     _build.check(err, "fused_group_mlp_launch")
     launches += 1
@@ -349,22 +362,34 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     size_fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     size_fn.restype = ctypes.c_int
     size = size_fn(n_layers, c_widths)
-    dtable = torch.zeros((B, N, f0p), dtype=torch.float32, device=dev)
-    dxyz = None if fold else torch.zeros((B, N, 3), dtype=torch.float32, device=dev)
+    grid_fn = lib.fused_group_mlp_bwd_grid
+    grid_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    grid_fn.restype = ctypes.c_int
+    grid = grid_fn(int(fold), B, S, kp, n_layers, c_widths)
+    if grid < 0:
+        raise ValueError(f"fused_group_mlp backward: widths {widths} at K={kp} do not fit "
+                         f"the kernel's shared memory")
+    _check_aligned(table, cent, *ws)
+    dtable = torch.empty((B, N, f0p), dtype=torch.float32, device=dev)
+    dxyz = None if fold else torch.empty((B, N, 3), dtype=torch.float32, device=dev)
     dcent = torch.empty((B, S, f0p if fold else 3), dtype=torch.float32, device=dev)
-    part = torch.zeros((B, size), dtype=torch.float32, device=dev)
+    # bf16(dz_0) (and bf16(drel)) per (b, s, k) row, scattered onto the table
+    # rows after the main kernel
+    dz0 = torch.empty((B, S, kp, f0p), dtype=torch.bfloat16, device=dev)
+    drel = None if fold else torch.empty((B, S, kp, 3), dtype=torch.bfloat16, device=dev)
+    part = torch.zeros((grid, size), dtype=torch.float32, device=dev)
     grads = torch.empty((size,), dtype=torch.float32, device=dev)
     fn = lib.fused_group_mlp_bwd_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 12)
+                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(int(fold), table.data_ptr(), 0 if fold else xyz.contiguous().data_ptr(),
              cent.data_ptr(), 0 if fold else w0x.contiguous().data_ptr(), idx.data_ptr(),
              B, N, S, kp, K, n_layers, w_ptrs, b_ptrs, c_widths, out.data_ptr(),
-             ct.data_ptr(), dtable.data_ptr(), 0 if fold else dxyz.data_ptr(),
-             dcent.data_ptr(), part.data_ptr(), grads.data_ptr(),
-             _nomatch_counter(dev).data_ptr(), stream)
+             ct.data_ptr(), dz0.data_ptr(), 0 if fold else drel.data_ptr(), dtable.data_ptr(),
+             0 if fold else dxyz.data_ptr(), dcent.data_ptr(), part.data_ptr(), grid,
+             grads.data_ptr(), _nomatch_counter(dev).data_ptr(), stream)
     _build.check(err, "fused_group_mlp_bwd_launch")
     bwd_launches += 1
     # the partial layout of csrc/mlp.cu (grad_layout)
