@@ -12,7 +12,22 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    sources
    (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the forward gives it, time both, and compute its bound;
+   shapes the forward gives it, time both, and compute its bound; FPS (K1)
+   and 3-NN (K3) also at the rpn step's batch-16 shapes (and K1 at the rcnn
+   step's and the exact setting's rows), each shape under every launch plan
+   the kernel takes, each plan's device ms (CUDA-graph replay) and the
+   wrapper's (``ms``, CUDA events, as for every kernel) in the kernel
+   line, K1's bound with the latency term of its dependent steps (the
+   probe ``fps_step_probe``: one warp's shortest step); then K1 and K3
+   on adversarial inputs (duplicated points, one repeated point, npoint ==
+   N, ragged and tiny rows; lattice knowns with many equal distances,
+   duplicated knowns, m = 3, m off the tile) under every launch plan the
+   kernel takes, each equal to the plain version;
+3b. the SA stages of every shipped config (``cfgs/default.yaml``,
+   ``people.yaml``, ``car_2x.yaml``) that the port routes to the fused MLP
+   kernels: each launches K2 (and, in the BN-free RCNN stacks' training
+   direction, K7) once at its real widths, K and batch, and a refusal fails
+   (ROADMAP C12);
 4. drive the main path (``pointrcnn_tpu_torch.entry``: the two-stage eval
    forward of ``cfgs/default.yaml`` as it stands) at batch 4 x 16384 points
    on seeded clouds, check shapes, finiteness and that every kernel
@@ -77,9 +92,12 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 MLP_REL_TOL = 2.0 ** -8
 
 # the H100 SXM's published peaks at 700 W (dense): memory bytes/ms, FP32
-# outside the tensor cores and bf16 tensor-core operations/ms
+# outside the tensor cores and bf16 tensor-core operations/ms.  The f32
+# rate is one operation a lane a clock (132 SMs x 128 lanes x 1.98 GHz),
+# half the published 67 TFLOP/s, which counts an FMA as two: every source
+# is built with --fmad=false, so no two counted operations fuse
 PEAK_BYTES_PER_MS = 3.35e12 / 1e3
-PEAK_F32_PER_MS = 67e12 / 1e3
+PEAK_F32_PER_MS = 33.5e12 / 1e3
 PEAK_BF16_PER_MS = 989e12 / 1e3
 
 # (kernel, source, TPU kernel it replaces, counter module, counter name)
@@ -149,6 +167,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device ms a call: ``reps`` calls captured in one CUDA graph and
+    replayed, so the host's cost of a launch (which paces a short kernel
+    that :func:`cuda_ms` times through its wrapper) stays out."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _rate(ops: float, ms: float, bound_ms: float) -> str:
     """A bf16 kernel's achieved rate and its time's share of the bound."""
     return f"{ops / ms / 1e9:.1f} TFLOP/s, bound / kernel {bound_ms / ms:.3f}"
@@ -158,28 +197,47 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def bound(n_bytes, ops, peak_per_ms, latency_ms=0.0):
+    """(bound ms, the term that sets it): the largest of bytes over the
+    memory rate, operations over the peak rate of their type and, for a
+    chain of dependent steps, the chain's latency."""
+    terms = {"bytes": n_bytes / PEAK_BYTES_PER_MS, "operations": ops / peak_per_ms,
+             "latency": latency_ms}
+    term = max(terms, key=terms.get)
+    return terms[term], term
+
+
 class Tally:
-    """One kernel's sums over the main path's shapes: kernel and plain ms,
-    and the bound (the larger of bytes over the memory rate and operations
-    over the peak rate of their type, per shape)."""
+    """One kernel's sums over the main path's shapes: kernel and plain ms
+    (CUDA events through the wrappers), the kernel's device ms where it is
+    also timed by CUDA-graph replay, and the bound (:func:`bound`, per
+    shape).  A latency term counts as operations in ``bound_by`` (a chain
+    of dependent operations); the per-shape rows name it."""
 
     def __init__(self):
         self.err = self.ms = self.plain_ms = self.bound_ms = 0.0
+        self.device_ms = None
         self.by = {"bytes": 0.0, "operations": 0.0}
         # the time of one PyTorch call computing the same function, where one exists
         self.library_ms = None
+        # per-shape rows and other figures the kernel line lists beside the sums
+        self.shapes, self.notes = [], {}
 
-    def add(self, ms, plain_ms, n_bytes, ops, peak_per_ms):
-        b, o = n_bytes / PEAK_BYTES_PER_MS, ops / peak_per_ms
+    def add(self, ms, plain_ms, n_bytes, ops, peak_per_ms, latency_ms=0.0, device_ms=None):
+        b, term = bound(n_bytes, ops, peak_per_ms, latency_ms)
         self.ms, self.plain_ms = self.ms + ms, self.plain_ms + plain_ms
-        self.bound_ms += max(b, o)
-        self.by["bytes" if b >= o else "operations"] += max(b, o)
-        return max(b, o)
+        if device_ms is not None:
+            self.device_ms = (self.device_ms or 0.0) + device_ms
+        self.bound_ms += b
+        self.by["bytes" if term == "bytes" else "operations"] += b
+        return b
 
     def row(self):
         return {"max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
                 "bound_ms": self.bound_ms, "bound_by": max(self.by, key=self.by.get),
-                "library_ms": self.library_ms}
+                "library_ms": self.library_ms,
+                **({"device_ms": self.device_ms} if self.device_ms is not None else {}),
+                **({"shapes": self.shapes} if self.shapes else {}), **self.notes}
 
 
 def counters():
@@ -236,58 +294,210 @@ def _roi_cloud(b, n, seed):
     return (torch.rand((b, n, 3), generator=g) * torch.tensor([4.0, 2.0, 6.0]) - 2.0).cuda()
 
 
+# (name, rows, N, npoint, cloud, path): K1's rows on each path.  The eval
+# forward (the main path, the tally's): RPN SA1 in 16 depth bands, SA2 in
+# 4, SA3, SA4, RCNN SA1 and SA2 over 400 rois; the rpn step at batch 16;
+# the rcnn step's RCNN stages over 4 x 64 rois (its RPN rows are the eval
+# forward's); the exact setting's RPN SA1 and SA2 (a block a row)
+FPS_SHAPES = (
+    ("RPN SA1", 64, 1024, 256, "rpn", "eval"),
+    ("RPN SA2", 16, 1024, 256, "rpn", "eval"),
+    ("RPN SA3", 4, 1024, 256, "rpn", "eval"),
+    ("RPN SA4", 4, 256, 64, "rpn", "eval"),
+    ("RCNN SA1", 400, 512, 128, "roi", "eval"),
+    ("RCNN SA2", 400, 128, 32, "roi", "eval"),
+    ("RPN SA1", 256, 1024, 256, "rpn", "rpn step"),
+    ("RPN SA2", 64, 1024, 256, "rpn", "rpn step"),
+    ("RPN SA3", 16, 1024, 256, "rpn", "rpn step"),
+    ("RPN SA4", 16, 256, 64, "rpn", "rpn step"),
+    ("RCNN SA1", 256, 512, 128, "roi", "rcnn step"),
+    ("RCNN SA2", 256, 128, 32, "roi", "rcnn step"),
+    ("RPN SA1", 4, 16384, 4096, "rpn", "exact"),
+    ("RPN SA2", 4, 4096, 1024, "rpn", "exact"),
+)
+# (name, B, n, m, path): K3's four FP stages at the eval forward's batch and
+# the rpn step's
+KNN_SHAPES = tuple((f"FP{k}", b, n, m, path)
+                   for b, path in ((BATCH, "eval"), (TRAIN_BATCH, "rpn step"))
+                   for k, n, m in ((4, 256, 64), (3, 1024, 256), (2, 4096, 1024),
+                                   (1, 16384, 4096)))
+# steps of the K1 latency probe: the difference of two chains over the
+# difference of their lengths, so the launch's own cost cancels
+PROBE_STEPS = (2048, 18432)
+
+
+def cloud(kind, b, n, seed):
+    return (_rpn_cloud if kind == "rpn" else _roi_cloud)(b, n, seed)
+
+
+def fps_step_ms() -> float:
+    """K1's latency term per step: the probe's time per dependent step
+    (``fps_step_probe`` in csrc/fps.cu), the least of three runs."""
+    from pointrcnn_tpu_torch.ops import cuda_fps
+
+    short, long_ = PROBE_STEPS
+    return min((cuda_fps.step_probe_ms(long_) - cuda_fps.step_probe_ms(short)) / (long_ - short)
+               for _ in range(3))
+
+
+def _plan_key(shape_plan) -> str:
+    return ",".join(map(str, shape_plan))
+
+
+def fps_case(rows, n, npoint, kind, t_step):
+    """K1 at one shape under every plan the kernel takes, each held to the
+    plain version (torch.equal) and timed on the device; the wrapper's
+    own choice also timed through it -> (the shape's row, bytes,
+    operations, latency ms)."""
+    from pointrcnn_tpu_torch.ops import cuda_fps
+    from pointrcnn_tpu_torch.ops.common import sm_count
+
+    xyz = cloud(kind, rows, n, n)
+    ref = cuda_fps.furthest_point_sample_plain(xyz, npoint)
+    reps = 3 if n > 1024 else 20
+    device = {}
+    for shape_plan in cuda_fps.plans(n):
+        run = lambda shape_plan=shape_plan: cuda_fps._launch(xyz, npoint, shape_plan)
+        got = run()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"fps {rows}x{n}->{npoint} plan {shape_plan}: "
+                                 f"{(got != ref).sum().item()} picks differ")
+        device[shape_plan] = graph_ms(run, reps)
+    chosen = cuda_fps.plan(rows, n, sm_count(xyz.device))
+    row = {"plan": list(chosen), "ms": cuda_ms(lambda: cuda_fps._launch(xyz, npoint), reps),
+           "device_ms": device[chosen],
+           "plans": {_plan_key(k): v for k, v in device.items()},
+           "plain_ms": cuda_ms(lambda: cuda_fps.furthest_point_sample_plain(xyz, npoint), 1)}
+    # per step and point: 3 sub, 3 mul, 2 add, a min and a compare
+    return row, nbytes(xyz, ref), 10.0 * rows * (npoint - 1) * n, (npoint - 1) * t_step
+
+
+def _fps_adversarial():
+    """(name, xyz, npoint): ties the kernel must break as the
+    plain version does."""
+    g = torch.Generator().manual_seed(17)
+    base = torch.rand((16, 256, 3), generator=g) * 40.0
+    dup = base[:, torch.randint(0, 256, (1024,), generator=g)]  # each point ~4 times
+    dup_long = base[:2, torch.randint(0, 256, (2048,), generator=g)]
+    one = torch.full((2, 1024, 3), 3.25)
+    distinct = torch.rand((8, 512, 3), generator=g) * 40.0
+    return (("duplicated points", dup, 256), ("duplicated points, past the distinct ones", dup, 300),
+            ("duplicated points, a block a row", dup_long, 1024), ("one repeated point", one, 64),
+            ("npoint == N", distinct, 512), ("npoint == N = 1024", distinct.reshape(4, 1024, 3), 1024),
+            ("N = 1000", torch.rand((3, 1000, 3), generator=g) * 40.0, 77),
+            ("N = 77", distinct[:, :77], 40),
+            ("N = 1500, a block a row", torch.rand((2, 1500, 3), generator=g), 300),
+            ("N = 20 = npoint", distinct[:, :20], 20), ("N = 1", distinct[:3, :1], 1))
+
+
 def check_fps():
     from pointrcnn_tpu_torch.ops import cuda_fps
 
     tally = Tally()
-    # (rows, N, npoint, cloud, on the main path): the default path's rows
-    # (RPN SA1 in 16 bands, SA2 in 4, SA3, SA4, RCNN SA1, SA2), then the
-    # exact setting's RPN SA1 and SA2
-    for (b, n, npoint, cloud, main) in (
-            (64, 1024, 256, _rpn_cloud, True), (16, 1024, 256, _rpn_cloud, True),
-            (4, 1024, 256, _rpn_cloud, True), (4, 256, 64, _rpn_cloud, True),
-            (400, 512, 128, _roi_cloud, True), (400, 128, 32, _roi_cloud, True),
-            (4, 16384, 4096, _rpn_cloud, False), (4, 4096, 1024, _rpn_cloud, False)):
-        xyz = cloud(b, n, n)
-        got = cuda_fps._launch(xyz, npoint)
+    t_step = fps_step_ms()
+    tally.notes["t_step_ms"] = t_step
+    log(f"fps latency probe: {t_step * 1e6:.1f} ns a dependent step (one warp, one point a lane; "
+        f"{PROBE_STEPS[1]} - {PROBE_STEPS[0]} steps)")
+    for name, rows, n, npoint, kind, path in FPS_SHAPES:
+        row, nb, ops, lat = fps_case(rows, n, npoint, kind, t_step)
+        if path == "eval":
+            tally.add(row["ms"], row["plain_ms"], nb, ops, PEAK_F32_PER_MS, lat, row["device_ms"])
+        b, term = bound(nb, ops, PEAK_F32_PER_MS, lat)
+        tally.shapes.append({"path": path, "stage": name, "rows": rows, "n": n, "npoint": npoint,
+                             **row, "bound_ms": b, "term": term})
+        log(f"fps {path} {name} {rows}x{n}->{npoint} plan {tuple(row['plan'])}: exact match "
+            f"under every plan; kernel {row['ms']:.4f} ms through its wrapper, "
+            f"{row['device_ms']:.4f} device (plans {row['plans']}), plain {row['plain_ms']:.4f} ms, "
+            f"bound {b:.4f} ms ({term})")
+    # ties and ragged rows, under every plan the kernel takes at the row
+    # length
+    for name, xyz, npoint in _fps_adversarial():
+        xyz = xyz.contiguous().cuda()
         ref = cuda_fps.furthest_point_sample_plain(xyz, npoint)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"fps {b}x{n}->{npoint}: {(got != ref).sum().item()} picks differ")
-        k = cuda_ms(lambda: cuda_fps._launch(xyz, npoint), 5)
-        p = cuda_ms(lambda: cuda_fps.furthest_point_sample_plain(xyz, npoint), 1)
-        # per step and point: 3 sub, 3 mul, 2 add, a min and a compare
-        ops, nb = 10.0 * b * (npoint - 1) * n, nbytes(xyz, got)
-        bound = tally.add(k, p, nb, ops, PEAK_F32_PER_MS) if main else \
-            max(nb / PEAK_BYTES_PER_MS, ops / PEAK_F32_PER_MS)
-        log(f"fps {b}x{n}->{npoint}{'' if main else ' (exact setting)'}: exact match; "
-            f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
-    # a ragged row length (masked threads), off the forward's shapes
-    xyz = _roi_cloud(3, 1000, 1)
-    if not torch.equal(cuda_fps._launch(xyz, 77), cuda_fps.furthest_point_sample_plain(xyz, 77)):
-        raise AssertionError("fps 3x1000->77 differs")
-    log("fps 3x1000->77: exact match")
+        plans = cuda_fps.plans(xyz.shape[1])
+        for shape_plan in plans:
+            got = cuda_fps._launch(xyz, npoint, shape_plan)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"fps {name} {tuple(xyz.shape)}->{npoint} plan "
+                                     f"{shape_plan}: {(got != ref).sum().item()} picks differ")
+        log(f"fps {name} {tuple(xyz.shape)}->{npoint}: exact match under plans {list(plans)}")
     return tally
+
+
+def knn_case(B, n, m):
+    """K3 at one shape under every plan the kernel takes, indices and
+    distances each held to the plain version (torch.equal) and timed on the
+    device; the wrapper's own choice also timed through it -> (the shape's
+    row, bytes, operations)."""
+    from pointrcnn_tpu_torch.ops import cuda_knn
+    from pointrcnn_tpu_torch.ops.common import sm_count
+
+    u, kn = _rpn_cloud(B, n, n), _rpn_cloud(B, m, m + 1)
+    rd, ri = cuda_knn.three_nn_plain(u, kn)
+    device = {}
+    for shape_plan in cuda_knn.PLANS:
+        run = lambda shape_plan=shape_plan: cuda_knn._launch(u, kn, shape_plan)
+        d, i = run()
+        if not (torch.equal(i, ri) and torch.equal(d, rd)):
+            raise AssertionError(f"three_nn B={B} {n}x{m} plan {shape_plan}: "
+                                 f"{(i != ri).sum().item()} indices, {(d != rd).sum().item()} "
+                                 f"distances differ")
+        device[shape_plan] = graph_ms(run, 20)
+    chosen = cuda_knn.plan(B, n, sm_count(u.device))
+    row = {"plan": list(chosen), "ms": cuda_ms(lambda: cuda_knn._launch(u, kn), 20),
+           "device_ms": device[chosen],
+           "plans": {_plan_key(k): v for k, v in device.items()},
+           "plain_ms": cuda_ms(lambda: cuda_knn.three_nn_plain(u, kn), 3)}
+    # per pair: 3 sub, 3 mul, 2 add and a compare
+    return row, nbytes(u, kn, rd, ri), 9.0 * B * n * m
+
+
+def _knn_adversarial():
+    """(name, unknown, known): equal distances the kernel must
+    order by index as the plain version does."""
+    g = torch.Generator().manual_seed(23)
+    ax = torch.arange(8, dtype=torch.float32)
+    lattice = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(1, 512, 3)
+    lattice = lattice[:, torch.randperm(512, generator=g)].repeat(2, 1, 1)
+    on_lattice = torch.randint(0, 16, (2, 700, 3), generator=g).float() * 0.5  # on points, edges, centres
+    dup = torch.rand((2, 1500, 3), generator=g) * 20.0
+    dup[:, 1000:1400] = dup[:, 37:437]  # duplicates 963 indices apart
+    near = dup[:, torch.randint(0, 1500, (600,), generator=g)] + 0.01
+    three = torch.rand((3, 3, 3), generator=g)
+    return (("lattice knowns, lattice unknowns", on_lattice, lattice),
+            ("duplicated knowns, m = 1500", near, dup),
+            ("m = 3", torch.rand((3, 300, 3), generator=g), three),
+            ("m = 37, n = 5", torch.rand((2, 5, 3), generator=g), dup[:, :37]),
+            ("m = 1025", torch.rand((1, 999, 3), generator=g) * 20.0, dup[:1, :1025]))
 
 
 def check_knn():
     from pointrcnn_tpu_torch.ops import cuda_knn
 
     tally = Tally()
-    for n, m in ((256, 64), (1024, 256), (4096, 1024), (16384, 4096)):
-        u, kn = _rpn_cloud(BATCH, n, n), _rpn_cloud(BATCH, m, m + 1)
-        d, i = cuda_knn._launch(u, kn)
+    for name, B, n, m, path in KNN_SHAPES:
+        row, nb, ops = knn_case(B, n, m)
+        if path == "eval":
+            tally.add(row["ms"], row["plain_ms"], nb, ops, PEAK_F32_PER_MS,
+                      device_ms=row["device_ms"])
+        b, term = bound(nb, ops, PEAK_F32_PER_MS)
+        tally.shapes.append({"path": path, "stage": name, "b": B, "n": n, "m": m, **row,
+                             "bound_ms": b, "term": term})
+        log(f"three_nn {path} {name} B={B} n={n} m={m} plan {tuple(row['plan'])}: exact match "
+            f"under every plan; kernel {row['ms']:.4f} ms through its wrapper, "
+            f"{row['device_ms']:.4f} device (plans {row['plans']}), plain {row['plain_ms']:.4f} ms, "
+            f"bound {b:.4f} ms ({term})")
+    # ties, and knowns off the tile and group sizes, under every plan
+    for name, u, kn in _knn_adversarial():
+        u, kn = u.contiguous().cuda(), kn.contiguous().cuda()
         rd, ri = cuda_knn.three_nn_plain(u, kn)
-        if not torch.equal(i, ri):
-            raise AssertionError(f"three_nn {n}x{m}: {(i != ri).sum().item()} indices differ")
-        e = (d - rd).abs().max().item()
-        if e != 0.0:
-            raise AssertionError(f"three_nn {n}x{m}: distances differ by {e}")
-        k = cuda_ms(lambda: cuda_knn._launch(u, kn), 10)
-        p = cuda_ms(lambda: cuda_knn.three_nn_plain(u, kn), 3)
-        # per pair: 3 sub, 3 mul, 2 add and a compare
-        bound = tally.add(k, p, nbytes(u, kn, d, i), 9.0 * BATCH * n * m, PEAK_F32_PER_MS)
-        log(f"three_nn B={BATCH} n={n} m={m}: exact match; kernel {k:.4f} ms, "
-            f"plain {p:.4f} ms, bound {bound:.4f} ms")
+        for shape_plan in cuda_knn.PLANS:
+            d, i = cuda_knn._launch(u, kn, shape_plan)
+            if not (torch.equal(i, ri) and torch.equal(d, rd)):
+                raise AssertionError(f"three_nn {name} plan {shape_plan}: {(i != ri).sum().item()} "
+                                     f"indices, {(d != rd).sum().item()} distances differ")
+        log(f"three_nn {name} B={u.shape[0]} n={u.shape[1]} m={kn.shape[1]}: exact match under "
+            f"all {len(cuda_knn.PLANS)} plans")
     return tally
 
 
@@ -577,6 +787,89 @@ def check_mlp_bwd():
             f"(tol {MLP_BWD_REL_TOL}), max abs err {err:.3e}; kernel {k:.4f} ms, plain {p:.4f} ms, "
             f"bound {bound:.4f} ms; {_rate(ops_n, k, bound)}")
     return tally
+
+
+# ROADMAP C12: the shipped configs whose SA stacks the card must admit
+SHIPPED_CONFIGS = ("default.yaml", "people.yaml", "car_2x.yaml")
+
+
+def _sa_stages(model, cfg):
+    """(name, SharedMLP, N, S, K, batch, BN-free) for every grouped SA stage
+    of the model: the RPN's at the eval batch, the RCNN's over the eval
+    forward's rois (BATCH x TEST.RPN_POST_NMS_TOP_N) and, BN-free, over the
+    rcnn stage's (RCNN_BATCH x ROI_PER_IMAGE) for the training direction."""
+    net, r = model.rpn.Pointnet2MSG_0, cfg.RPN
+    for k in range(net.n_sa):
+        sa = getattr(net, f"SetAbstractionMSG_{k}")
+        n = r.NUM_POINTS if k == 0 else r.SA_CONFIG.NPOINTS[k - 1]
+        for i, (_, ns) in enumerate(sa.specs):
+            yield f"RPN SA{k + 1}.{i}", getattr(sa, f"SharedMLP_{i}"), n, sa.npoint, ns, BATCH, False
+    c, rois = cfg.RCNN, BATCH * cfg.TEST.RPN_POST_NMS_TOP_N
+    for k in range(model.rcnn_net.n_sa):
+        sa = getattr(model.rcnn_net, f"SetAbstraction_{k}")
+        if sa.npoint is None:
+            continue  # group-all: no neighbourhoods, not the fused route
+        n = c.NUM_POINTS if k == 0 else c.SA_CONFIG.NPOINTS[k - 1]
+        yield f"RCNN SA{k + 1}", sa.SharedMLP_0, n, sa.npoint, sa.nsample, rois, False
+        if not c.USE_BN:
+            yield (f"RCNN SA{k + 1} train", sa.SharedMLP_0, n, sa.npoint, sa.nsample,
+                   RCNN_BATCH * c.ROI_PER_IMAGE, True)
+
+
+def check_shipped_stages():
+    """Every SA stage of the shipped configs that the port routes to K2 (the
+    eval forward, and the fixed RPN of the rcnn stage) or to K2 + K7 (the
+    BN-free RCNN stacks in training) runs on the card at its real widths, K
+    and batch: each launches its kernels once through the model's own
+    module, and a refusal fails."""
+    from pointrcnn_tpu_torch.config import load_config
+    from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+
+    for cfg_name in SHIPPED_CONFIGS:
+        cfg = load_config(os.path.join(REPO, "cfgs", cfg_name))
+        model = PointRCNN(cfg, mode="TEST", generator=torch.Generator().manual_seed(0)).cuda()
+        admitted = []
+        for name, mlp, n, S, K, B, train in _sa_stages(model, cfg):
+            g = torch.Generator().manual_seed(n + K)
+            C = mlp.w0.shape[0] - 3
+            xyz = _roi_cloud(B, n, n)
+            feats = torch.relu(torch.randn((B, n, C), generator=g)).cuda() if C else None
+            idx = torch.randint(0, n, (B, S, K), generator=g, dtype=torch.int32).cuda()
+            dt = mlp.dtype or torch.float32
+            fwd = cuda_mlp.fused_group_mlp_max_supported(feats, idx, dt)
+            bwd = train and fwd and cuda_mlp.fused_group_bwd_supported(feats, idx)
+            if not fwd or (train and not bwd):
+                log(f"{cfg_name} {name} B={B} N={n} C={C} S={S} K={K}: generic route "
+                    f"(not routed to the fused kernels)")
+                continue
+            group_args = (xyz, feats, xyz[:, :S].contiguous(), idx, True)
+            f0, b0 = cuda_mlp.launches, cuda_mlp.bwd_launches
+            try:
+                mlp.train(train)
+                if train:
+                    feats.requires_grad_(True)
+                    out = mlp(None, group_args=group_args)
+                    (out * torch.randn(out.shape, generator=g).cuda()).sum().backward()
+                else:
+                    with torch.no_grad():
+                        out = mlp(None, group_args=group_args)
+                torch.cuda.synchronize()
+            except Exception as e:
+                raise AssertionError(f"{cfg_name} {name} B={B} N={n} C={C} S={S} K={K}: the card "
+                                     f"refused the fused stage: {e}") from e
+            finally:
+                mlp.train(False)
+            launched = (cuda_mlp.launches - f0, cuda_mlp.bwd_launches - b0)
+            if launched != (1, int(train)) or not torch.isfinite(out).all():
+                raise AssertionError(f"{cfg_name} {name}: launches (K2, K7) {launched}, finite "
+                                     f"{bool(torch.isfinite(out).all())}")
+            widths = tuple(getattr(mlp, f"w{j}").shape[1] for j in range(mlp.n))
+            admitted.append(name)
+            log(f"{cfg_name} {name} B={B} N={n} C={C} S={S} K={K} {widths}: admitted, K2"
+                f"{' and K7' if train else ''} launched")
+        log(f"{cfg_name}: every fused stage admitted ({len(admitted)}: {', '.join(admitted)})")
+        del model
 
 
 def _bq_ops(cand: float, S_total: int, W: int) -> float:
@@ -987,6 +1280,7 @@ def main() -> int:
                "fused_group_mlp_max": check_mlp(), "gather_backward": check_gather_bwd(),
                "fused_group_mlp_backward": check_mlp_bwd()}
     tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
+    check_shipped_stages()
     launches, train_launches, rcnn_launches = {}, {}, {}
     phase_default(launches)
     phase_exact()

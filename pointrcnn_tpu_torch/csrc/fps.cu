@@ -1,4 +1,5 @@
-// Furthest point sampling, one thread block per row.
+// Furthest point sampling: a row belongs to one warp or a few, several rows
+// a block.
 //
 // Replaces: pointrcnn_tpu/ops/pallas_fps.py::_fps_kernel and
 // _fps_kernel_striped (entry furthest_point_sample_pallas).  Same contract:
@@ -7,19 +8,41 @@
 // 1e10) and picks its argmax, the lowest index on ties.
 //
 // What bounds it on the H100: the chain of npoint-1 dependent steps, not
-// bytes or FLOPs.  A step is one pass over the row's N points plus a
-// block-wide argmax; at RPN SA1 (4 rows of 16384 points, 4095 steps) only 4
-// of 132 SMs have work, so the kernel's time is the latency of 4095 steps.
+// bytes or operations.  A step cannot start before the previous pick is
+// known, so a row costs (npoint-1) x (one step's latency) however many SMs
+// are free; fps_step_probe below times the shortest such step (one warp,
+// one point a lane) and chip_smoke.py takes it as the latency term of the
+// kernel's bound.
 //
-// What the design does about it: a row's xyz (192 KB at N=16384) is copied
-// once into shared memory and each thread keeps its points' running
-// distances in registers (PPT points, strided by blockDim so the copy
-// coalesces and the stride-3 shared reads are free of bank conflicts): 16
-// per thread at 1024 threads.  Coordinates and cache together (256 KB)
-// would not fit the 227 KB of shared memory, and coordinates in registers
-// too would exceed 64 registers a thread.  A step then reads only shared
-// memory and pays two __syncthreads for the argmax: warp shuffles, then one
-// warp over the 32 warp winners.
+// What the design does about it:
+// - For N <= 1024 (every row of the eval forward and both training stages)
+//   a row belongs to wpr warps, one or four (chosen by shape in
+//   ops/cuda_fps.py); each lane keeps its PPL points' coordinates and
+//   running minima in registers, point i = lane + 32 * (w + wpr * j) for
+//   warp w of the row.  A block holds two one-warp rows or one four-warp
+//   row, so 400 RCNN rows or 256 training rows spread over the SMs.
+// - A step's argmax needs no block barrier: a lane-local argmax (a tree
+//   over rising j with strict >, so the lower index keeps ties), then
+//   __reduce_max_sync on the distances' bits (d >= +0.0, so the bits order
+//   as the floats do) and __reduce_min_sync over the indices of the lanes
+//   holding that maximum (the lowest global index, not the lowest lane).
+//   Where a row spans several warps, the warps' winners meet as
+//   (key << 32 | ~index) in a double-buffered shared slot behind one named
+//   barrier of the row's threads; four warps' slots every lane scans for
+//   the largest (measured faster than a second pair of reductions), the
+//   32 of a long row go through __reduce_*_sync again.  Four warps a row
+//   was the faster plan for rows of 1024 points (a step about 3.5 x the
+//   probe's), a warp a row for rows of 512 points or fewer.
+// - The winner's coordinates come from the row's copy in shared memory (a
+//   lane cannot index its own registers by a run-time j).
+// - Padded points (past N, up to PPL * 32 * wpr) hold -1 as running minimum
+//   and never win the lane-local argmax against a real point (>= +0.0); a
+//   lane with no real point offers key 0 and an index >= N, which loses
+//   every tie to a real point.
+// - N > 1024 (the exact setting's 16384 and 4096): one row a block of 1024
+//   threads, the same single-barrier step, coordinates read from shared
+//   memory each step (at 16 points a thread, coordinates and minima would
+//   not fit 64 registers).
 //
 // Compiled with --fmad=false so the distance is not contracted into FMAs.
 
@@ -28,109 +51,208 @@
 
 namespace {
 
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <int PPT>
-__global__ void __launch_bounds__(1024) fps_kernel(const float* __restrict__ xyz, int n, int npoint,
-                           int* __restrict__ out) {
-  const int row = blockIdx.x;
-  const float* p = xyz + (size_t)row * n * 3;
-  int* o = out + (size_t)row * npoint;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
+// the warp's largest key, and the lowest index among the lanes holding it
+__device__ __forceinline__ void warp_argmax(unsigned& key, int& idx) {
+  const unsigned mx = __reduce_max_sync(0xffffffffu, key);
+  idx = __reduce_min_sync(0xffffffffu, key == mx ? idx : INT_MAX);
+  key = mx;
+}
 
-  __shared__ float s_val[32];
-  __shared__ int s_idx[32];
-  __shared__ int s_last;
-  extern __shared__ float sp[];  // the row's xyz, n x 3
+template <int PPL, bool REG_XYZ, bool MULTI, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+    fps_kernel(const float* __restrict__ xyz, int rows, int n, int npoint, int wpr,
+               int* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int stride = 32 * wpr;
+  const int padded = PPL * stride;  // points per row in shared memory
+  const int rpb = blockDim.x / stride;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rib = warp / wpr;  // row in block
+  const int w = warp - rib * wpr;
+  const int row0 = blockIdx.x * rpb;
+  const int row = row0 + rib;
+  // each row's two slot buffers of wpr (key << 32 | ~index), 8-byte aligned
+  unsigned long long* slot =
+      reinterpret_cast<unsigned long long*>(smem + rpb * padded * 3 + (rpb * padded * 3) % 2) +
+      rib * 2 * wpr;
 
-  for (int t = tid; t < 3 * n; t += blockDim.x) sp[t] = p[t];
-  float dist[PPT];
-#pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    dist[j] = tid + j * blockDim.x < n ? 1e10f : -1.f;
+  // the block's rows, zero-padded to `padded` points each; unpadded rows
+  // on a 16-byte boundary (every row of the forward) copy as float4s, so a
+  // thread's loads are all in flight at once
+  const int nrows = min(rpb, rows - row0);
+  const float* src = xyz + (size_t)row0 * n * 3;
+  const int count = nrows * n * 3;
+  if (padded == n && (reinterpret_cast<size_t>(src) & 15) == 0 && (count & 3) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(smem);
+#pragma unroll 4
+    for (int t = threadIdx.x; t < count / 4; t += blockDim.x) d4[t] = s4[t];
+  } else {
+    for (int t = threadIdx.x; t < nrows * padded * 3; t += blockDim.x) {
+      const int r = t / (padded * 3), e = t - r * padded * 3;
+      smem[t] = e < n * 3 ? src[(size_t)r * n * 3 + e] : 0.f;
+    }
   }
   __syncthreads();
-  if (tid == 0) o[0] = 0;
+  if (row >= rows) return;
+  const float* sp = smem + rib * padded * 3;
+  int* o = out + (size_t)row * npoint;
+  const int base = lane + 32 * w;
 
+  float px[REG_XYZ ? PPL : 1], py[REG_XYZ ? PPL : 1], pz[REG_XYZ ? PPL : 1];
+  float dist[PPL];
+#pragma unroll
+  for (int j = 0; j < PPL; ++j) {
+    const int i = base + stride * j;
+    if (REG_XYZ) {
+      px[j] = sp[3 * i];
+      py[j] = sp[3 * i + 1];
+      pz[j] = sp[3 * i + 2];
+    }
+    dist[j] = i < n ? 1e10f : -1.f;
+  }
+
+  if (base == 0) o[0] = 0;
   int last = 0;
   for (int step = 1; step < npoint; ++step) {
     const float lx = sp[3 * last], ly = sp[3 * last + 1], lz = sp[3 * last + 2];
-    float best = -2.f;
-    int bi = INT_MAX;
+    float v[PPL];
+    int id[PPL];
 #pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-      const int i = tid + j * blockDim.x;
-      if (i < n) {
-        const float dx = sp[3 * i] - lx, dy = sp[3 * i + 1] - ly, dz = sp[3 * i + 2] - lz;
-        const float d = dx * dx + dy * dy + dz * dz;
-        dist[j] = fminf(dist[j], d);
-        // indices rise with j: strict > keeps the lowest index on ties
-        if (dist[j] > best) {
-          best = dist[j];
-          bi = i;
+    for (int j = 0; j < PPL; ++j) {
+      const int i = base + stride * j;
+      const float x = REG_XYZ ? px[j] : sp[3 * i];
+      const float y = REG_XYZ ? py[j] : sp[3 * i + 1];
+      const float z = REG_XYZ ? pz[j] : sp[3 * i + 2];
+      const float dx = x - lx, dy = y - ly, dz = z - lz;
+      dist[j] = fminf(dist[j], dx * dx + dy * dy + dz * dz);
+      v[j] = dist[j];
+      id[j] = i;
+    }
+    // lane-local argmax: a tree over contiguous ranges of j, so the right
+    // operand always holds the higher indices and strict > keeps ties low
+#pragma unroll
+    for (int h = 1; h < PPL; h <<= 1) {
+#pragma unroll
+      for (int j = 0; j + h < PPL; j += 2 * h) {
+        if (v[j + h] > v[j]) {
+          v[j] = v[j + h];
+          id[j] = id[j + h];
         }
       }
     }
+    unsigned key = v[0] < 0.f ? 0u : __float_as_uint(v[0]);
+    int idx = id[0];
+    warp_argmax(key, idx);
+    if (MULTI) {
+      // the warps' winners as (key << 32 | ~index): the largest is the
+      // largest key, then the lowest index.  Every lane stores the same
+      // value (no divergent branch); the buffer alternates by step, so a
+      // slot is rewritten only after every warp has passed the next barrier
+      unsigned long long* sl = slot + (step & 1) * wpr;
+      sl[w] = (static_cast<unsigned long long>(key) << 32) | static_cast<unsigned>(~idx);
+      named_barrier(1 + rib, stride);
+      if (wpr == 4) {
+        unsigned long long best = sl[0];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      better(best, bi, ov, oi);
-    }
-    if (lane == 0) {
-      s_val[warp] = best;
-      s_idx[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best = lane < nwarps ? s_val[lane] : -3.f;
-      bi = lane < nwarps ? s_idx[lane] : INT_MAX;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        better(best, bi, ov, oi);
-      }
-      if (lane == 0) {
-        s_last = bi;
-        o[step] = bi;
+        for (int q = 1; q < 4; ++q) {
+          if (sl[q] > best) best = sl[q];
+        }
+        idx = ~static_cast<int>(static_cast<unsigned>(best));
+      } else {
+        const unsigned long long e = lane < wpr ? sl[lane] : 0x80000000ull;  // key 0, INT_MAX
+        key = static_cast<unsigned>(e >> 32);
+        idx = ~static_cast<int>(static_cast<unsigned>(e));
+        warp_argmax(key, idx);
       }
     }
-    __syncthreads();
-    last = s_last;
+    last = idx;
+    if (base == 0) o[step] = last;
   }
 }
 
-template <int PPT>
-cudaError_t launch(const float* xyz, int rows, int n, int npoint, int* out,
-                   int threads, cudaStream_t s) {
-  const int smem = n * 3 * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int PPL, bool REG_XYZ, bool MULTI, int MAXT>
+cudaError_t launch(const float* xyz, int rows, int n, int npoint, int* out, int wpr, int rpb,
+                   cudaStream_t s) {
+  const int floats = rpb * PPL * 32 * wpr * 3;
+  const int smem = (floats + floats % 2) * (int)sizeof(float) + 2 * rpb * wpr * 8;
+  auto kernel = fps_kernel<PPL, REG_XYZ, MULTI, MAXT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fps_kernel<PPT><<<rows, threads, smem, s>>>(xyz, n, npoint, out);
+  kernel<<<(rows + rpb - 1) / rpb, 32 * wpr * rpb, smem, s>>>(xyz, rows, n, npoint, wpr, out);
   return cudaGetLastError();
+}
+
+// One warp, one point a lane, `steps` dependent FPS steps and nothing else:
+// the distance, the min, the warp argmax by redux.sync and the winner's
+// coordinates by shuffle.  Its time per step is the least a step of any
+// design can take.
+__global__ void fps_step_probe_kernel(const float* __restrict__ xyz, int steps,
+                                      int* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const float x = xyz[3 * lane], y = xyz[3 * lane + 1], z = xyz[3 * lane + 2];
+  float dist = 1e10f;
+  float lx = __shfl_sync(0xffffffffu, x, 0), ly = __shfl_sync(0xffffffffu, y, 0),
+        lz = __shfl_sync(0xffffffffu, z, 0);
+  int last = 0;
+  for (int s = 0; s < steps; ++s) {
+    const float dx = x - lx, dy = y - ly, dz = z - lz;
+    dist = fminf(dist, dx * dx + dy * dy + dz * dz);
+    unsigned key = __float_as_uint(dist);
+    last = lane;
+    warp_argmax(key, last);
+    lx = __shfl_sync(0xffffffffu, x, last);
+    ly = __shfl_sync(0xffffffffu, y, last);
+    lz = __shfl_sync(0xffffffffu, z, last);
+  }
+  if (lane == 0) out[0] = last;
 }
 
 }  // namespace
 
-extern "C" int fps_launch(const float* xyz, int rows, int n, int npoint,
-                          int* out, void* stream) {
-  const int threads = n >= 1024 ? 1024 : ((n + 31) / 32) * 32;
-  const int need = (n + threads - 1) / threads;
+// xyz (rows, n, 3) f32 -> out (rows, npoint) int32.  (wpr warps a row, rpb
+// rows a block), as ops/cuda_fps.py::plan chooses them: (1, 2) or (4, 1)
+// for n <= 1024, (32, 1) for n > 1024 (up to 16384).
+extern "C" int fps_launch(const float* xyz, int rows, int n, int npoint, int* out, int wpr,
+                          int rpb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (need <= 1) return (int)launch<1>(xyz, rows, n, npoint, out, threads, s);
-  if (need <= 2) return (int)launch<2>(xyz, rows, n, npoint, out, threads, s);
-  if (need <= 4) return (int)launch<4>(xyz, rows, n, npoint, out, threads, s);
-  if (need <= 8) return (int)launch<8>(xyz, rows, n, npoint, out, threads, s);
-  if (need <= 16) return (int)launch<16>(xyz, rows, n, npoint, out, threads, s);
+  if (rows < 1 || n < 1 || npoint < 1 || npoint > n || n > 16384) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n > 1024 && wpr == 32 && rpb == 1) {
+    const int need = (n + 1023) / 1024;
+    if (need <= 2) return (int)launch<2, false, true, 1024>(xyz, rows, n, npoint, out, 32, 1, s);
+    if (need <= 4) return (int)launch<4, false, true, 1024>(xyz, rows, n, npoint, out, 32, 1, s);
+    if (need <= 8) return (int)launch<8, false, true, 1024>(xyz, rows, n, npoint, out, 32, 1, s);
+    return (int)launch<16, false, true, 1024>(xyz, rows, n, npoint, out, 32, 1, s);
+  }
+  if (n <= 1024 && wpr == 4 && rpb == 1) {
+    const int need = (n + 127) / 128;
+    if (need <= 1) return (int)launch<1, true, true, 1024>(xyz, rows, n, npoint, out, 4, 1, s);
+    if (need <= 2) return (int)launch<2, true, true, 1024>(xyz, rows, n, npoint, out, 4, 1, s);
+    if (need <= 4) return (int)launch<4, true, true, 1024>(xyz, rows, n, npoint, out, 4, 1, s);
+    return (int)launch<8, true, true, 512>(xyz, rows, n, npoint, out, 4, 1, s);
+  }
+  if (n <= 1024 && wpr == 1 && rpb == 2) {
+    const int need = (n + 31) / 32;
+    if (need <= 1) return (int)launch<1, true, false, 1024>(xyz, rows, n, npoint, out, 1, 2, s);
+    if (need <= 2) return (int)launch<2, true, false, 1024>(xyz, rows, n, npoint, out, 1, 2, s);
+    if (need <= 4) return (int)launch<4, true, false, 1024>(xyz, rows, n, npoint, out, 1, 2, s);
+    if (need <= 8) return (int)launch<8, true, false, 512>(xyz, rows, n, npoint, out, 1, 2, s);
+    if (need <= 16) return (int)launch<16, true, false, 256>(xyz, rows, n, npoint, out, 1, 2, s);
+    return (int)launch<32, true, false, 256>(xyz, rows, n, npoint, out, 1, 2, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// The latency probe: one warp over xyz (32, 3) f32, `steps` steps; out[0]
+// the last pick (kept so the chain is not optimised away).
+extern "C" int fps_step_probe(const float* xyz, int steps, int* out, void* stream) {
+  fps_step_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(xyz, steps, out);
+  return (int)cudaGetLastError();
 }

@@ -7,8 +7,16 @@ The TPU's one-hot-matmul gathers (``gather_points`` on small tables,
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """SMs of the CUDA ``device``, which the kernels' launch plans fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def split_hilo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -10,13 +10,36 @@ picks its argmax, the lowest index on ties.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-# most points per row the kernel keeps in registers (16 per thread x 1024)
+from pointrcnn_tpu_torch.ops.common import sm_count
+
+# most points per row the kernel takes (one block of 1024 threads, 16
+# points a thread, the row's xyz in shared memory)
 MAX_N = 16384
 
 launches = 0
+
+
+def plans(n: int) -> tuple[tuple[int, int], ...]:
+    """The (warps a row, rows a block) that ``csrc/fps.cu`` launches for
+    rows of ``n`` points; it refuses any other."""
+    return ((32, 1),) if n > 1024 else ((1, 2), (4, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(rows: int, n: int, sms: int) -> tuple[int, int]:
+    """The plan of :func:`plans` for ``rows`` rows of ``n`` points on a card
+    of ``sms`` SMs, as measured on the H100 (``chip_smoke.py``'s per-shape
+    ``plans``): rows of more than 512 points four warps a row while that
+    keeps at most 8 warps an SM, else a warp a row, two rows a block."""
+    if n > 1024:
+        return 32, 1
+    if n > 512 and 4 * rows <= 8 * sms:
+        return 4, 1
+    return 1, 2
 
 
 def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -37,7 +60,24 @@ def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """``fps_launch`` of the library (built at first use), its argument
+    types set once: the forward is host-paced, and a launch's host time
+    counts."""
+    from pointrcnn_tpu_torch import _build
+
+    fn = _build.load("fps", _build.NO_FMAD).fps_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(xyz: torch.Tensor, npoint: int,
+            shape_plan: tuple[int, int] | None = None) -> torch.Tensor:
+    """The kernel on a CUDA tensor; ``shape_plan`` overrides :func:`plan`
+    (for measuring the alternatives)."""
     from pointrcnn_tpu_torch import _build
 
     global launches
@@ -48,13 +88,10 @@ def _launch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         raise ValueError(f"fps: need 1 <= npoint <= N <= {MAX_N}, got npoint={npoint} N={N}")
     xyz = xyz.contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    lib = _build.load("fps", _build.NO_FMAD)
-    fn = lib.fps_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    wpr, rpb = plan(B, N, sm_count(xyz.device)) if shape_plan is None else shape_plan
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    _build.check(fn(xyz.data_ptr(), B, N, npoint, out.data_ptr(), stream), "fps_launch")
+    _build.check(_kernel()(xyz.data_ptr(), B, N, npoint, out.data_ptr(), wpr, rpb, stream),
+                 "fps_launch")
     launches += 1
     return out
 
@@ -66,3 +103,27 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if xyz.device.type == "cpu":
         return furthest_point_sample_plain(xyz, npoint)
     raise ValueError(f"fps: unsupported device {xyz.device}")
+
+
+def step_probe_ms(steps: int) -> float:
+    """Device ms of one launch of the latency probe (``fps_step_probe`` in
+    ``csrc/fps.cu``): one warp, ``steps`` dependent FPS steps over 32
+    seeded points (needs a card)."""
+    from pointrcnn_tpu_torch import _build
+
+    g = torch.Generator().manual_seed(0)
+    xyz = torch.rand((32, 3), generator=g).cuda()
+    out = torch.empty(1, dtype=torch.int32, device=xyz.device)
+    fn = _build.load("fps", _build.NO_FMAD).fps_step_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    launch = lambda: _build.check(fn(xyz.data_ptr(), steps, out.data_ptr(), stream),
+                                  "fps_step_probe")
+    launch()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)

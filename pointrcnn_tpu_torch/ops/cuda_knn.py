@@ -10,12 +10,16 @@ index on ties, with ``dist = sqrt(d2)``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from pointrcnn_tpu_torch.ops.common import sqrt_rn
+from pointrcnn_tpu_torch.ops.common import sm_count, sqrt_rn
 
 launches = 0
+
+# threads a block of the kernel
+_THREADS = 256
 
 # unknown points per chunk of the plain version's (chunk, m) distance block
 _PLAIN_CHUNK = 1024
@@ -42,7 +46,43 @@ def three_nn_plain(unknown: torch.Tensor, known: torch.Tensor):
     return torch.cat(dists, 1), torch.cat(idxs, 1).to(torch.int32)
 
 
-def _launch(unknown: torch.Tensor, known: torch.Tensor):
+# the (unknowns a thread, lanes an unknown) that csrc/knn.cu launches
+PLANS = tuple((u, g) for u in (1, 2) for g in (1, 2, 4, 8))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(batch: int, n: int, sms: int) -> tuple[int, int]:
+    """The plan of :data:`PLANS` for ``batch`` x ``n`` unknowns on a card of
+    ``sms`` SMs, as measured on the H100 (``chip_smoke.py``'s per-shape
+    ``plans``): two unknowns a thread only at the rpn step's FP1 size (more
+    unknowns a warp make its insertions diverge more often than the shared
+    loads they save), and the knowns split over more lanes (up to 8) until
+    the launch has at least 3 blocks an SM."""
+    u, g = (2 if batch * n >= 1 << 18 else 1), 1
+    while g < 8 and batch * -(-n // (_THREADS // g * u)) < 3 * sms:
+        g *= 2
+    return u, g
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """``three_nn_launch`` of the library (built at first use), its
+    argument types set once: the forward is host-paced, and a launch's host
+    time counts."""
+    from pointrcnn_tpu_torch import _build
+
+    fn = _build.load("knn", _build.NO_FMAD).three_nn_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(unknown: torch.Tensor, known: torch.Tensor,
+            shape_plan: tuple[int, int] | None = None):
+    """The kernel on CUDA tensors; ``shape_plan`` overrides :func:`plan`
+    (for measuring the alternatives)."""
     from pointrcnn_tpu_torch import _build
 
     global launches
@@ -57,14 +97,10 @@ def _launch(unknown: torch.Tensor, known: torch.Tensor):
     unknown, known = unknown.contiguous(), known.contiguous()
     dist = torch.empty((B, n, 3), dtype=torch.float32, device=unknown.device)
     idx = torch.empty((B, n, 3), dtype=torch.int32, device=unknown.device)
-    lib = _build.load("knn", _build.NO_FMAD)
-    fn = lib.three_nn_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    u, g = plan(B, n, sm_count(unknown.device)) if shape_plan is None else shape_plan
     stream = torch.cuda.current_stream(unknown.device).cuda_stream
-    _build.check(fn(unknown.data_ptr(), known.data_ptr(), B, n, m,
-                    dist.data_ptr(), idx.data_ptr(), stream), "three_nn_launch")
+    _build.check(_kernel()(unknown.data_ptr(), known.data_ptr(), B, n, m,
+                           dist.data_ptr(), idx.data_ptr(), u, g, stream), "three_nn_launch")
     launches += 1
     return dist, idx
 

@@ -55,11 +55,26 @@ def t(a):
 # ------------------------------------------------------------------ kernels
 
 
-@pytest.mark.parametrize("B,N,npoint", [(2, 256, 24), (8, 128, 20), (3, 384, 32)])
-def test_fps_plain_matches_pallas(B, N, npoint):
+@pytest.mark.parametrize("B,N,npoint,copies", [
+    pytest.param(2, 256, 24, 1, id="2-256-24"),
+    pytest.param(8, 128, 20, 1, id="8-128-20"),
+    pytest.param(3, 384, 32, 1, id="3-384-32"),
+    # every point 4 times at scattered indices: equal running distances all
+    # along, and npoint equal to the number of distinct points
+    pytest.param(2, 256, 64, 4, id="dup4-2-256-64"),
+    pytest.param(8, 128, 32, 4, id="dup4-8-128-32"),
+    # past the distinct points every running distance is +0.0: the lowest
+    # index wins
+    pytest.param(1, 128, 48, 4, id="dup4-1-128-48"),
+])
+def test_fps_plain_matches_pallas(B, N, npoint, copies):
     # B < 8 runs the striped Pallas variant, B >= 8 the plain one
     rng = np.random.RandomState(N + B)
     xyz = rng.uniform(-20, 20, (B, N, 3)).astype(np.float32)
+    if copies > 1:
+        # N // copies distinct points, each `copies` times at scattered indices
+        xyz = xyz[:, np.argsort(rng.permutation(N)) % (N // copies)]
+        assert len(np.unique(xyz[0], axis=0)) == N // copies
     want = np.asarray(pallas_fps.furthest_point_sample_pallas(jnp.asarray(xyz), npoint))
     got = cuda_fps.furthest_point_sample(t(xyz), npoint)
     assert got.dtype == torch.int32
@@ -77,12 +92,27 @@ def test_fps_ties_take_lowest_index():
     assert (got[0, 1:] < 64).all()
 
 
-@pytest.mark.parametrize("n,m", [(256, 64), (512, 128)])
-def test_three_nn_plain_matches_pallas(n, m):
+@pytest.mark.parametrize("n,m,cloud", [
+    pytest.param(256, 64, "uniform", id="256-64"),
+    pytest.param(512, 128, "uniform", id="512-128"),
+    # knowns on a shuffled integer lattice, unknowns on lattice points, edge
+    # midpoints and cell centres: many exactly equal distances
+    pytest.param(256, 125, "lattice", id="lattice-256-125"),
+    # a third of the knowns duplicated at indices far apart
+    pytest.param(256, 96, "duplicated", id="duplicated-256-96"),
+])
+def test_three_nn_plain_matches_pallas(n, m, cloud):
     rng = np.random.RandomState(n + m)
     unknown = rng.uniform(-30, 30, (2, n, 3)).astype(np.float32)
     known = rng.uniform(-30, 30, (2, m, 3)).astype(np.float32)
     known[:, 1] = known[:, 0]  # a tied pair
+    if cloud == "lattice":
+        ax = np.arange(5, dtype=np.float32)
+        grid = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(m, 3)
+        known = np.stack([grid[rng.permutation(m)] for _ in range(2)])
+        unknown = (rng.randint(0, 9, (2, n, 3)) * 0.5).astype(np.float32)
+    elif cloud == "duplicated":
+        known[:, 2 * m // 3:] = known[:, 5: 5 + m - 2 * m // 3]
     wd, wi = pallas_knn.three_nn_pallas(jnp.asarray(unknown), jnp.asarray(known))
     gd, gi = cuda_knn.three_nn(t(unknown), t(known))
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
@@ -94,6 +124,17 @@ def test_three_nn_plain_matches_pallas(n, m):
     d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
     np.testing.assert_array_equal(gd.numpy(), np.sqrt(np.take_along_axis(d2, gi.numpy(), -1)))
     np.testing.assert_array_max_ulp(gd.numpy(), np.asarray(wd), maxulp=1)
+
+
+def test_launch_plans_are_ones_the_kernels_take():
+    # csrc/fps.cu's fps_launch takes (1, 2) and (4, 1) up to 1024 points a
+    # row, (32, 1) past them, and refuses any other; no CPU run reaches it
+    for sms in (78, 114, 132):
+        for rows in (1, 3, 4, 16, 64, 256, 400, 1000):
+            for n in (1, 20, 77, 128, 256, 512, 1000, 1024):
+                assert cuda_fps.plan(rows, n, sms) in ((1, 2), (4, 1))
+            for n in (1025, 1500, 4096, 16384):
+                assert cuda_fps.plan(rows, n, sms) == (32, 1)
 
 
 @pytest.mark.parametrize("N,C,S,K", [(256, 24, 32, 16), (512, 8, 16, 32)])
