@@ -22,7 +22,13 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    on adversarial inputs (duplicated points, one repeated point, npoint ==
    N, ragged and tiny rows; lattice knowns with many equal distances,
    duplicated knowns, m = 3, m off the tile) under every launch plan the
-   kernel takes, each equal to the plain version;
+   kernel takes, each equal to the plain version; the neighbourhood gather
+   (K4) at every path shape with f32 and bf16 features, device-timed by
+   CUDA-graph replay through its wrapper, then on layouts against its runs
+   of output rows (runs ending mid-centroid, a ragged last run, rows that
+   are not 16-byte multiples, one batch row, an unaligned table), captured
+   in a CUDA graph through its wrapper (no host sync), and an index equal
+   to N in a child process, which must trap with the kernel's message;
 3b. the SA stages of every shipped config (``cfgs/default.yaml``,
    ``people.yaml``, ``car_2x.yaml``) that the port routes to the fused MLP
    kernels: each launches K2 (and, in the BN-free RCNN stacks' training
@@ -31,7 +37,8 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
 4. drive the main path (``pointrcnn_tpu_torch.entry``: the two-stage eval
    forward of ``cfgs/default.yaml`` as it stands) at batch 4 x 16384 points
    on seeded clouds, check shapes, finiteness and that every kernel
-   launched; run a cloud with a dense z-cluster that must take the
+   launched (and that K4 got the features' dtype it is timed in, as in
+   phase 7); run a cloud with a dense z-cluster that must take the
    full-scan fallback of the banded stage; hold a batch-1 forward against
    the port's plain path on the CPU; time frames/s;
 5. the same for the exact-method setting (``entry.EXACT_OVERRIDES``) on
@@ -39,7 +46,12 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
 6. the gather backward (K8) against its plain version at the ``rpn``
    training stage's shapes (RPN SA2-SA4, K = 16 and 32, batch 16):
    deterministic, equal to the plain version on the CPU, within the f32
-   reorder bound of the plain version on the card;
+   reorder bound of the plain version on the card, device-timed by
+   CUDA-graph replay beside ``index_add_``; then on index patterns against
+   its buckets and chunks (every position on one row, empty rows,
+   descending indices, the ball query's backfill, runs of one row across
+   chunks, a ragged S*K, 1024 channels), each deterministic and equal to
+   the CPU plain version;
 7. the ``rpn`` training stage (``pointrcnn_tpu_torch.entry.train_entry``:
    ``cfgs/default.yaml`` with ``RCNN.ENABLED`` False) at batch 16 x 16384
    points: ms/step, frames/s and peak memory over timed steps, every kernel
@@ -65,6 +77,7 @@ The second-to-last line is the kernel table as JSON, the last line
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -501,47 +514,231 @@ def check_knn():
     return tally
 
 
-# (name, B, N, C, S): the gather's tables: RPN SA2 of the eval forward; RPN
-# SA2, SA3 and SA4 of the rpn training stage (every BN-train SA stage
-# groups through it)
-GATHER_SHAPES = (("eval RPN SA2", BATCH, 4096, 96, 1024),
-                 ("train RPN SA2", TRAIN_BATCH, 4096, 96, 1024),
-                 ("train RPN SA3", TRAIN_BATCH, 1024, 256, 256),
-                 ("train RPN SA4", TRAIN_BATCH, 256, 512, 64))
+# (name, B, N, C, S, features' dtype): the gather's tables: RPN SA2 of the
+# eval forward; RPN SA2, SA3 and SA4 of the rpn training stage (every
+# BN-train SA stage groups through it).  The dtype is the one each path
+# hands K4 (every SA stage's output is f32: the max over K of f32
+# activations); phase_default and phase_train check it at every launch
+GATHER_SHAPES = (("eval RPN SA2", BATCH, 4096, 96, 1024, torch.float32),
+                 ("train RPN SA2", TRAIN_BATCH, 4096, 96, 1024, torch.float32),
+                 ("train RPN SA3", TRAIN_BATCH, 1024, 256, 256, torch.float32),
+                 ("train RPN SA4", TRAIN_BATCH, 256, 512, 64, torch.float32))
 
 
-def _gather_case(B, N, C, S, K, seed):
+def _gather_case(B, N, C, S, K, seed, dtype=torch.float32):
     """Seeded operands at one gather shape: neighbourhoods with repeats
     (the first quarter of the centroids backfilled from slot K/2 on, as the
     ball query backfills) and a bf16 cotangent."""
     g = torch.Generator().manual_seed(seed)
     xyz = _rpn_cloud(B, N, seed)
-    feats = torch.randn((B, N, C), generator=g).cuda()
+    feats = torch.randn((B, N, C), generator=g).to(dtype).cuda()
     idx = torch.randint(0, N, (B, S, K), generator=g, dtype=torch.int32)
     idx[:, : S // 4, K // 2:] = idx[:, : S // 4, :1]
     ct = torch.randn((B, S, K, 3 + C), generator=g).to(torch.bfloat16)
-    return xyz, feats, xyz[:, :S] + 0.1, idx.cuda(), ct
+    return xyz, feats, (xyz[:, :S] + 0.1).contiguous(), idx.cuda(), ct
+
+
+def _gather_equal(what, xyz, feats, cent, idx):
+    from pointrcnn_tpu_torch.ops import cuda_gather
+
+    got = cuda_gather._launch(xyz, feats, cent, idx)
+    ref = cuda_gather.group_points_plain(xyz, feats, cent, idx)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"gather {what}: {(got != ref).sum().item()} values differ")
+    return got
+
+
+def _gather_adversarial():
+    """(name, B, N, C, S, K, seed): K4's runs (64 rows at C 96, 56 at 256,
+    24 at 512) against the layout: runs that end mid-centroid, a ragged last
+    run, rows that are not 16-byte multiples (the scalar feature path), one
+    batch row, indices at both ends of the table."""
+    return (("runs end mid-centroid (K 24)", 2, 1024, 96, 100, 24, 1),
+            ("ragged last run (777 rows)", 3, 512, 32, 37, 7, 2),
+            ("C 13, scalar feature path", 2, 300, 13, 50, 16, 3),
+            ("C 100, scalar feature path", 2, 1024, 100, 64, 32, 4),
+            ("C 8, K 1", 2, 256, 8, 19, 1, 5),
+            ("B 1", 1, 4096, 96, 1024, 32, 6),
+            ("B 1, C 512, ragged", 1, 256, 512, 61, 3, 7))
 
 
 def check_gather():
+    """K4 at every path shape (f32 and bf16 features), each held
+    torch.equal to the plain version, timed through the wrapper (CUDA
+    events) and on the device (20 launches through the wrapper captured in
+    one CUDA graph); then the adversarial layouts."""
     from pointrcnn_tpu_torch.ops import cuda_gather
 
     tally = Tally()
-    for name, B, N, C, S in GATHER_SHAPES:
+    for name, B, N, C, S, dtype in GATHER_SHAPES:
         for K in (16, 32):
-            xyz, feats, cent, idx, _ = _gather_case(B, N, C, S, K, N + K)
-            got = cuda_gather._launch(xyz, feats, cent, idx)
-            ref = cuda_gather.group_points_plain(xyz, feats, cent, idx)
-            if not torch.equal(got, ref):
-                raise AssertionError(f"gather {name} K={K}: {(got != ref).sum().item()} values differ")
-            k = cuda_ms(lambda: cuda_gather._launch(xyz, feats, cent, idx), 20)
-            p = cuda_ms(lambda: cuda_gather.group_points_plain(xyz, feats, cent, idx), 5)
-            # a split, a subtraction and a cast per output value
-            bound = tally.add(k, p, nbytes(xyz, feats, cent, idx, got), 3.0 * got.numel(),
-                              PEAK_F32_PER_MS)
-            log(f"gather {name} B={B} N={N} C={C} S={S} K={K}: exact match; kernel {k:.4f} ms, "
-                f"plain {p:.4f} ms, bound {bound:.4f} ms")
+            row = {"stage": name, "b": B, "n": N, "c": C, "s": S, "k": K,
+                   "dtype": str(dtype).replace("torch.", "")}
+            for dt in (torch.float32, torch.bfloat16):
+                xyz, feats, cent, idx, _ = _gather_case(B, N, C, S, K, N + K, dt)
+                got = _gather_equal(f"{name} K={K} {dt}", xyz, feats, cent, idx)
+                run = lambda: cuda_gather._launch(xyz, feats, cent, idx)
+                dev = graph_ms(run, 20)
+                if dt != dtype:
+                    row[f"device_ms_{str(dt).replace('torch.', '')}"] = dev
+                    continue
+                k = cuda_ms(run, 20)
+                p = cuda_ms(lambda: cuda_gather.group_points_plain(xyz, feats, cent, idx), 5)
+                nb = nbytes(xyz, feats, cent, idx, got)
+                # a split, a subtraction and a cast per output value
+                ops = 3.0 * got.numel()
+                bound_ms = tally.add(k, p, nb, ops, PEAK_F32_PER_MS, device_ms=dev)
+                row.update(ms=k, device_ms=dev, plain_ms=p, bound_ms=bound_ms,
+                           term=bound(nb, ops, PEAK_F32_PER_MS)[1])
+            tally.shapes.append(row)
+            other = next(v for key, v in row.items() if key.startswith("device_ms_"))
+            log(f"gather {name} B={B} N={N} C={C} S={S} K={K} ({row['dtype']} features): exact "
+                f"match with f32 and bf16 features; kernel {row['ms']:.4f} ms through its wrapper, "
+                f"{row['device_ms']:.4f} device ({other:.4f} with the other dtype), plain "
+                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+    for name, B, N, C, S, K, seed in _gather_adversarial():
+        for dt in (torch.float32, torch.bfloat16):
+            xyz, feats, cent, idx, _ = _gather_case(B, N, C, S, K, seed, dt)
+            idx[0, 0, 0], idx[-1, -1, -1] = 0, N - 1
+            _gather_equal(f"{name} {dt}", xyz, feats, cent, idx)
+        log(f"gather {name} (B={B} N={N} C={C} S={S} K={K}): exact match, f32 and bf16 features")
+    # a feature table whose rows do not start 16-byte aligned (a view at an
+    # offset of one element): the scalar path
+    xyz, feats, cent, idx, _ = _gather_case(2, 512, 32, 64, 16, 8)
+    base = torch.empty(feats.numel() + 1, device="cuda")
+    shifted = base[1:].view(feats.shape)
+    shifted.copy_(feats)
+    _gather_equal("unaligned feature table", xyz, shifted, cent, idx)
+    log("gather unaligned feature table (a view one element in): exact match")
+    check_gather_graph()
+    check_gather_trap()
     return tally
+
+
+def check_gather_graph():
+    """K4 through its wrapper captured in a CUDA graph (capture errors are
+    not relaxed): the wrapper reads nothing back to the host."""
+    from pointrcnn_tpu_torch.ops import cuda_gather
+
+    xyz, feats, cent, idx, _ = _gather_case(2, 4096, 96, 1024, 32, 11)
+    ref = cuda_gather.group_points_plain(xyz, feats, cent, idx)
+    cuda_gather._launch(xyz, feats, cent, idx)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = cuda_gather._launch(xyz, feats, cent, idx)
+    g.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError("gather captured in a CUDA graph: the replay differs from the "
+                             "plain version")
+    log("gather: captured in a CUDA graph through cuda_gather._launch; the replay equals the "
+        "plain version")
+
+
+# a child process launches K4 with one index equal to N: the kernel must
+# print it and trap (which ends the child's CUDA context)
+_TRAP_CHILD = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from pointrcnn_tpu_torch.ops import cuda_gather
+B, N, C, S, K = 2, 512, 16, 64, 8
+xyz = torch.rand((B, N, 3), device="cuda")
+feats = torch.randn((B, N, C), device="cuda")
+idx = torch.randint(0, N, (B, S, K), dtype=torch.int32, device="cuda")
+idx[1, 5, 3] = N
+cuda_gather._launch(xyz, feats, xyz[:, :S].contiguous(), idx)
+torch.cuda.synchronize()
+print("no fault")
+"""
+TRAP_MESSAGE = "group_gather: index 512 outside [0, 512) at (batch 1, centroid 5, neighbour 3)"
+
+
+def check_gather_trap():
+    proc = subprocess.run([sys.executable, "-c", _TRAP_CHILD, REPO], capture_output=True,
+                          text=True, timeout=300)
+    said = proc.stdout + proc.stderr
+    if proc.returncode == 0 or TRAP_MESSAGE not in said:
+        raise AssertionError(f"gather with an index equal to N: the child exited "
+                             f"{proc.returncode}, output:\n{said[-2000:]}")
+    err = [line for line in said.splitlines() if "Error" in line or "error" in line]
+    log(f"gather with an index equal to N: the child exited {proc.returncode} with the kernel's "
+        f"message ({TRAP_MESSAGE!r}); {err[-1].strip() if err else ''}")
+
+
+@contextlib.contextmanager
+def gather_feature_dtypes(path: str):
+    """Check that every K4 launch of a path at a shape of GATHER_SHAPES gets
+    the features' dtype listed there (the dtype check_gather times it in)."""
+    from pointrcnn_tpu_torch.ops import cuda_gather
+
+    listed = {(B, N, C): dt for _, B, N, C, _, dt in GATHER_SHAPES}
+    seen, launch = set(), cuda_gather._launch
+
+    def recording(xyz, features, new_xyz, idx):
+        seen.add((tuple(features.shape), features.dtype))
+        return launch(xyz, features, new_xyz, idx)
+
+    cuda_gather._launch = recording
+    try:
+        yield
+    finally:
+        cuda_gather._launch = launch
+    for shape, dt in seen:
+        if listed.get(shape, dt) != dt:
+            raise AssertionError(f"{path} path: K4 got {dt} features {shape}, check_gather "
+                                 f"times {listed[shape]}")
+    log(f"{path} path: K4's features {sorted((s, str(d)) for s, d in seen)}")
+
+
+def _gather_bwd_adversarial():
+    """(name, B, N, C, S, K, index rule): K8's buckets and warp runs
+    against index patterns."""
+    def all_one(B, N, S, K, g):
+        return torch.full((B, S, K), N // 3, dtype=torch.int32)
+
+    def few_rows(B, N, S, K, g):  # every other row of the first 40: the rest are empty
+        return 2 * torch.randint(0, 20, (B, S, K), generator=g, dtype=torch.int32)
+
+    def descending(B, N, S, K, g):
+        p = torch.arange(S * K, dtype=torch.int32)
+        return ((N - 1) - p % N).reshape(1, S, K).repeat(B, 1, 1)
+
+    def backfill(B, N, S, K, g):
+        idx = torch.randint(0, N, (B, S, K), generator=g, dtype=torch.int32)
+        idx[:, : S // 4, K // 2:] = idx[:, : S // 4, :1]
+        return idx
+
+    def straddle(B, N, S, K, g):  # runs of 100 equal indices across the warps' runs
+        p = torch.arange(S * K, dtype=torch.int32)
+        return ((p // 100) % N).reshape(1, S, K).repeat(B, 1, 1)
+
+    return (("every position on one row", 2, 4096, 96, 1024, 32, all_one),
+            ("empty rows", 2, 4096, 96, 256, 32, few_rows),
+            ("descending indices", 2, 1024, 256, 256, 32, descending),
+            ("backfill pattern", 3, 4096, 96, 512, 16, backfill),
+            ("runs of one row across warp runs and buckets", 2, 1024, 96, 256, 32, straddle),
+            ("ragged: S*K 259, C 13", 2, 300, 13, 37, 7, backfill),
+            ("1024 channels (a 32-row tile)", 1, 4096, 1021, 64, 16, backfill))
+
+
+def _check_bwd_case(what, idx, ct_cpu, N):
+    """Two launches bit-equal and equal to the plain version on the CPU ->
+    the kernel's (dtable, dcent) on the card."""
+    from pointrcnn_tpu_torch.ops import cuda_gather
+
+    ct = ct_cpu.cuda()
+    got = cuda_gather._launch_bwd(idx, ct, N)
+    again = cuda_gather._launch_bwd(idx, ct, N)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"gather backward {what}: two launches differ")
+    cpu = cuda_gather.group_points_backward_plain(idx.cpu(), ct_cpu, N)
+    for name, a, b in zip(("dtable", "dcent"), got, cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"gather backward {what}: {name} differs from the CPU plain "
+                                 f"version in {(a.cpu() != b).sum().item()} places")
+    return got, ct
 
 
 def check_gather_bwd():
@@ -550,33 +747,27 @@ def check_gather_bwd():
     (index_add_ adds in ascending (s, k) order there, as the kernel does),
     and within the reorder bound 2 m 2^-24 sum|ct| (m = S*K terms at most)
     of the plain version on the card, whose index_add_ adds atomically in
-    any order."""
+    any order; timed through the wrapper and on the device (CUDA-graph
+    replay); then adversarial index patterns."""
     from pointrcnn_tpu_torch.ops import cuda_gather
 
     tally = Tally()
     tally.library_ms = 0.0
-    for name, B, N, C, S in GATHER_SHAPES[1:]:
+    for name, B, N, C, S, _ in GATHER_SHAPES[1:]:
         for K in (16, 32):
             _, _, _, idx, ct_cpu = _gather_case(B, N, C, S, K, 7 * N + K)
-            ct = ct_cpu.cuda()
-            got = cuda_gather._launch_bwd(idx, ct, N)
-            again = cuda_gather._launch_bwd(idx, ct, N)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"gather backward {name} K={K}: two launches differ")
-            cpu = cuda_gather.group_points_backward_plain(idx.cpu(), ct_cpu, N)
-            for what, a, b in zip(("dtable", "dcent"), got, cpu):
-                if not torch.equal(a.cpu(), b):
-                    raise AssertionError(f"gather backward {name} K={K}: {what} differs from the "
-                                         f"CPU plain version in {(a.cpu() != b).sum().item()} places")
+            got, ct = _check_bwd_case(f"{name} K={K}", idx, ct_cpu, N)
             ref = cuda_gather.group_points_backward_plain(idx, ct, N)
             abs_sum = cuda_gather.group_points_backward_plain(idx, ct.float().abs(), N)
             for what, a, b, m in zip(("dtable", "dcent"), got, ref, abs_sum):
-                bound = 2 * S * K * 2.0 ** -24 * m.abs()
-                if not bool(((a - b).abs() <= bound).all()):
+                bound_ = 2 * S * K * 2.0 ** -24 * m.abs()
+                if not bool(((a - b).abs() <= bound_).all()):
                     raise AssertionError(f"gather backward {name} K={K}: {what} outside the "
                                          f"reorder bound of the plain version")
                 tally.err = max(tally.err, (a - b).abs().max().item())
-            k = cuda_ms(lambda: cuda_gather._launch_bwd(idx, ct, N), 20)
+            run = lambda: cuda_gather._launch_bwd(idx, ct, N)
+            k = cuda_ms(run, 20)
+            dev = graph_ms(run, 20)
             p = cuda_ms(lambda: cuda_gather.group_points_backward_plain(idx, ct, N), 5)
             rows = (idx.long() + torch.arange(B, device="cuda")[:, None, None] * N).reshape(-1)
             src = ct.reshape(-1, 3 + C).float()
@@ -586,11 +777,22 @@ def check_gather_bwd():
             # read ct (bf16) and idx once, write dtable and dcent once; one
             # add per cotangent value
             nb = nbytes(idx, ct, *got)
-            bound = tally.add(k, p, nb, float(ct.numel()), PEAK_F32_PER_MS)
+            b_ms = tally.add(k, p, nb, float(ct.numel()), PEAK_F32_PER_MS, device_ms=dev)
+            tally.shapes.append({"stage": name, "b": B, "n": N, "c": C, "s": S, "k": K, "ms": k,
+                                 "device_ms": dev, "plain_ms": p, "library_ms": lib,
+                                 "bound_ms": b_ms,
+                                 "term": bound(nb, float(ct.numel()), PEAK_F32_PER_MS)[1]})
             log(f"gather backward {name} B={B} N={N} C={C} S={S} K={K}: deterministic, equal to "
                 f"the CPU plain version, max err {tally.err:.3e} vs the card's plain version; "
-                f"kernel {k:.4f} ms, plain {p:.4f} ms, index_add_ {lib:.4f} ms, "
-                f"bound {bound:.4f} ms")
+                f"kernel {k:.4f} ms through its wrapper, {dev:.4f} device, plain {p:.4f} ms, "
+                f"index_add_ {lib:.4f} ms, bound {b_ms:.4f} ms")
+    for name, B, N, C, S, K, rule in _gather_bwd_adversarial():
+        g = torch.Generator().manual_seed(S + K)
+        idx = rule(B, N, S, K, g).contiguous().cuda()
+        ct_cpu = torch.randn((B, S, K, 3 + C), generator=g).to(torch.bfloat16)
+        _check_bwd_case(name, idx, ct_cpu, N)
+        log(f"gather backward {name} (B={B} N={N} C={C} S={S} K={K}): deterministic, equal to "
+            f"the CPU plain version")
     return tally
 
 
@@ -979,7 +1181,8 @@ def phase_default(launches):
     clouds = [torch.from_numpy(synthetic_cloud(BATCH, cfg.RPN.NUM_POINTS, s)).cuda()
               for s in CLOUD_SEEDS]
     reset_counts()
-    outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
+    with gather_feature_dtypes("eval"):
+        outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"default forward x{len(clouds)} launches: {counts}")
@@ -1099,9 +1302,10 @@ def phase_train(train_launches):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED):
-        state, tb = step(state, batch)
-    torch.cuda.synchronize()
+    with gather_feature_dtypes("train"):
+        for _ in range(TRAIN_TIMED):
+            state, tb = step(state, batch)
+        torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_TIMED
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1214,9 +1418,10 @@ def phase_rcnn_train(rcnn_launches, rpn_ckpt):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED):
-        state, tb = step(state, batch)
-    torch.cuda.synchronize()
+    with gather_feature_dtypes("rcnn train"):
+        for _ in range(TRAIN_TIMED):
+            state, tb = step(state, batch)
+        torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_TIMED
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()

@@ -16,6 +16,11 @@ cast has zero derivative), ``dfeatures`` the rest, each cast to its primal's
 dtype.  Both versions sum in ascending (s, k) order, so on the CPU they
 agree bit for bit; the kernel is deterministic.
 
+K4 checks its indices on the device: an index outside [0, N) makes it
+print the index and its position and trap, so the fault surfaces as a CUDA
+error at the next synchronising call (the CUDA context is lost), not as a
+``ValueError``.  K8 trusts the indices the forward checked.
+
 :class:`GroupPoints` is the autograd function: K4 forward and K8 backward
 on CUDA tensors, the plain versions on CPU tensors.
 """
@@ -23,6 +28,7 @@ on CUDA tensors, the plain versions on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -80,9 +86,35 @@ def group_points_backward_plain(idx, ct, N: int):
     return dtable.reshape(B, N, cout), -acc
 
 
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    """The library's launchers (built at first use), their argument types
+    set once: a launch's host time counts where the card is idle."""
+    from pointrcnn_tpu_torch import _build
+
+    lib = _build.load("gather", _build.NO_FMAD)
+    fwd, bwd, size = (lib.group_gather_launch, lib.group_gather_bwd_launch,
+                      lib.group_gather_bwd_workspace_ints)
+    fwd.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+    bwd.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    fwd.restype = bwd.restype = ctypes.c_int
+    size.argtypes, size.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    return fwd, bwd, size
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_ints(B: int, N: int, S: int, K: int, cout: int) -> int:
+    """K8's scratch: the sorted positions, the buckets' starts and counts,
+    and a copy of the cotangent's first three channels."""
+    return _kernels()[2](B, N, S, K, cout)
+
+
 def _launch(xyz, features, new_xyz, idx):
-    """K4 on CUDA tensors, after checking its operands (the index range
-    check syncs with the host)."""
+    """K4 on CUDA tensors, after checking their shapes, dtypes and device.
+    Nothing is read back to the host, so the launch can be captured in a CUDA
+    graph: an index outside [0, N) makes the kernel print it and trap, and
+    the fault surfaces as a CUDA error at the next synchronising call."""
     from pointrcnn_tpu_torch import _build
 
     global launches
@@ -96,22 +128,18 @@ def _launch(xyz, features, new_xyz, idx):
             f"{new_xyz.dtype}, idx {tuple(idx.shape)}")
     if not all(t.is_cuda and t.device == xyz.device for t in (features, new_xyz, idx)):
         raise ValueError("group_points: all tensors must be on one CUDA device")
-    if idx.numel():
-        lo, hi = (int(v) for v in torch.aminmax(idx))
-        if lo < 0 or hi >= N:
-            raise ValueError(f"group_points: indices outside [0, {N})")
     idx = idx.to(torch.int32).contiguous()
     xyz = xyz.contiguous()
-    feats = features.to(torch.bfloat16).contiguous()
+    # the kernel rounds f32 features to bf16 itself; other types are cast
+    feats = (features if features.dtype == torch.float32
+             else features.to(torch.bfloat16)).contiguous()
     cent = new_xyz.contiguous()
     out = torch.empty((B, S, K, 3 + C), dtype=torch.bfloat16, device=xyz.device)
-    lib = _build.load("gather", _build.NO_FMAD)
-    fn = lib.group_gather_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    _build.check(fn(xyz.data_ptr(), feats.data_ptr(), cent.data_ptr(), idx.data_ptr(),
-                    B, N, S, K, C, out.data_ptr(), stream), "group_gather_launch")
+    fwd = _kernels()[0]
+    _build.check(fwd(xyz.data_ptr(), feats.data_ptr(), int(feats.dtype == torch.bfloat16),
+                     cent.data_ptr(), idx.data_ptr(), B, N, S, K, C, out.data_ptr(), stream),
+                 "group_gather_launch")
     launches += 1
     return out
 
@@ -133,13 +161,11 @@ def _launch_bwd(idx, ct, N: int):
     ctb = ct.to(torch.bfloat16).contiguous()
     dtable = torch.empty((B, N, cout), dtype=torch.float32, device=ct.device)
     dcent = torch.empty((B, S, 3), dtype=torch.float32, device=ct.device)
-    lib = _build.load("gather", _build.NO_FMAD)
-    fn = lib.group_gather_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    work = torch.empty(_workspace_ints(B, N, S, K, cout), dtype=torch.int32, device=ct.device)
     stream = torch.cuda.current_stream(ct.device).cuda_stream
-    _build.check(fn(idx.data_ptr(), ctb.data_ptr(), B, N, S, K, cout, dtable.data_ptr(),
-                    dcent.data_ptr(), stream), "group_gather_bwd_launch")
+    bwd = _kernels()[1]
+    _build.check(bwd(idx.data_ptr(), ctb.data_ptr(), B, N, S, K, cout, work.data_ptr(),
+                     dtable.data_ptr(), dcent.data_ptr(), stream), "group_gather_bwd_launch")
     bwd_launches += 1
     return dtable, dcent
 

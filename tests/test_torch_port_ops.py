@@ -137,19 +137,51 @@ def test_launch_plans_are_ones_the_kernels_take():
                 assert cuda_fps.plan(rows, n, sms) == (32, 1)
 
 
-@pytest.mark.parametrize("N,C,S,K", [(256, 24, 32, 16), (512, 8, 16, 32)])
-def test_gather_plain_matches_pallas(N, C, S, K):
-    rng = np.random.RandomState(N + K)
-    xyz = rng.uniform(-60, 60, (2, N, 3)).astype(np.float32)
-    feats = rng.randn(2, N, C).astype(np.float32)
-    new_xyz = xyz[:, :S] + rng.uniform(-1, 1, (2, S, 3)).astype(np.float32)
-    idx = rng.randint(0, N, (2, S, K)).astype(np.int32)
+def _gather_against_pallas(B, N, C, S, K, feat_dtype, seed, ends=False):
+    rng = np.random.RandomState(seed)
+    xyz = rng.uniform(-60, 60, (B, N, 3)).astype(np.float32)
+    feats = rng.randn(B, N, C).astype(np.float32)
+    new_xyz = xyz[:, :S] + rng.uniform(-1, 1, (B, S, 3)).astype(np.float32)
+    idx = rng.randint(0, N, (B, S, K)).astype(np.int32)
+    if ends:  # both ends of the table
+        idx[0, 0, 0], idx[-1, -1, -1] = 0, N - 1
+    jfeats, tfeats = jnp.asarray(feats), t(feats)
+    if feat_dtype == "bfloat16":  # the same bf16 values on both sides
+        jfeats, tfeats = jfeats.astype(jnp.bfloat16), tfeats.to(torch.bfloat16)
     want = pallas_gather.group_points_pallas(
-        jnp.asarray(xyz), jnp.asarray(feats), jnp.asarray(new_xyz), jnp.asarray(idx))
+        jnp.asarray(xyz), jfeats, jnp.asarray(new_xyz), jnp.asarray(idx))
     want = np.asarray(want.astype(jnp.float32))
-    got = cuda_gather.group_points(t(xyz), t(feats), t(new_xyz), t(idx))
+    got = cuda_gather.group_points(t(xyz), tfeats, t(new_xyz), t(idx))
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("N,C,S,K,feat_dtype", [
+    pytest.param(256, 24, 32, 16, "float32", id="256-24-32-16"),
+    pytest.param(512, 8, 16, 32, "float32", id="512-8-16-32"),
+    pytest.param(256, 24, 32, 16, "bfloat16", id="256-24-32-16-bf16"),
+    pytest.param(512, 8, 16, 32, "bfloat16", id="512-8-16-32-bf16")])
+def test_gather_plain_matches_pallas(N, C, S, K, feat_dtype):
+    _gather_against_pallas(2, N, C, S, K, feat_dtype, N + K)
+
+
+# the layouts chip_smoke.py holds K4 to on the card (its runs of output rows
+# against centroids, ragged runs, rows that are not 16-byte multiples, one
+# batch row), at small sizes, with f32 and bf16 features
+GATHER_LAYOUTS = [
+    pytest.param(2, 256, 96, 20, 24, id="runs-end-mid-centroid"),
+    pytest.param(3, 256, 32, 37, 7, id="ragged-last-run"),
+    pytest.param(2, 300, 13, 50, 16, id="C13-scalar-features"),
+    pytest.param(2, 256, 100, 16, 32, id="C100-scalar-features"),
+    pytest.param(2, 256, 8, 19, 1, id="C8-K1"),
+    pytest.param(1, 512, 96, 64, 32, id="B1"),
+    pytest.param(1, 256, 512, 61, 3, id="B1-C512-ragged")]
+
+
+@pytest.mark.parametrize("feat_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,C,S,K", GATHER_LAYOUTS)
+def test_gather_plain_matches_pallas_on_kernel_layouts(B, N, C, S, K, feat_dtype):
+    _gather_against_pallas(B, N, C, S, K, feat_dtype, N + C + K, ends=True)
 
 
 def _mlp_case(seed, B, N, C, S, K, widths, scale):

@@ -82,6 +82,64 @@ def test_backward_plain_matches_interpret_pallas(B, N, S, K, cout, grid):
                                    atol=2 * K * 2.0 ** -24 * np.abs(ct[..., :3]).sum(2).max())
 
 
+def _every_position_on_one_row(rng, B, N, S, K):
+    return np.full((B, S, K), N // 3, np.int32)
+
+
+def _empty_rows(rng, B, N, S, K):  # every other row of the first 40
+    return (2 * rng.randint(0, 20, (B, S, K))).astype(np.int32)
+
+
+def _descending(rng, B, N, S, K):
+    p = np.arange(S * K)
+    return np.broadcast_to(((N - 1) - p % N).reshape(1, S, K), (B, S, K)).astype(np.int32)
+
+
+def _backfill(rng, B, N, S, K):
+    idx = rng.randint(0, N, (B, S, K)).astype(np.int32)
+    idx[:, : S // 4, K // 2:] = idx[:, : S // 4, :1]
+    return idx
+
+
+def _runs_across_chunks(rng, B, N, S, K):  # runs of 100 equal indices
+    p = np.arange(S * K)
+    return np.broadcast_to(((p // 100) % N).reshape(1, S, K), (B, S, K)).astype(np.int32)
+
+
+# the index patterns chip_smoke.py holds K8 to on the card (its buckets,
+# warp runs and chunks against one heavy row, empty rows, descending and
+# backfilled indices, a bin split across chunks; a ragged S*K; 1024
+# channels), at small sizes
+SCATTER_PATTERNS = [
+    pytest.param(_every_position_on_one_row, 2, 512, 64, 32, 99, id="every-position-on-one-row"),
+    pytest.param(_empty_rows, 2, 512, 32, 32, 99, id="empty-rows"),
+    pytest.param(_descending, 2, 256, 32, 32, 259, id="descending"),
+    pytest.param(_backfill, 3, 512, 64, 16, 99, id="backfill"),
+    pytest.param(_runs_across_chunks, 2, 256, 128, 32, 99, id="runs-across-chunks"),
+    pytest.param(_backfill, 2, 300, 37, 7, 16, id="ragged-SK-259"),
+    pytest.param(_backfill, 1, 256, 16, 8, 1024, id="1024-channels")]
+
+
+@pytest.mark.parametrize("pattern,B,N,S,K,cout", SCATTER_PATTERNS)
+@pytest.mark.parametrize("grid", [True, False])
+def test_backward_plain_matches_interpret_pallas_on_kernel_patterns(pattern, B, N, S, K, cout,
+                                                                    grid):
+    rng = np.random.RandomState(S + K)
+    idx = np.ascontiguousarray(pattern(rng, B, N, S, K))
+    ct = _ct(rng, (B, S, K, cout), grid)
+    jt, jc = jax.jit(pallas_gather._bwd_pallas_call, static_argnums=2)(
+        jnp.asarray(idx), jnp.asarray(ct).astype(jnp.bfloat16), N)
+    tt, tc = cuda_gather.group_points_backward_plain(
+        torch.from_numpy(idx), torch.from_numpy(ct), N)
+    if grid:
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    else:
+        assert np.all(np.abs(tt.numpy() - np.asarray(jt)) <= _bound(idx, ct, N))
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0,
+                                   atol=2 * K * 2.0 ** -24 * np.abs(ct[..., :3]).sum(2).max())
+
+
 def test_backward_plain_rounds_the_cotangent_to_bf16():
     rng = np.random.RandomState(0)
     idx = _idx(rng, 1, 256, 16, 8)
