@@ -28,7 +28,19 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    of output rows (runs ending mid-centroid, a ragged last run, rows that
    are not 16-byte multiples, one batch row, an unaligned table), captured
    in a CUDA graph through its wrapper (no host sync), and an index equal
-   to N in a child process, which must trap with the kernel's message;
+   to N in a child process, which must trap with the kernel's message; the
+   ball query (K5 full scan, K6 banded) at every shape of ``BQ_SHAPES``
+   (the eval forward's RPN SA1 and SA2, the rpn step's at batch 16,
+   car_2x.yaml's, K6's full-row branch with its thin-band flag false, a
+   ragged pool) under every launch plan the kernels take, bit for bit
+   equal to the plain version, each plan timed on the device (CUDA-graph
+   replay) and the wrapper's choice through it; then on adversarial tables
+   (duplicated points, a lattice, NaN coordinates in a centroid's classes,
+   a NaN centroid, distances that overflow to inf, ragged blocks, bands one
+   W wide and bands whose full-row branch folds from another W, each
+   banded one with its flag true and false), and the banded stage
+   (``fps_group_banded``) captured in a CUDA graph and replayed on a cloud
+   whose flag reads false;
 3b. the SA stages of every shipped config (``cfgs/default.yaml``,
    ``people.yaml``, ``car_2x.yaml``) that the port routes to the fused MLP
    kernels: each launches K2 (and, in the BN-free RCNN stacks' training
@@ -38,9 +50,10 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    forward of ``cfgs/default.yaml`` as it stands) at batch 4 x 16384 points
    on seeded clouds, check shapes, finiteness and that every kernel
    launched (and that K4 got the features' dtype it is timed in, as in
-   phase 7); run a cloud with a dense z-cluster that must take the
-   full-scan fallback of the banded stage; hold a batch-1 forward against
-   the port's plain path on the CPU; time frames/s;
+   phase 7, and that the banded stage's thin-band flag read true); run a
+   cloud with a dense z-cluster whose flag must read false on the device,
+   RPN SA1 then equal to the full scan of its sorted table; hold a batch-1
+   forward against the port's plain path on the CPU; time frames/s;
 5. the same for the exact-method setting (``entry.EXACT_OVERRIDES``) on
    one cloud;
 6. the gather backward (K8) against its plain version at the ``rpn``
@@ -1082,57 +1095,203 @@ def _bq_ops(cand: float, S_total: int, W: int) -> float:
 
 
 def _bq_equal(what, got, ref):
+    """Bit for bit (a NaN where the plain version has one)."""
     for name, a, b in zip(("dist2", "idx", "rel"), got, ref):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: {name} differs in {(a != b).sum().item()} places")
 
 
-def check_ballquery():
-    """K5 and K6 against their plain versions at the forward's shapes:
-    the banded RPN SA1 stage, the full scan of RPN SA2, the full scan on
-    the sorted SA1 table (the banded stage's fallback), and a ragged pool
-    (N=2176: W halves to 128, no fold)."""
+# (path, stage, B, N, S, bands or None for the full scan, kmax, rel, the
+# thin-band flag): the ball query's launches.  The eval forward's RPN SA1
+# (K6) and SA2 (K5, no rel) are the main path's, the tallies'; the rpn step
+# takes them at batch 16 (the rcnn step's RPN at the eval's); car_2x.yaml
+# at N 32768 (16 bands of 2048) and 8192; K6's full-row branch (the flag
+# false) on the sorted SA1 table; a ragged pool (W halves to 128, no fold)
+BQ_SHAPES = (
+    ("eval", "RPN SA1", BATCH, 16384, 4096, 16, 32, True, True),
+    ("eval", "RPN SA2", BATCH, 4096, 1024, None, 32, False, None),
+    ("rpn step", "RPN SA1", TRAIN_BATCH, 16384, 4096, 16, 32, True, True),
+    ("rpn step", "RPN SA2", TRAIN_BATCH, 4096, 1024, None, 32, False, None),
+    ("car_2x", "RPN SA1", BATCH, 32768, 8192, 16, 32, True, True),
+    ("car_2x", "RPN SA2", BATCH, 8192, 2048, None, 32, False, None),
+    ("guard false", "RPN SA1", BATCH, 16384, 4096, 16, 32, True, False),
+    ("ragged", "pool 2176", 2, 2176, 256, None, 16, True, None),
+)
+
+
+def _bq_runs(x, c, kmax, rel, bands, flag):
+    """(kernel under a plan (None: the wrapper's), plain version, centroids a
+    band or None)."""
     from pointrcnn_tpu_torch.ops import cuda_ballquery as bq
-    from pointrcnn_tpu_torch.ops.common import gather_points
+
+    if bands is None:
+        return (lambda p=None: bq._launch(x, c, kmax, emit_rel=rel, shape_plan=p),
+                lambda: bq.ball_query_plain(x, c, kmax, emit_rel=rel), None)
+    ok = torch.tensor(flag, device=x.device)
+    return (lambda p=None: bq._launch_banded(x, c, kmax, bands, ok, shape_plan=p),
+            lambda: bq.ball_query_banded_plain(x, c, kmax, bands, ok), c.shape[1] // bands)
+
+
+def bq_case(B, N, S, bands, kmax, rel, flag, seed):
+    """K5 or K6 at one shape under every plan the launch takes, each held
+    bit for bit to the plain version and timed on the device; the
+    wrapper's own choice also timed through it -> (the shape's row, bytes,
+    operations)."""
+    from pointrcnn_tpu_torch.ops import cuda_ballquery as bq
+    from pointrcnn_tpu_torch.ops.common import gather_points, sm_count
     from pointrcnn_tpu_torch.ops.sampling import _banded_fps, _zsort, furthest_point_sample
 
+    x = _rpn_cloud(B, N, seed)
+    if bands is None:
+        c = _rpn_cloud(B, S, seed + 1) if N % 512 else \
+            gather_points(x, furthest_point_sample(x, S, method="blockwise"))
+    else:
+        x, _ = _zsort(x)
+        c = gather_points(x, _banded_fps(x, S, bands))
+    c = c.contiguous()
+    run, plain, cpb = _bq_runs(x, c, kmax, rel, bands, flag)
+    ref = plain()
+    device = {}
+    for shape_plan in bq.plans(cpb):
+        _bq_equal(f"ball query B={B} N={N} S={S} bands={bands} flag={flag} plan {shape_plan}",
+                  run(shape_plan), ref)
+        device[shape_plan] = graph_ms(lambda p=shape_plan: run(p), 10)
+    chosen = bq.plan(B, S, sm_count(x.device), cpb)
+    row = {"plan": list(chosen), "ms": cuda_ms(run, 20), "device_ms": device[chosen],
+           "plans": {_plan_key(k): v for k, v in device.items()},
+           "plain_ms": cuda_ms(plain, 2)}
+    if bands is not None and flag is not False:
+        Ns = N // bands
+        cand = B * cpb * Ns * sum(3 - (b == 0) - (b == bands - 1) for b in range(bands))
+        W = bq.pick_w(Ns)
+    else:
+        cand, W = B * S * N, bq.pick_w(N)
+    return row, nbytes(x, c, *ref), _bq_ops(cand, B * S, W)
+
+
+def _bq_banded_table(g, n_bands, Ns, cpb):
+    """A z-sorted (2, n_bands * Ns, 3) table and cpb centroids a band near
+    its points, band-ordered."""
+    from pointrcnn_tpu_torch.ops.sampling import _zsort
+
+    xs, _ = _zsort(torch.rand((2, n_bands * Ns, 3), generator=g) * torch.tensor([8.0, 2.0, 16.0]))
+    rows = torch.cat([b * Ns + torch.randperm(Ns, generator=g)[:cpb] for b in range(n_bands)])
+    return xs, xs[:, rows] + (torch.rand((2, rows.numel(), 3), generator=g) - 0.5) * 0.05
+
+
+def _bq_adversarial():
+    """(name, table, centroids, kmax, rel, bands or None, flag): ties the
+    kernels must break as the plain version does (duplicated points, a
+    lattice, equal distances across classes), NaN and overflowing
+    distances, ragged blocks, and bands of one W, of W 128 and of W 256
+    whose full-row branch folds from 512."""
+    g = torch.Generator().manual_seed(31)
+    base = torch.rand((2, 512, 3), generator=g) * 8.0
+    dup = base[:, torch.randint(0, 512, (4096,), generator=g)]  # each point ~8 times
+    ax = torch.arange(16, dtype=torch.float32)
+    lat = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(1, 4096, 3)
+    lat = lat[:, torch.randperm(4096, generator=g)].repeat(2, 1, 1)
+    on_lat = torch.randint(0, 32, (2, 100, 3), generator=g).float() * 0.5
+    # the CPU tests' non-finite tables: NaN x one pass (512) before the
+    # centroids' own points, a NaN centroid, far points whose d2 is inf
+    tab = torch.rand((2, 2048, 3), generator=g) * 20.0 - 10.0
+    own = torch.arange(600, 608)
+    nan_class = tab.clone()
+    nan_class[:, own - 512, 0] = float("nan")
+    nan_cent = tab[:, own].clone()
+    nan_cent[:, 3] = float("nan")
+    far = tab.clone()
+    keep = torch.zeros(2048, dtype=torch.bool)
+    keep[own] = True
+    far[:, ~keep, 0] = 1e20
+    far[0, 640, 0] = tab[0, 640, 0]  # folded lane 0 of the first row
+    cases = [("duplicated points", dup, dup[:, :64], 32, True, None, None),
+             ("lattice, S = 100", lat, on_lat, 32, True, None, None),
+             ("NaN x in the centroids' classes", nan_class, tab[:, own], 16, True, None, None),
+             ("NaN centroid", tab, nan_cent, 16, True, None, None),
+             ("d2 overflows to inf", far, tab[:, own], 16, True, None, None)]
+    xs_dup = dup[:, torch.argsort(dup[0, :, 2], stable=True)]
+    xs_dup[1] = xs_dup[0]
+    cases.append(("duplicated points, 4 bands", xs_dup, xs_dup[:, ::64], 32, True, 4, True))
+    xs_nan = _bq_banded_table(g, 4, 1024, 8)[0]
+    rows = torch.cat([b * 1024 + torch.arange(600, 608) for b in range(4)])
+    cent_nan = xs_nan[:, rows].clone()
+    xs_nan[:, 88:96, 0] = float("nan")
+    cases.append(("NaN x in band 0's classes, 4 bands", xs_nan, cent_nan, 32, True, 4, True))
+    for name, n_bands, Ns, cpb in (("bands one W wide (Ns 512)", 8, 512, 8),
+                                   ("Ns 128 (W 128, full row W 512)", 16, 128, 8),
+                                   ("Ns 768 (W 256, full row W 512)", 4, 768, 16)):
+        xs, cent = _bq_banded_table(g, n_bands, Ns, cpb)
+        for flag in (True, False):
+            cases.append((f"{name}, flag {flag}", xs, cent, 32, True, n_bands, flag))
+    return cases
+
+
+def check_ballquery():
+    """K5 and K6 against their plain versions at every shape of BQ_SHAPES
+    under every launch plan, then on adversarial tables, then the banded
+    stage captured in a CUDA graph."""
+    from pointrcnn_tpu_torch.ops import cuda_ballquery as bq
+
     k5, k6 = Tally(), Tally()
-    kmax = 32
-
-    # RPN SA1: 16 bands of 1024 points, 4096 band-ordered centroids
-    xs, _ = _zsort(_rpn_cloud(BATCH, 16384, 21))
-    n_bands, S = 16, 4096
-    cent = gather_points(xs, _banded_fps(xs, S, n_bands)).contiguous()
-    got = bq._launch_banded(xs, cent, kmax, n_bands)
-    _bq_equal("banded 4x16384 S=4096", got, bq.ball_query_banded_plain(xs, cent, kmax, n_bands))
-    k = cuda_ms(lambda: bq._launch_banded(xs, cent, kmax, n_bands), 10)
-    p = cuda_ms(lambda: bq.ball_query_banded_plain(xs, cent, kmax, n_bands), 2)
-    Ns, cpb = 16384 // n_bands, S // n_bands
-    cand = BATCH * cpb * Ns * sum(3 - (b == 0) - (b == n_bands - 1) for b in range(n_bands))
-    bound = k6.add(k, p, nbytes(xs, cent, *got), _bq_ops(cand, BATCH * S, bq.pick_w(Ns)),
-                   PEAK_F32_PER_MS)
-    log(f"ball_query_banded B={BATCH} N=16384 bands={n_bands} S={S} k={kmax} rel: exact match; "
-        f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
-
-    # RPN SA2: 4096 points (SA1's centroids), 1024 centroids, no rel
-    x2 = _rpn_cloud(BATCH, 4096, 22)
-    c2 = gather_points(x2, furthest_point_sample(x2, 1024, method="blockwise")).contiguous()
-    # the fallback: the full scan on SA1's sorted table, with rel
-    shapes = (("SA2", x2, c2, kmax, False, True),
-              ("SA1 fallback (sorted table)", xs, cent, kmax, True, False),
-              ("ragged", _rpn_cloud(2, 2176, 23), _rpn_cloud(2, 256, 24), 16, True, False))
-    for what, x, c, kk, rel, main in shapes:
-        got = bq._launch(x, c, kk, emit_rel=rel)
-        _bq_equal(f"full scan {what}", got, bq.ball_query_plain(x, c, kk, emit_rel=rel))
-        k = cuda_ms(lambda: bq._launch(x, c, kk, emit_rel=rel), 10)
-        p = cuda_ms(lambda: bq.ball_query_plain(x, c, kk, emit_rel=rel), 2)
-        B, N = x.shape[:2]
-        nb, ops = nbytes(x, c, *got), _bq_ops(B * c.shape[1] * N, B * c.shape[1], bq.pick_w(N))
-        bound = k5.add(k, p, nb, ops, PEAK_F32_PER_MS) if main else \
-            max(nb / PEAK_BYTES_PER_MS, ops / PEAK_F32_PER_MS)
-        log(f"ball_query {what} B={B} N={N} S={c.shape[1]} k={kk}{' rel' if rel else ''}: "
-            f"exact match; kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.4f} ms")
+    for i, (path, stage, B, N, S, bands, kmax, rel, flag) in enumerate(BQ_SHAPES):
+        row, nb, ops = bq_case(B, N, S, bands, kmax, rel, flag, 21 + 2 * i)
+        tally = k5 if bands is None else k6
+        if path == "eval":
+            tally.add(row["ms"], row["plain_ms"], nb, ops, PEAK_F32_PER_MS,
+                      device_ms=row["device_ms"])
+        b, term = bound(nb, ops, PEAK_F32_PER_MS)
+        tally.shapes.append({"path": path, "stage": stage, "b": B, "n": N, "s": S,
+                             "bands": bands, "k": kmax, "rel": rel, "flag": flag, **row,
+                             "bound_ms": b, "term": term})
+        log(f"ball_query{'' if bands is None else '_banded'} {path} {stage} B={B} N={N} S={S} "
+            f"bands={bands} k={kmax}{' rel' if rel else ''}"
+            f"{'' if flag is None else f' flag {flag}'} plan {tuple(row['plan'])}: bit-equal "
+            f"under every plan; kernel {row['ms']:.4f} ms through its wrapper, "
+            f"{row['device_ms']:.4f} device (plans {row['plans']}), plain "
+            f"{row['plain_ms']:.4f} ms, bound {b:.4f} ms ({term})")
+    for name, x, c, kmax, rel, bands, flag in _bq_adversarial():
+        x, c = x.contiguous().cuda(), c.contiguous().cuda()
+        run, plain, cpb = _bq_runs(x, c, kmax, rel, bands, flag)
+        ref = plain()
+        for shape_plan in bq.plans(cpb):
+            _bq_equal(f"ball query {name} plan {shape_plan}", run(shape_plan), ref)
+        log(f"ball_query{'' if bands is None else '_banded'} {name} {tuple(x.shape)} "
+            f"S={c.shape[1]} k={kmax}: bit-equal under plans {list(bq.plans(cpb))}")
+    check_banded_graph()
     return k5, k6
+
+
+def check_banded_graph():
+    """The banded stage (``fps_group_banded``: z-sort, FPS, the thin-band
+    flag and K6) captured in a CUDA graph, capture errors not relaxed, so
+    nothing is read back to the host; captured on a cloud whose bands pass
+    the guard, then replayed with the thin-band cloud copied into its
+    input, where the flag reads false on the device and the replay equals
+    the eager run on that cloud."""
+    from pointrcnn_tpu_torch.ops import cuda_ballquery as bq
+    from pointrcnn_tpu_torch.ops.grouping import fps_group_banded
+
+    specs = ((0.1, 16), (0.5, 32))
+    static = _rpn_cloud(BATCH, 16384, 0)
+    thin = torch.from_numpy(thin_band_cloud(BATCH, 16384, 9)).cuda()
+    want = [fps_group_banded(x, 4096, specs) for x in (static, thin)]
+    torch.cuda.synchronize()
+    before = bq.banded_launches
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fps_group_banded(static, 4096, specs)
+    if bq.banded_launches != before + 1:
+        raise AssertionError("the captured banded stage did not launch K6 once")
+    for x, (w_xyz, w_rels), what in zip((static, thin), want, ("cloud 0", "thin-band cloud")):
+        static.copy_(x)
+        g.replay()
+        torch.cuda.synchronize()
+        _bq_equal(f"banded stage replayed on the {what}", (out[0], *out[1]), (w_xyz, *w_rels))
+    log("ball_query_banded: fps_group_banded captured in a CUDA graph (no host read); replays on "
+        "cloud 0 and on the thin-band cloud equal their eager runs")
 
 
 def _check_outputs(out, M, tag):
@@ -1172,6 +1331,47 @@ def thin_band_cloud(batch: int, n: int, seed: int) -> np.ndarray:
     return pts
 
 
+@contextlib.contextmanager
+def banded_calls():
+    """Record each banded selection of the model: (table, centroids, kmax,
+    bands, the thin-band flag, output)."""
+    from pointrcnn_tpu_torch.ops import cuda_ballquery as bq
+
+    calls, orig = [], bq.ball_query_banded
+
+    def recording(xs, cent, kmax, n_bands, bands_ok):
+        out = orig(xs, cent, kmax, n_bands, bands_ok)
+        calls.append((xs, cent, kmax, n_bands, bands_ok, out))
+        return out
+
+    bq.ball_query_banded = recording
+    try:
+        yield calls
+    finally:
+        bq.ball_query_banded = orig
+
+
+def check_thin_band(calls, counts):
+    """The thin-band cloud's RPN SA1: the banded kernel read its flag false
+    on the device and returned the full scan of the sorted table, which
+    differs from the banded selection there (so a kernel that ignored the
+    flag would fail)."""
+    from pointrcnn_tpu_torch.ops import cuda_ballquery as bq
+
+    if len(calls) != 1 or counts["ball_query_banded"] != 1 or counts["ball_query"] != 1:
+        raise AssertionError(f"the thin-band cloud: {len(calls)} banded selections, {counts}")
+    xs, cent, kmax, n_bands, flag, got = calls[0]
+    if bool(flag):
+        raise AssertionError("the thin-band cloud: the guard's flag read true")
+    _bq_equal("the thin-band cloud's RPN SA1 against the full scan of the sorted table", got,
+              bq.ball_query_plain(xs, cent, kmax, emit_rel=True))
+    banded = bq.ball_query_banded_plain(xs, cent, kmax, n_bands, torch.ones_like(flag))
+    if all(torch.equal(a, b) for a, b in zip(banded, got)):
+        raise AssertionError("the thin-band cloud: the banded selection equals the full scan")
+    log("thin-band cloud: the flag read false on the device, and RPN SA1's selection equals the "
+        "full scan of the sorted table (not the banded one)")
+
+
 def phase_default(launches):
     """The main path: the eval forward of cfgs/default.yaml."""
     from pointrcnn_tpu_torch.entry import entry, synthetic_cloud
@@ -1181,10 +1381,13 @@ def phase_default(launches):
     clouds = [torch.from_numpy(synthetic_cloud(BATCH, cfg.RPN.NUM_POINTS, s)).cuda()
               for s in CLOUD_SEEDS]
     reset_counts()
-    with gather_feature_dtypes("eval"):
+    with gather_feature_dtypes("eval"), banded_calls() as calls:
         outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     counts = read_counts()
+    if [bool(call[4]) for call in calls] != [True] * len(clouds):
+        raise AssertionError("the banded stage's thin-band flag did not read true on the "
+                             "seeded clouds")
     log(f"default forward x{len(clouds)} launches: {counts}")
     for s, out in zip(CLOUD_SEEDS, outs):
         _check_outputs(out, cfg.TEST.RPN_POST_NMS_TOP_N, f"default, cloud {s}")
@@ -1197,15 +1400,13 @@ def phase_default(launches):
 
     thin = torch.from_numpy(thin_band_cloud(BATCH, cfg.RPN.NUM_POINTS, 9)).cuda()
     reset_counts()
-    out = fwd(model, {"pts_input": thin})
-    torch.cuda.synchronize()
+    with banded_calls() as calls:
+        out = fwd(model, {"pts_input": thin})
+        torch.cuda.synchronize()
     counts = read_counts()
     log(f"thin-band cloud launches: {counts}")
     _check_outputs(out, cfg.TEST.RPN_POST_NMS_TOP_N, "default, thin-band cloud")
-    # RPN SA1 falls back to the full scan (and SA2 takes it as always)
-    if counts["ball_query_banded"] != 0 or counts["ball_query"] != 2:
-        raise AssertionError(f"the thin-band cloud did not take the full-scan fallback: {counts}")
-    log("thin-band cloud: RPN SA1 took the full-scan fallback")
+    check_thin_band(calls, counts)
 
     check_against_cpu(model, synthetic_cloud(1, cfg.RPN.NUM_POINTS, 5), "default")
     _frames_per_s(fwd, model, clouds[0], "default")

@@ -137,8 +137,9 @@ def fps_group_banded(xyz, npoint: int, specs):
     The band +-1 search finds every in-radius point only while each
     interior band's z-extent is at least the largest radius.  Bands have
     equal counts, so a dense z-cluster can make them thinner: then the
-    batch takes the full-scan kernel on the sorted table instead (the JAX
-    version's ``lax.cond``; here one host read of the flag per call).
+    batch takes the full scan of the sorted table instead (the JAX
+    version's ``lax.cond``).  The flag stays on the device and the banded
+    kernel reads it, so nothing is read back to the host.
     """
     B, N, _ = xyz.shape
     s = _blockwise_stripes(N, npoint)
@@ -150,9 +151,9 @@ def fps_group_banded(xyz, npoint: int, specs):
     r_max = max(float(r) for r, _ in specs)
     z = xs[..., 2]
     extents = z[:, Ns - 1::Ns] - z[:, ::Ns]  # (B, s) per-band z-extent
-    bands_ok = bool(torch.all(extents[:, 1:s - 1] >= r_max))
+    bands_ok = torch.all(extents[:, 1:s - 1] >= r_max)
     return new_xyz, cuda_ballquery.ball_query_multi_grouped(
-        xs, new_xyz, specs, s if bands_ok else None, point0=point0)
+        xs, new_xyz, specs, s, point0=point0, bands_ok=bands_ok)
 
 
 def group_points(xyz, features, new_xyz, idx, use_xyz: bool = True, out_dtype=None):

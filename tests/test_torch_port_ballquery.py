@@ -105,7 +105,7 @@ def test_banded_plain_matches_pallas(N, S, n_bands, k):
     want = pallas_ballquery._ball_query_pallas_banded(
         jnp.asarray(cent), jnp.asarray(xs.transpose(0, 2, 1)), k, n_bands,
         emit_rel=True, W=pallas_ballquery._pick_w(Ns, k))
-    got = cuda_ballquery.ball_query_banded(t(xs), t(cent), k, n_bands)
+    got = cuda_ballquery.ball_query_banded(t(xs), t(cent), k, n_bands, torch.tensor(True))
     _check_selection(got, want, xs, cent)
     # edge bands see only one neighbour band, interior bands two
     band_of = got[1].numpy() // Ns
@@ -117,9 +117,171 @@ def test_banded_plain_matches_pallas(N, S, n_bands, k):
     want_rel = pallas_ballquery.ball_query_multi_grouped_banded(
         jnp.asarray(xs), jnp.asarray(cent), specs, n_bands, point0=p0)
     got_rel = cuda_ballquery.ball_query_multi_grouped(
-        t(xs), t(cent), specs, n_bands, point0=t(xyz[:, 0:1]))
+        t(xs), t(cent), specs, n_bands, point0=t(xyz[:, 0:1]), bands_ok=torch.tensor(True))
     for g, w in zip(got_rel, want_rel):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _pallas_full(xyz, cent, k, emit_rel=True):
+    return pallas_ballquery._ball_query_pallas(
+        jnp.asarray(cent), jnp.asarray(xyz.transpose(0, 2, 1)), k, emit_rel=emit_rel,
+        W=pallas_ballquery._pick_w(xyz.shape[1], k))
+
+
+def _pallas_banded(xs, cent, k, n_bands):
+    return pallas_ballquery._ball_query_pallas_banded(
+        jnp.asarray(cent), jnp.asarray(xs.transpose(0, 2, 1)), k, n_bands, emit_rel=True,
+        W=pallas_ballquery._pick_w(xs.shape[1] // n_bands, k))
+
+
+def _check_nonfinite(got, want, xyz, cent):
+    """Indices equal; distances equal to the separate-op ones where finite
+    (3e38 past the finite candidates), within DIST_ULP of XLA's; rel equal,
+    NaN for NaN."""
+    gd, gi, gr = (a.numpy() for a in got)
+    wd, wi, wr = (np.asarray(a) for a in want)
+    np.testing.assert_array_equal(gi, wi)
+    fin = gd < cuda_ballquery._BIG
+    np.testing.assert_array_equal(gd[~fin], np.float32(cuda_ballquery._BIG))
+    np.testing.assert_array_equal(gd[fin], _separate_op_d2(xyz, cent, gi)[fin])
+    np.testing.assert_array_max_ulp(gd, wd, maxulp=DIST_ULP)
+    np.testing.assert_array_equal(gr, wr)
+
+
+def _nan_tables(rng, N, own):
+    """(name, table, centroid rows) on a (2, N, 3) table whose centroids are
+    its points ``own``: NaN x in the points one pass (512) earlier, which
+    fall in the centroids' own stride classes; a NaN centroid (the caller's),
+    which leaves every class empty; a table of far points whose squared distances
+    overflow to inf but for the centroids' own and one in stride class 0
+    or 128 (folded lane 0) in the first batch row, none in it in the
+    second: fewer finite lanes than kmax, so the extraction runs out."""
+    base = rng.uniform(-10, 10, (2, N, 3)).astype(np.float32)
+    nan_class = base.copy()
+    nan_class[:, own - 512, 0] = np.nan
+    far = base.copy()
+    keep = np.zeros(N, bool)
+    keep[own] = True
+    far[:, ~keep, 0] = 1e20
+    far[0, 640 % N, 0] = base[0, 640 % N, 0]
+    return (("NaN x in the centroids' classes", nan_class, own),
+            ("NaN centroid", base, own), ("d2 overflows to inf", far, own))
+
+
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_full_scan_plain_nonfinite_matches_pallas(case):
+    """The full scan on NaN and overflowing distances: a NaN never enters a
+    class, and past the finite candidates folded lane 0 repeats."""
+    N, k = 2048, 16
+    own = np.arange(600, 608)
+    name, xyz, rows = _nan_tables(np.random.RandomState(40 + case), N, own)[case]
+    cent = xyz[:, rows].copy()
+    if case == 1:
+        cent[:, 3] = np.nan
+    elif case == 2:
+        cent[..., 0] = np.where(np.abs(cent[..., 0]) < 1e19, cent[..., 0], xyz[:, rows, 0])
+    want = _pallas_full(xyz, cent, k)
+    got = cuda_ballquery.ball_query_plain(t(xyz), t(cent), k, emit_rel=True)
+    _check_nonfinite(got, want, xyz, cent)
+    gi, gd = got[1].numpy(), got[0].numpy()
+    if case == 0:  # the centroid itself survives its class's NaN
+        np.testing.assert_array_equal(gi[:, :, 0], np.broadcast_to(own, gi[:, :, 0].shape))
+    if case == 1:
+        assert (gi[:, 3] == 0).all() and (gd[:, 3] == np.float32(cuda_ballquery._BIG)).all()
+    if case == 2:
+        ex = gd == np.float32(cuda_ballquery._BIG)
+        assert ex[:, :, -1].all() and not ex[:, :, 0].any()
+        np.testing.assert_array_equal(gi[0][ex[0]], 640)  # lane 0's, already extracted
+        np.testing.assert_array_equal(gi[1][ex[1]], 0)  # lane 0 kept nothing
+        # whose coordinates are zeros, as JAX carries them
+        past = np.broadcast_to(0.0 - cent[1][:, None, :], gd[1].shape + (3,))
+        np.testing.assert_array_equal(got[2].numpy()[1][ex[1]], past[ex[1]])
+    specs = [(1.0, k // 2), (3.0, k)]
+    want_g = pallas_ballquery.ball_query_multi_grouped_pallas(jnp.asarray(xyz), jnp.asarray(cent),
+                                                              specs)
+    got_g = cuda_ballquery.ball_query_multi_grouped(t(xyz), t(cent), specs)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_banded_plain_nonfinite_matches_pallas(case):
+    """The banded form on the same tables, z-sorted in 4 bands of 1024
+    points, centroids 600..607 of each band: the NaN points of band 0 fall
+    in the classes of bands 0 and 1's centroids."""
+    N, n_bands, k = 4096, 4, 32
+    Ns = N // n_bands
+    rng = np.random.RandomState(50 + case)
+    xyz = rng.uniform(-10, 10, (2, N, 3)).astype(np.float32)
+    xs = np.take_along_axis(xyz, np.argsort(xyz[..., 2], axis=1, kind="stable")[..., None], 1)
+    own = np.concatenate([b * Ns + np.arange(600, 608) for b in range(n_bands)])
+    cent = xs[:, own].copy()
+    if case == 0:
+        xs[:, 88:96, 0] = np.nan
+    elif case == 1:
+        cent[:, [3, 13]] = np.nan
+    else:  # far but for the centroids' own and class 0 (folded lane 0) of each band
+        keep = np.zeros(N, bool)
+        keep[own] = True
+        keep[np.arange(n_bands) * Ns + 512] = True
+        xs[:, ~keep, 0] = 1e20
+    assert cuda_ballquery.ball_query_banded_supported(N, own.size, k, n_bands)
+    want = _pallas_banded(xs, cent, k, n_bands)
+    got = cuda_ballquery.ball_query_banded_plain(t(xs), t(cent), k, n_bands, torch.tensor(True))
+    _check_nonfinite(got, want, xs, cent)
+    gi, gd = got[1].numpy(), got[0].numpy()
+    if case == 0:
+        np.testing.assert_array_equal(gi[:, :, 0], np.broadcast_to(own, gi[:, :, 0].shape))
+    if case == 1:
+        assert (gi[:, [3, 13]] == 0).all()
+    if case == 2:
+        # the bands' points fold onto the same 9 lanes (88..95 and 0)
+        ex = gd == np.float32(cuda_ballquery._BIG)
+        assert ex[:, :, 9:].all() and not ex[:, :, :9].any()
+        # the repeat is folded lane 0's point, a class-0 point extracted before
+        assert (gi[ex] % Ns == 512).all()
+        assert all((gi[b, c, 9:] == gi[b, c, :9][:, None]).any(0).all()
+                   for b in range(2) for c in range(own.size))
+    # a false flag takes the full scan of the sorted table, as JAX's lax.cond
+    full = cuda_ballquery.ball_query_banded_plain(t(xs), t(cent), k, n_bands, torch.tensor(False))
+    _check_nonfinite(full, _pallas_full(xs, cent, k), xs, cent)
+
+
+# the launches of the port's paths, (B, S, centroids a band or None for the
+# full scan): eval RPN SA1 banded (and its full-row branch), SA2; the rpn
+# step's; car_2x.yaml's; the ragged pool; the smallest band the predicate
+# admits (8 centroids)
+BQ_LAUNCHES = ((4, 4096, 256), (4, 1024, None), (16, 4096, 256), (16, 1024, None),
+               (4, 8192, 512), (4, 2048, None), (2, 256, None), (1, 64, 8), (3, 40, 8),
+               (1, 37, None))
+
+
+def test_ballquery_launch_plans_are_ones_the_kernels_take():
+    # csrc/ballquery.cu's launchers take the plans of kFullPlans and
+    # kBandedPlans (the banded kernel's block of centroids dividing a
+    # band's), and plan() returns every one of them for some shape and SM
+    # count; no CPU run reaches the launchers
+    import pathlib
+    import re
+
+    src = (pathlib.Path(cuda_ballquery.__file__).parent.parent / "csrc" / "ballquery.cu").read_text()
+
+    def table(name):
+        body = re.search(name + r"\[\]\[2\] = \{(.*?)\};", src, re.S).group(1)
+        return tuple((int(u), int(w)) for u, w in re.findall(r"\{(\d+), (\d+)\}", body))
+
+    assert table("kFullPlans") == cuda_ballquery.FULL_PLANS == cuda_ballquery.plans()
+    assert table("kBandedPlans") == cuda_ballquery.BANDED_PLANS == cuda_ballquery.plans(8)
+    assert cuda_ballquery.plans(4) == ((1, 4),)
+    picked = {True: set(), False: set()}
+    for sms in range(1, 257):
+        for B, S, cpb in BQ_LAUNCHES:
+            u, warps = cuda_ballquery.plan(B, S, sms, cpb)
+            assert (u, warps) in cuda_ballquery.plans(cpb)
+            assert cpb is None or cpb % (u * warps) == 0
+            picked[cpb is None].add((u, warps))
+    assert picked[True] == set(cuda_ballquery.FULL_PLANS)
+    assert picked[False] == set(cuda_ballquery.BANDED_PLANS)
 
 
 def test_selection_rejects_more_than_32_neighbours():
@@ -127,7 +289,11 @@ def test_selection_rejects_more_than_32_neighbours():
     with pytest.raises(ValueError, match="kmax=64"):
         cuda_ballquery.ball_query(xyz, xyz[:, :8], 64)
     with pytest.raises(ValueError, match="kmax=64"):
-        cuda_ballquery.ball_query_banded(xyz, xyz[:, :8], 64, 2)
+        cuda_ballquery.ball_query_banded(xyz, xyz[:, :8], 64, 2, torch.tensor(True))
+    # the thin-band flag is one bool tensor, never left out
+    for flag in (None, True, torch.tensor([True, True]), torch.tensor(1)):
+        with pytest.raises(ValueError, match="bands_ok"):
+            cuda_ballquery.ball_query_banded(xyz, xyz[:, :8], 16, 2, flag)
     # the shape predicates keep the TPU's thresholds
     assert cuda_ballquery.ball_query_supported(2048, 8, 64)
     assert not cuda_ballquery.ball_query_supported(1920, 8, 16)
@@ -146,13 +312,17 @@ def _cloud(rng, B, N, z_hi):
 @pytest.mark.parametrize("thin", [False, True])
 def test_fps_group_banded_matches_jax(monkeypatch, thin):
     """Blockwise FPS + grouped query on one z-sort.  A cloud in a 0.2 m
-    z-slab makes every band thinner than the largest radius, so the guard
-    takes the full-scan kernel on the sorted table (as JAX's lax.cond)."""
-    routes = []
+    z-slab makes every band thinner than the largest radius, so the guard's
+    flag (a tensor, never read back by the caller) is false and the banded
+    selection scans the whole sorted table (as JAX's lax.cond)."""
+    routes, flags = [], []
     for name in ("ball_query", "ball_query_banded"):
         orig = getattr(cuda_ballquery, name)
         monkeypatch.setattr(cuda_ballquery, name,
                             lambda *a, _o=orig, _n=name, **kw: routes.append(_n) or _o(*a, **kw))
+    orig_banded = cuda_ballquery.ball_query_banded
+    monkeypatch.setattr(cuda_ballquery, "ball_query_banded",
+                        lambda *a, **kw: flags.append(a[4]) or orig_banded(*a, **kw))
     rng = np.random.RandomState(6 + thin)
     B, N, npoint = 1, 4096, 512
     xyz = _cloud(rng, B, N, 0.2 if thin else 60.0)
@@ -161,7 +331,9 @@ def test_fps_group_banded_matches_jax(monkeypatch, thin):
     assert jgrouping.fps_group_banded_supported(N, npoint, (8, 16))
     jn, jrels = jax.jit(lambda x: jgrouping.fps_group_banded(x, npoint, specs))(jnp.asarray(xyz))
     tn, trels = grouping.fps_group_banded(t(xyz), npoint, specs)
-    assert routes == (["ball_query"] if thin else ["ball_query_banded"])
+    assert routes == ["ball_query_banded"]
+    assert len(flags) == 1 and flags[0].dtype == torch.bool and flags[0].shape == ()
+    assert bool(flags[0]) is not thin
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
     want_idx = sampling.furthest_point_sample(t(xyz), npoint, method="blockwise")
     np.testing.assert_array_equal(tn.numpy(), np.take_along_axis(xyz, want_idx.numpy()[..., None].astype(np.int64), 1))
