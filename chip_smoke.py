@@ -83,6 +83,21 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    step (K2 6, K7 2, K4 2, K8 0), every RCNN parameter updated, every RPN
    parameter moved by the weight decay alone and its BN statistics still,
    and a batch-1 step against the port's CPU path.
+4b. (after 5) the KITTI eval CLI (``python -m pointrcnn_tpu_torch.eval``,
+   its ``main()`` in-process on the card): a KITTI tree written here (64
+   frames of 2-4 cars, 20000 points each inside the image frustum, a PNG
+   written with zlib), a checkpoint of seeded random weights of
+   ``cfgs/default.yaml`` with the RCNN; ``--eval_mode rcnn`` at batch 4,
+   16 batches (K1-K6 launched 16 times the default forward's counts; a
+   result file for every frame; recall and the official AP finite;
+   candidates for the final NMS in some frame; the pipeline's frames/s
+   over the cycles of batches 2-15 and their spread, the post-process's
+   device span by CUDA events, beside the forward's ms), ``--eval_mode
+   rpn``, whether the native host-op library loaded, and one batch's
+   post-process on the card against the CPU from the same network
+   outputs (the same NMS survivors in order, boxes and written lines
+   within their tolerances) and its final NMS, one batched call against a
+   call a frame (the same survivors; both timed).
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1317,6 +1332,7 @@ def _frames_per_s(fwd, model, pts, tag):
     dt = time.perf_counter() - t0
     log(f"{tag} forward batch {pts.shape[0]}: {pts.shape[0] * TIMED_ITERS / dt:.3f} frames/s "
         f"({1000 * dt / TIMED_ITERS:.3f} ms per batch, {TIMED_ITERS} iterations after 1 warm-up)")
+    return 1000 * dt / TIMED_ITERS
 
 
 def thin_band_cloud(batch: int, n: int, seed: int) -> np.ndarray:
@@ -1373,7 +1389,8 @@ def check_thin_band(calls, counts):
 
 
 def phase_default(launches):
-    """The main path: the eval forward of cfgs/default.yaml."""
+    """The main path: the eval forward of cfgs/default.yaml -> its ms a
+    batch."""
     from pointrcnn_tpu_torch.entry import entry, synthetic_cloud
 
     fwd, (model, _) = entry(batch=BATCH, device="cuda", seed=0)
@@ -1409,7 +1426,7 @@ def phase_default(launches):
     check_thin_band(calls, counts)
 
     check_against_cpu(model, synthetic_cloud(1, cfg.RPN.NUM_POINTS, 5), "default")
-    _frames_per_s(fwd, model, clouds[0], "default")
+    return _frames_per_s(fwd, model, clouds[0], "default")
 
 
 def phase_exact():
@@ -1674,6 +1691,375 @@ def phase_rcnn_train(rcnn_launches, rpn_ckpt):
     _rcnn_against_cpu(rpn_ckpt)
 
 
+# ---------------------------------------------------------------- KITTI eval
+
+# the eval CLI's run: 64 frames at batch 4 (16 batches, a steady-state
+# window after the first), each frame 2-4 cars, its KITTI tree, checkpoint
+# and outputs under EVAL_WORK_DIR (removed after)
+EVAL_FRAMES, EVAL_BATCH = 64, 4
+EVAL_BATCHES = EVAL_FRAMES // EVAL_BATCH
+EVAL_WORK_DIR = os.path.join(REPO, "pointrcnn_tpu_torch", "_build", "smoke_kitti")
+# the fixture calibration (rect == lidar frame; f = 700, principal point
+# (600, 200)) and image size of the KITTI tree the phase writes
+KITTI_CALIB = """P0: 700 0 600 0 0 700 200 0 0 0 1 0
+P1: 700 0 600 0 0 700 200 0 0 0 1 0
+P2: 700 0 600 0 0 700 200 0 0 0 1 0
+P3: 700 0 600 0 0 700 200 0 0 0 1 0
+R0_rect: 1 0 0 0 1 0 0 0 1
+Tr_velo_to_cam: 1 0 0 0 0 1 0 0 0 0 1 0
+Tr_imu_to_velo: 1 0 0 0 0 1 0 0 0 0 1 0
+"""
+KITTI_PLANE = "# Plane\nWidth 4\nHeight 1\n0 -1 0 1.65\n"
+IMG_W, IMG_H = 1242, 375
+# a frame's points inside the image frustum and the range: more than the
+# 16384 the dataset samples, so it samples without padding
+FRAME_POINTS = 20000
+# the post-process on the card against the CPU from the same outputs:
+# refined boxes to 1e-5 of their largest magnitude, written numbers to 1e-4
+POST_BOX_RTOL, POST_LINE_ATOL = 1e-5, 1e-4
+
+
+def _png(width: int, height: int) -> bytes:
+    """A black 8-bit grayscale PNG (zlib + struct, no image library)."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + bytes(width) for _ in range(height))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 0,
+                                                               0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 9)) + chunk(b"IEND", b""))
+
+
+def _box2d(box):
+    """The projected 2D box and KITTI alpha of a 3D box for KITTI_CALIB."""
+    x, y, z, h, w, l, ry = box
+    dx = np.array([l, l, -l, -l, l, l, -l, -l]) / 2
+    dz = np.array([w, -w, -w, w, w, -w, -w, w]) / 2
+    dy = np.array([0.0, 0, 0, 0, -h, -h, -h, -h])
+    c, s = np.cos(ry), np.sin(ry)
+    cx, cz, cy = x + dx * c + dz * s, z - dx * s + dz * c, y + dy
+    u, v = 700.0 * cx / cz + 600.0, 700.0 * cy / cz + 200.0
+    beta = np.arctan2(z, x)
+    return (u.min(), v.min(), u.max(), v.max()), -np.sign(beta) * np.pi / 2 + beta + ry
+
+
+def _car_points(rng, box, n):
+    """n points on a car's shell (4 walls and the roof), in the lidar frame."""
+    x, y, z, h, w, l, ry = box
+    face = rng.choice(5, size=n, p=np.array([l * h, l * h, w * h, w * h, l * w]) / (
+        2 * l * h + 2 * w * h + l * w))
+    u, v = rng.uniform(-0.5, 0.5, n), rng.uniform(-0.5, 0.5, n)
+    sign = np.where((face == 0) | (face == 2), 1.0, -1.0)
+    px = np.where(face <= 1, u * l, np.where(face <= 3, sign * l / 2, u * l))
+    pz = np.where(face <= 1, sign * w / 2, np.where(face <= 3, u * w, v * w))
+    py = np.where(face == 4, -h, -(v + 0.5) * h)
+    c, s = np.cos(ry), np.sin(ry)
+    return np.stack([x + px * c + pz * s, y + py, z - px * s + pz * c], 1)
+
+
+def write_kitti_tree(root: str, frames: int = EVAL_FRAMES, seed: int = 0) -> list[int]:
+    """A KITTI tree of ``frames`` frames in the formats of the KITTI devkit:
+    calibration text, label lines (cars with their projected 2D boxes and a
+    DontCare region), velodyne ``.bin`` float32 (x, y, z, intensity),
+    ground planes, a 1242 x 375 PNG, and a ``val`` split listing every
+    frame.  Each frame: 2-4 cars at 10-40 m with 500 points on each, the
+    rest ground and low clutter, all inside the image frustum and the
+    point-cloud range -> the cars' boxes a frame."""
+    rng = np.random.RandomState(seed)
+    training = os.path.join(root, "KITTI", "object", "training")
+    for sub in ("velodyne", "calib", "label_2", "planes", "image_2"):
+        os.makedirs(os.path.join(training, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "KITTI", "ImageSets"), exist_ok=True)
+    png = _png(IMG_W, IMG_H)
+    all_boxes = []
+    for i in range(frames):
+        n_car = rng.randint(2, 5)
+        boxes = []
+        for _ in range(n_car):
+            z = rng.uniform(10.0, 40.0)
+            boxes.append((rng.uniform(-0.5, 0.5) * z, 1.65, z,
+                          *(np.array([1.52, 1.63, 3.88]) * rng.uniform(0.9, 1.1, 3)),
+                          rng.uniform(-np.pi, np.pi)))
+        per_car = 500
+        n_bg = FRAME_POINTS - per_car * n_car
+        # ground and clutter: u, v inside the image (the ground from 7 m),
+        # depth up to 70 m
+        z = rng.uniform(7.0, 70.0, n_bg)
+        lo, hi = -np.minimum(0.72 * z, 39.0), np.minimum(0.77 * z, 39.0)  # |x| <= 40 m
+        x = lo + (hi - lo) * rng.rand(n_bg)
+        clutter = rng.rand(n_bg) < 0.2
+        y = np.where(clutter, rng.uniform(0.2, 1.6, n_bg), 1.65 + rng.normal(0, 0.03, n_bg))
+        pts = [np.stack([x, y, z], 1)] + [_car_points(rng, b, per_car) for b in boxes]
+        pts = np.concatenate(pts).astype(np.float32)
+        cloud = np.concatenate([pts, rng.rand(len(pts), 1).astype(np.float32)], 1)
+        sid = "%06d" % i
+        cloud.tofile(os.path.join(training, "velodyne", sid + ".bin"))
+        with open(os.path.join(training, "calib", sid + ".txt"), "w") as f:
+            f.write(KITTI_CALIB)
+        with open(os.path.join(training, "planes", sid + ".txt"), "w") as f:
+            f.write(KITTI_PLANE)
+        with open(os.path.join(training, "image_2", sid + ".png"), "wb") as f:
+            f.write(png)
+        with open(os.path.join(training, "label_2", sid + ".txt"), "w") as f:
+            for b in boxes:
+                (x1, y1, x2, y2), alpha = _box2d(b)
+                x, y, z, h, w, l, ry = b
+                f.write(f"Car 0.00 0 {alpha:.2f} {x1:.2f} {y1:.2f} {x2:.2f} {y2:.2f} {h:.2f} "
+                        f"{w:.2f} {l:.2f} {x:.2f} {y:.2f} {z:.2f} {ry:.2f}\n")
+            f.write("DontCare -1 -1 -10 0.00 0.00 20.00 20.00 -1 -1 -1 -1000 -1000 -1000 -10\n")
+        all_boxes.append(np.array(boxes, np.float32))
+    with open(os.path.join(root, "KITTI", "ImageSets", "val.txt"), "w") as f:
+        f.write("\n".join("%06d" % i for i in range(frames)) + "\n")
+    return all_boxes
+
+
+@contextlib.contextmanager
+def eval_instruments():
+    """Record, for the eval CLI's run, without a sync of its own: the host
+    span of each batch's device step (``_pipelined_epoch``'s ``enqueue``:
+    upload, forward, post-process) and of its host processing
+    (``process``: fetch, recall, files), the epoch's span, CUDA events
+    around each joint post-process (its device span: from the forward's
+    end to its own), and each post-process's candidates for the final NMS
+    (``norm_scores > RCNN.SCORE_THRESH`` and ``roi_valid``) and survivors
+    per frame, kept on the card and read after the epoch."""
+    from pointrcnn_tpu_torch.eval import evaluator
+
+    rec = {"enq": [], "proc": [], "epoch": [], "post_events": [], "cand": [], "kept": []}
+    orig_epoch, orig_post = evaluator._pipelined_epoch, evaluator.joint_postprocess
+
+    def spanned(fn, key):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            rec[key].append((t0, time.perf_counter()))
+            return out
+        return run
+
+    def epoch(loader, enqueue, process):
+        t0 = time.perf_counter()
+        orig_epoch(loader, spanned(enqueue, "enq"), spanned(process, "proc"))
+        rec["epoch"].append((t0, time.perf_counter()))
+
+    def post(cfg, out, gt_boxes3d=None):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = orig_post(cfg, out, gt_boxes3d)
+        end.record()
+        rec["post_events"].append((start, end))
+        rec["cand"].append(((res["norm_scores"] > cfg.RCNN.SCORE_THRESH)
+                            & res["roi_valid"]).sum(1))
+        rec["kept"].append(res["sel_valid"].sum(1))
+        return res
+
+    evaluator._pipelined_epoch, evaluator.joint_postprocess = epoch, post
+    try:
+        yield rec
+    finally:
+        evaluator._pipelined_epoch, evaluator.joint_postprocess = orig_epoch, orig_post
+        torch.cuda.synchronize()
+        rec["post"] = [a.elapsed_time(b) for a, b in rec.pop("post_events")]
+        rec["cand"] = torch.cat(rec["cand"]).tolist() if rec["cand"] else []
+        rec["kept"] = torch.cat(rec["kept"]).tolist() if rec["kept"] else []
+
+
+def _read_lines(path):
+    with open(path) as f:
+        return [ln.split() for ln in f.read().splitlines()]
+
+
+def check_postprocess(cfg, ckpt, data_root, work):
+    """One batch's network outputs on the card, the joint post-process run
+    on the card and on the CPU from the same outputs: the same NMS
+    survivors in the same order, refined boxes to POST_BOX_RTOL, and the
+    written KITTI lines equal after parsing to POST_LINE_ATOL a number."""
+    from pointrcnn_tpu_torch.data.rpn_dataset import KittiRCNNDataset
+    from pointrcnn_tpu_torch.eval import evaluator
+    from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
+    from pointrcnn_tpu_torch.ops.iou3d import boxes_iou_bev
+    from pointrcnn_tpu_torch.ops.nms import nms_bev
+    from pointrcnn_tpu_torch.train.checkpoint import load_checkpoint
+    from pointrcnn_tpu_torch.train.state import TrainState
+    from pointrcnn_tpu_torch.utils.box_ops import boxes3d_to_bev
+
+    ds = KittiRCNNDataset(data_root, cfg, npoints=cfg.RPN.NUM_POINTS, split="val", mode="EVAL",
+                          rpn_eval_labels=False)
+    batch = ds.collate_batch([ds.getitem(i, np.random.RandomState(i)) for i in range(EVAL_BATCH)])
+    model = PointRCNN(cfg, mode="TEST", generator=torch.Generator().manual_seed(0)).to("cuda")
+    load_checkpoint(ckpt, TrainState(step=0, model=model, opt_state={}))
+    model.eval()
+    gt = torch.from_numpy(batch["gt_boxes3d"])
+    with torch.inference_mode():
+        out = model({"pts_input": torch.from_numpy(batch["pts_input"]).cuda()})
+        card = {k: v.cpu() for k, v in evaluator.joint_postprocess(cfg, out, gt.cuda()).items()}
+        cpu = evaluator.joint_postprocess(cfg, {k: v.cpu() for k, v in out.items()}, gt)
+    same = (torch.equal(card["sel_valid"], cpu["sel_valid"])
+            and torch.equal(card["sel_idx"][card["sel_valid"]], cpu["sel_idx"][cpu["sel_valid"]]))
+    if not same:
+        for b in range(EVAL_BATCH):
+            a = card["sel_idx"][b][card["sel_valid"][b]].tolist()
+            c = cpu["sel_idx"][b][cpu["sel_valid"][b]].tolist()
+            if a != c:
+                diff = sorted(set(a) ^ set(c))
+                bev = boxes3d_to_bev(cpu["pred_boxes3d"][b])
+                iou = boxes_iou_bev(bev, bev)
+                log(f"post-process frame {b}: card kept {a}, cpu kept {c}; the pairs' IoU "
+                    f"(RCNN.NMS_THRESH {cfg.RCNN.NMS_THRESH}): "
+                    + ", ".join(f"{i}-{j} {iou[i, j].item():.7f}" for i in diff for j in c + a
+                                if i != j and iou[i, j] > 0))
+        raise AssertionError("the card's final NMS kept other boxes than the CPU's")
+    scale = cpu["pred_boxes3d"].abs().max().item()
+    err = (card["pred_boxes3d"] - cpu["pred_boxes3d"]).abs().max().item()
+    if err > POST_BOX_RTOL * scale:
+        raise AssertionError(f"pred_boxes3d: card vs cpu max err {err} (scale {scale})")
+    n_lines, worst = 0, 0.0
+    for name, res in (("card", card), ("cpu", cpu)):
+        os.makedirs(os.path.join(work, name), exist_ok=True)
+        for b in range(EVAL_BATCH):
+            sel = res["sel_idx"][b][res["sel_valid"][b]].numpy()
+            sid = int(batch["sample_id"][b])
+            evaluator.save_kitti_format(sid, ds.get_calib(sid), res["pred_boxes3d"][b].numpy()[sel],
+                                        os.path.join(work, name), res["raw_scores"][b].numpy()[sel],
+                                        ds.get_image_shape(sid), cfg.CLASSES,
+                                        res["pred_cls"][b].numpy()[sel])
+    for fname in sorted(os.listdir(os.path.join(work, "cpu"))):
+        a = _read_lines(os.path.join(work, "card", fname))
+        c = _read_lines(os.path.join(work, "cpu", fname))
+        if len(a) != len(c) or any(x[0] != y[0] for x, y in zip(a, c)):
+            raise AssertionError(f"{fname}: the card's KITTI lines differ from the CPU's")
+        for x, y in zip(a, c):
+            worst = max(worst, float(np.abs(np.array(x[1:], float) - np.array(y[1:], float)).max()))
+        n_lines += len(c)
+    if worst > POST_LINE_ATOL:
+        raise AssertionError(f"KITTI lines: card vs cpu differ by {worst} (tol {POST_LINE_ATOL})")
+    log(f"post-process card vs cpu (batch {EVAL_BATCH}, same network outputs): "
+        f"{int(cpu['sel_valid'].sum())} NMS survivors identical in order, pred_boxes3d max err "
+        f"{err:.3e} (scale {scale:.3e}, tol {POST_BOX_RTOL} relative), {n_lines} KITTI lines "
+        f"equal to {worst:.1e} (tol {POST_LINE_ATOL})")
+
+    # the final NMS on these inputs: the batch's frames in one call, as the
+    # evaluator runs it, against one call a frame
+    bev = boxes3d_to_bev(card["pred_boxes3d"].cuda())
+    scores, keep = card["raw_scores"].cuda(), (card["norm_scores"] > cfg.RCNN.SCORE_THRESH).cuda()
+    keep &= card["roi_valid"].cuda()
+    M, thresh = bev.shape[1], cfg.RCNN.NMS_THRESH
+    batched = lambda: nms_bev(bev, scores, thresh, M, M, rotated=True, valid=keep)
+    framed = lambda: [nms_bev(bev[b], scores[b], thresh, M, M, rotated=True, valid=keep[b])
+                      for b in range(EVAL_BATCH)]
+    if not all(torch.equal(x[b], y) for x, f in zip(batched(), zip(*framed()))
+               for b, y in enumerate(f)):
+        raise AssertionError("the batched final NMS differs from one call a frame")
+    with torch.inference_mode():
+        nms_ms = [(cuda_ms(batched, 10), cuda_ms(framed, 10)) for _ in range(3)]
+    log(f"final NMS over {EVAL_BATCH} frames x {M} boxes on the card, three runs of 10 calls: "
+        f"one batched call ms {', '.join(f'{a:.3f}' for a, _ in nms_ms)}; a call a frame ms "
+        f"{', '.join(f'{b:.3f}' for _, b in nms_ms)} (the same survivors)")
+
+
+def phase_kitti_eval(launches, fwd_ms, card):
+    """The eval CLI (``python -m pointrcnn_tpu_torch.eval``) in-process on a
+    KITTI tree written here, from a port checkpoint of seeded random
+    weights of cfgs/default.yaml with the RCNN: ``--eval_mode rcnn`` at
+    batch 4 (EVAL_BATCHES batches; K1-K6 launched EVAL_BATCHES times a
+    forward's count of phase_default), then ``--eval_mode rpn``; the
+    post-process on the card against the CPU.  ``launches``:
+    phase_default's counts over its forwards -> the rcnn run's counts."""
+    from pointrcnn_tpu_torch.entry import default_config
+    from pointrcnn_tpu_torch.eval.__main__ import main as eval_main
+    from pointrcnn_tpu_torch.train.checkpoint import save_checkpoint
+    from pointrcnn_tpu_torch.train.optimizer import build_optimizer
+    from pointrcnn_tpu_torch.train.state import create_train_state
+    from pointrcnn_tpu_torch.utils import native
+
+    work = EVAL_WORK_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        data_root = os.path.join(work, "data")
+        boxes = write_kitti_tree(data_root)
+        lib = native.get_lib()
+        log(f"native host ops: {'loaded ' + native.library_path() if lib is not None else 'not loaded, numpy fallbacks'}")
+        cfg = default_config(["RCNN.ENABLED", "True"])
+        state = create_train_state(cfg, build_optimizer(cfg, 1, 1), seed=0, device="cuda")
+        ckpt = save_checkpoint(os.path.join(work, "ckpt"), state, epoch=1, it=0)
+        del state
+        common = ["--cfg_file", os.path.join(REPO, "cfgs", "default.yaml"), "--data_root",
+                  data_root, "--batch_size", str(EVAL_BATCH), "--device", "cuda"]
+        reset_counts()
+        t0 = time.perf_counter()
+        with eval_instruments() as rec:
+            ret = eval_main(common + ["--eval_mode", "rcnn", "--ckpt", ckpt,
+                                      "--output_dir", os.path.join(work, "rcnn")])
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        log(f"eval CLI rcnn launches: {counts}")
+        per_fwd = {k: v / len(CLOUD_SEEDS) for k, v in launches.items()}
+        for name in EVAL_KERNELS:
+            if counts[name] != EVAL_BATCHES * per_fwd[name]:
+                raise AssertionError(f"eval CLI: {name} launched {counts[name]} times, not "
+                                     f"{EVAL_BATCHES} times the default forward's {per_fwd[name]}")
+        final = os.path.join(work, "rcnn", "final_result", "data")
+        missing = [i for i in range(EVAL_FRAMES) if not os.path.isfile(os.path.join(final, "%06d.txt" % i))]
+        if missing:
+            raise AssertionError(f"eval CLI: no result file for frames {missing}")
+        scalars = {k: float(v) for k, v in ret.items()}
+        want = ["recall_0.1", "recall_0.7", "roi_recall_0.7", "Car_3d_easy", "Car_bev_moderate",
+                "Car_image_hard"]
+        if any(k not in scalars for k in want) or not all(np.isfinite(list(scalars.values()))):
+            raise AssertionError(f"eval CLI: recall / AP missing or not finite: {scalars}")
+        log(f"eval CLI rcnn: {int(scalars['final_total'])} boxes written over {EVAL_FRAMES} "
+            f"frames ({sum(len(b) for b in boxes)} gt cars); recall@0.1/0.5/0.7 "
+            f"{scalars['recall_0.1']:.4f}/{scalars['recall_0.5']:.4f}/{scalars['recall_0.7']:.4f}"
+            f", Car 3d AP easy/moderate/hard {scalars['Car_3d_easy']:.4f}/"
+            f"{scalars['Car_3d_moderate']:.4f}/{scalars['Car_3d_hard']:.4f} (random weights)")
+        log(f"eval CLI final NMS: candidates above RCNN.SCORE_THRESH a frame {rec['cand']}, "
+            f"survivors {rec['kept']}")
+        if max(rec["cand"]) == 0:
+            raise AssertionError("eval CLI: no frame had a candidate for the final NMS")
+        (e0, e1), enq, proc = rec["epoch"][0], rec["enq"], rec["proc"]
+        if len(proc) != EVAL_BATCHES:
+            raise AssertionError(f"eval CLI: {len(proc)} batches, not {EVAL_BATCHES}")
+        ms = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+        # steady state: a cycle of the pipeline, from one batch's device
+        # step to the next's, holds a device step, the previous batch's
+        # host processing and the loader's hand-off; the cycles of batches
+        # 2 to EVAL_BATCHES - 1 (the first warms up, the last drains)
+        gaps = [1000 * (b[0] - a[0]) for a, b in zip(enq[1:], enq[2:])]
+        steady_fps = EVAL_BATCH * len(gaps) / (enq[-1][0] - enq[1][0])
+        log(f"{card}: eval pipeline batch {EVAL_BATCH} x {cfg.RPN.NUM_POINTS} points, loader to "
+            f"files: {steady_fps:.3f} frames/s over batches 2-{EVAL_BATCHES - 1} ({len(gaps)} "
+            f"cycles, one batch's device step to the next's, ms min {min(gaps):.3f} median "
+            f"{float(np.median(gaps)):.3f} max {max(gaps):.3f}); the epoch of {EVAL_FRAMES} "
+            f"frames {1000 * (e1 - e0):.3f} ms ({EVAL_FRAMES / (e1 - e0):.3f} frames/s, the "
+            f"loader's first batch included), whole CLI run {run_s:.3f} s (model, restore, "
+            f"loader, epoch, AP)")
+        log(f"eval pipeline a batch: cycles ms [{ms(gaps)}]; device step host span (upload, "
+            f"forward, post-process) ms [{ms(1000 * (b - a) for a, b in enq)}]; post-process "
+            f"device span by CUDA events (decode, rotated NMS, recall IoUs) ms "
+            f"[{ms(rec['post'])}]; host processing (fetch, recall, files) ms "
+            f"[{ms(1000 * (b - a) for a, b in proc)}]; waiting on the loader "
+            f"{1000 * (enq[0][0] - e0):.3f} ms before the first batch; the default forward "
+            f"alone {fwd_ms:.3f} ms a batch (phase 4)")
+
+        reset_counts()
+        rpn = eval_main(common + ["--eval_mode", "rpn", "--rpn_ckpt", ckpt,
+                                  "--output_dir", os.path.join(work, "rpn")])
+        rpn_counts = read_counts()
+        if rpn_counts["fused_group_mlp_max"] <= 0 or "rpn_seg_iou" not in rpn \
+                or not np.isfinite(rpn["recall_0.7"]):
+            raise AssertionError(f"eval CLI rpn: {rpn}, launches {rpn_counts}")
+        log(f"eval CLI rpn: recall@0.5/0.7 {rpn['recall_0.5']:.4f}/{rpn['recall_0.7']:.4f}, seg "
+            f"IoU {rpn['rpn_seg_iou']:.4f}, launches {rpn_counts}")
+
+        check_postprocess(cfg, ckpt, data_root, os.path.join(work, "post"))
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1688,8 +2074,9 @@ def main() -> int:
     tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
     check_shipped_stages()
     launches, train_launches, rcnn_launches = {}, {}, {}
-    phase_default(launches)
+    fwd_ms = phase_default(launches)
     phase_exact()
+    eval_cli_launches = phase_kitti_eval(launches, fwd_ms, card)
     ckpt = phase_train(train_launches)
     try:
         phase_rcnn_train(rcnn_launches, ckpt)
@@ -1698,12 +2085,13 @@ def main() -> int:
     # launches: the count of the eval forward's run, or for a kernel that
     # only a training stage runs, of that stage's run (the rpn stage's for
     # the gather backward, the rcnn stage's for the MLP backward);
-    # train_launches and rcnn_train_launches: each training run's
+    # train_launches and rcnn_train_launches: each training run's;
+    # eval_cli_launches: the eval CLI's rcnn run's (64 frames, 16 batches)
     rows = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name] if name in EVAL_KERNELS else
              (train_launches[name] if name in TRAIN_KERNELS else rcnn_launches[name]),
              "train_launches": train_launches[name], "rcnn_train_launches": rcnn_launches[name],
-             **tallies[name].row()}
+             "eval_cli_launches": eval_cli_launches[name], **tallies[name].row()}
             for name, source, replaces, _, _ in KERNELS]
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -15,7 +15,7 @@ from pointrcnn_tpu_torch.utils.box_ops import boxes3d_to_bev
 NMS_RANGES = (0.0, 40.0, 80.0)
 
 
-def _zone_proposals(boxes, scores, zone_valid, pre_n, post_n, nms_thresh, max_cand):
+def _zone_proposals(boxes, scores, zone_valid, pre_n, post_n, nms_thresh, rotated, max_cand):
     """NMS within one distance zone of one sample: boxes (N, 7), scores (N,)
     -> (boxes (post_n, 7), scores (post_n,), valid (post_n,))."""
     n = scores.shape[0]
@@ -28,7 +28,8 @@ def _zone_proposals(boxes, scores, zone_valid, pre_n, post_n, nms_thresh, max_ca
     cand_boxes = boxes[top_idx]
 
     keep_idx, keep_valid = nms_bev(boxes3d_to_bev(cand_boxes), top_scores, thresh=nms_thresh,
-                                   pre_max=k, post_max=post_n, valid=cand_valid)
+                                   pre_max=k, post_max=post_n, rotated=rotated,
+                                   valid=cand_valid)
     out_boxes = cand_boxes[keep_idx] * keep_valid[:, None]
     out_scores = torch.where(keep_valid, top_scores[keep_idx], 0.0)
     return out_boxes, out_scores, keep_valid
@@ -68,10 +69,8 @@ def proposal_layer(cfg, mode: str, rpn_scores, rpn_reg, xyz):
     p = torch.cat([p[:, 0:1], (p[:, 1] + p[:, 3] / 2)[:, None], p[:, 2:]], dim=1)
     proposals = p.reshape(B, N, 7)
 
-    if cfg.RPN.NMS_TYPE != "normal":
-        raise NotImplementedError(f"RPN.NMS_TYPE {cfg.RPN.NMS_TYPE!r} is not ported; only 'normal' is")
     pre, post = mc.RPN_PRE_NMS_TOP_N, mc.RPN_POST_NMS_TOP_N
-    args = (mc.RPN_NMS_THRESH, cfg.RPN.NMS_MAX_CANDIDATES)
+    args = (mc.RPN_NMS_THRESH, cfg.RPN.NMS_TYPE == "rotate", cfg.RPN.NMS_MAX_CANDIDATES)
     outs = []
     if mc.RPN_DISTANCE_BASED_PROPOSE:
         pre_list = (int(pre * 0.7), pre - int(pre * 0.7))

@@ -336,14 +336,14 @@ def test_weight_bridge_rejects_mismatched_trees():
         load_jax_variables(tm, bad)
 
 
-@pytest.mark.parametrize("override", [["RPN.NMS_TYPE", "rotate"]])
+@pytest.mark.parametrize("override", [["RCNN.USE_RPN_FEATURES", "False"]])
 def test_unported_config_values_raise(override):
+    """Config values the port does not run raise when the model is built
+    (rotated NMS, ``RPN.NMS_TYPE rotate``, is ported:
+    ``tests/test_torch_eval_nms.py``)."""
     cfg = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["COMPUTE_DTYPE", "float32"] + override)
-    model = PointRCNN(cfg, generator=torch.Generator().manual_seed(0)).eval()
-    pts = torch.from_numpy(synthetic_cloud(1, cfg.RPN.NUM_POINTS))
-    with pytest.raises(NotImplementedError, match=repr(override[1])):
-        with torch.inference_mode():
-            model({"pts_input": pts})
+    with pytest.raises(NotImplementedError, match=override[0]):
+        PointRCNN(cfg, generator=torch.Generator().manual_seed(0))
 
 
 def _plain(node):
@@ -368,8 +368,10 @@ def test_port_config_equals_jax_config(name):
 
 def test_training_mode_raises():
     """Both training stages are ported (``tests/test_torch_train_*.py``,
-    ``tests/test_torch_rcnn_*.py``); the offline RCNN (RPN disabled) and
-    rotated NMS (``NMS_TYPE: rotate``) still raise."""
+    ``tests/test_torch_rcnn_*.py``); the offline RCNN (RPN disabled) still
+    raises.  Rotated NMS (``NMS_TYPE: rotate``) is ported and runs in the
+    rcnn stage's forward (``tests/test_torch_eval_nms.py`` holds it to
+    JAX's)."""
     offline = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RPN.ENABLED", "False"])
     for mode in ("TRAIN", "TEST"):
         with pytest.raises(NotImplementedError, match="offline RCNN"):
@@ -378,8 +380,10 @@ def test_training_mode_raises():
                                                                "RPN.FIXED", "True"])
     model = PointRCNN(rotate, mode="TRAIN", generator=torch.Generator().manual_seed(0))
     scene = synthetic_scene(1, rotate.RPN.NUM_POINTS, rotate.RCNN.MAX_GT_BOXES)
-    with pytest.raises(NotImplementedError, match="'rotate'"):
-        model({k: torch.from_numpy(v) for k, v in scene.items()})
+    out = model({k: torch.from_numpy(v) for k, v in scene.items()},
+                generator=torch.Generator().manual_seed(1),
+                target_generator=torch.Generator().manual_seed(2))
+    assert bool(out["roi_valid"].any()) and torch.isfinite(out["rcnn_reg"]).all()
     rpn_only = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RCNN.ENABLED", "False"])
     assert PointRCNN(rpn_only, mode="TRAIN").training
     rcnn = PointRCNN(load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RPN.FIXED", "True"]),

@@ -241,8 +241,9 @@ def test_opt_state_bridge_rejects_mismatches():
 
 def test_port_imports_nothing_of_jax():
     """The train package, the target layer, the IoU module, the entry points,
-    the profilers and chip_smoke.py import neither jax nor the JAX
-    package."""
+    the profilers, the data pipeline, the evaluators and their CLIs, the
+    host-op and geometry copies, the snapshot and chip_smoke.py import
+    neither jax nor the JAX package."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -252,6 +253,13 @@ def test_port_imports_nothing_of_jax():
         "import pointrcnn_tpu_torch.entry, pointrcnn_tpu_torch.convert, chip_smoke\n"
         "import pointrcnn_tpu_torch.models.target, pointrcnn_tpu_torch.ops.iou3d\n"
         "import pointrcnn_tpu_torch.profile_train, pointrcnn_tpu_torch.profile_forward\n"
+        "import pointrcnn_tpu_torch.data.calibration, pointrcnn_tpu_torch.data.object3d\n"
+        "import pointrcnn_tpu_torch.data.kitti_dataset, pointrcnn_tpu_torch.data.rpn_dataset\n"
+        "import pointrcnn_tpu_torch.data.loader, pointrcnn_tpu_torch.eval.evaluator\n"
+        "import pointrcnn_tpu_torch.eval.kitti_eval, pointrcnn_tpu_torch.eval.__main__\n"
+        "import pointrcnn_tpu_torch.utils.native, pointrcnn_tpu_torch.utils.np_geometry\n"
+        "import pointrcnn_tpu_torch.utils.snapshot\n"
+        "assert pointrcnn_tpu_torch.utils.native.get_lib() is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'optax', 'pointrcnn_tpu'))\n"
         "assert not bad, bad\n"
