@@ -98,6 +98,19 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    outputs (the same NMS survivors in order, boxes and written lines
    within their tolerances) and its final NMS, one batched call against a
    call a frame (the same survivors; both timed).
+10. (after 9) the train CLI (``python -m pointrcnn_tpu_torch.train``, its
+   ``main()`` in-process on the card) at ``cfgs/default.yaml`` as it stands
+   (AUG_DATA, GT_AUG, 16384 points, bf16) on a 64-frame KITTI tree with its
+   train split's gt database (``python -m
+   pointrcnn_tpu_torch.tools.generate_gt_database``): (a) rpn at batch 16,
+   one epoch; (b) its resume from (a)'s checkpoint for a second epoch with
+   the val epoch over ``smallval``; (c) rcnn at batch 4 from (b)'s RPN;
+   (a) and (c) launch every kernel their steps times the per-step counts
+   of phases 7 and 9; every loss finite; each run's ms/step over its steps
+   after the first (CUDA events around each step, no added sync) with its
+   min, median and max, the loader's wait before the first batch and the
+   peak memory; each checkpoint loads back bit for bit; (c) updates every
+   RCNN parameter and moves the fixed RPN by the weight decay alone.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1123,7 +1136,9 @@ def _bq_equal(what, got, ref):
 # (K6) and SA2 (K5, no rel) are the main path's, the tallies'; the rpn step
 # takes them at batch 16 (the rcnn step's RPN at the eval's); car_2x.yaml
 # at N 32768 (16 bands of 2048) and 8192; K6's full-row branch (the flag
-# false) on the sorted SA1 table; a ragged pool (W halves to 128, no fold)
+# false) on the sorted SA1 table; a ragged pool (W halves to 128, no fold);
+# the striped AP gate's RPN SA2 (tests/cfgs_ap.yaml at 4096 points: 48
+# neighbours, the kernels' path past 32)
 BQ_SHAPES = (
     ("eval", "RPN SA1", BATCH, 16384, 4096, 16, 32, True, True),
     ("eval", "RPN SA2", BATCH, 4096, 1024, None, 32, False, None),
@@ -1133,6 +1148,7 @@ BQ_SHAPES = (
     ("car_2x", "RPN SA2", BATCH, 8192, 2048, None, 32, False, None),
     ("guard false", "RPN SA1", BATCH, 16384, 4096, 16, 32, True, False),
     ("ragged", "pool 2176", 2, 2176, 256, None, 16, True, None),
+    ("striped gate", "RPN SA2", BATCH, 2048, 512, None, 48, False, None),
 )
 
 
@@ -1201,7 +1217,8 @@ def _bq_adversarial():
     kernels must break as the plain version does (duplicated points, a
     lattice, equal distances across classes), NaN and overflowing
     distances, ragged blocks, and bands of one W, of W 128 and of W 256
-    whose full-row branch folds from 512."""
+    whose full-row branch folds from 512; the path past 32 neighbours on
+    ties and on rows whose finite candidates run out."""
     g = torch.Generator().manual_seed(31)
     base = torch.rand((2, 512, 3), generator=g) * 8.0
     dup = base[:, torch.randint(0, 512, (4096,), generator=g)]  # each point ~8 times
@@ -1223,13 +1240,16 @@ def _bq_adversarial():
     far[:, ~keep, 0] = 1e20
     far[0, 640, 0] = tab[0, 640, 0]  # folded lane 0 of the first row
     cases = [("duplicated points", dup, dup[:, :64], 32, True, None, None),
+             ("duplicated points, k 128", dup, dup[:, :64], 128, True, None, None),
              ("lattice, S = 100", lat, on_lat, 32, True, None, None),
              ("NaN x in the centroids' classes", nan_class, tab[:, own], 16, True, None, None),
              ("NaN centroid", tab, nan_cent, 16, True, None, None),
-             ("d2 overflows to inf", far, tab[:, own], 16, True, None, None)]
+             ("d2 overflows to inf", far, tab[:, own], 16, True, None, None),
+             ("d2 overflows to inf, k 128", far, tab[:, own], 128, True, None, None)]
     xs_dup = dup[:, torch.argsort(dup[0, :, 2], stable=True)]
     xs_dup[1] = xs_dup[0]
     cases.append(("duplicated points, 4 bands", xs_dup, xs_dup[:, ::64], 32, True, 4, True))
+    cases.append(("duplicated points, 4 bands, k 48", xs_dup, xs_dup[:, ::64], 48, True, 4, True))
     xs_nan = _bq_banded_table(g, 4, 1024, 8)[0]
     rows = torch.cat([b * 1024 + torch.arange(600, 608) for b in range(4)])
     cent_nan = xs_nan[:, rows].clone()
@@ -1613,6 +1633,15 @@ def _rcnn_against_cpu(rpn_ckpt):
         raise AssertionError("the card's rcnn step differs from the CPU path")
 
 
+def decayed(p, opt, steps):
+    """``p`` after ``steps`` updates of the weight decay alone (a zero
+    gradient: Adam's update is 0), p <- p - lr * (wd * p), in the
+    optimizer's f32 arithmetic."""
+    for count in range(steps):
+        p = p + (-opt.lr(count) * (0.0 + opt.weight_decay * p))
+    return p
+
+
 def phase_rcnn_train(rcnn_launches, rpn_ckpt):
     """The rcnn training stage at batch 4 x 16384 points, the RPN from the
     rpn stage's checkpoint."""
@@ -1669,16 +1698,10 @@ def phase_rcnn_train(rcnn_launches, rpn_ckpt):
     still = [k for k in rcnn if torch.equal(after[k], before[k])]
     if still:
         raise AssertionError(f"rcnn train step: RCNN parameters unchanged: {still}")
-    # the fixed RPN: zero gradients, so Adam's update is 0 and each step
-    # applies the weight decay alone, p <- p - lr * (wd * p), in the
-    # optimizer's f32 arithmetic; its BN statistics do not move
+    # the fixed RPN: the weight decay alone moves it; its BN statistics stay
     opt = build_optimizer(model.cfg, *steps_for(KITTI_TRAIN_FRAMES, RCNN_BATCH, TRAIN_EPOCHS))
     for k in rpn_params:
-        p = before[k].clone()
-        for count in range(TRAIN_WARMUP + TRAIN_TIMED):
-            u = 0.0 + opt.weight_decay * p
-            p = p + (-opt.lr(count) * u)
-        if not torch.equal(after[k], p):
+        if not torch.equal(after[k], decayed(before[k], opt, TRAIN_WARMUP + TRAIN_TIMED)):
             raise AssertionError(f"rcnn train step: RPN parameter {k} moved by "
                                  f"{(after[k] - before[k]).abs().max().item()}, not by the "
                                  f"weight decay alone")
@@ -1699,17 +1722,6 @@ def phase_rcnn_train(rcnn_launches, rpn_ckpt):
 EVAL_FRAMES, EVAL_BATCH = 64, 4
 EVAL_BATCHES = EVAL_FRAMES // EVAL_BATCH
 EVAL_WORK_DIR = os.path.join(REPO, "pointrcnn_tpu_torch", "_build", "smoke_kitti")
-# the fixture calibration (rect == lidar frame; f = 700, principal point
-# (600, 200)) and image size of the KITTI tree the phase writes
-KITTI_CALIB = """P0: 700 0 600 0 0 700 200 0 0 0 1 0
-P1: 700 0 600 0 0 700 200 0 0 0 1 0
-P2: 700 0 600 0 0 700 200 0 0 0 1 0
-P3: 700 0 600 0 0 700 200 0 0 0 1 0
-R0_rect: 1 0 0 0 1 0 0 0 1
-Tr_velo_to_cam: 1 0 0 0 0 1 0 0 0 0 1 0
-Tr_imu_to_velo: 1 0 0 0 0 1 0 0 0 0 1 0
-"""
-KITTI_PLANE = "# Plane\nWidth 4\nHeight 1\n0 -1 0 1.65\n"
 IMG_W, IMG_H = 1242, 375
 # a frame's points inside the image frustum and the range: more than the
 # 16384 the dataset samples, so it samples without padding
@@ -1719,23 +1731,9 @@ FRAME_POINTS = 20000
 POST_BOX_RTOL, POST_LINE_ATOL = 1e-5, 1e-4
 
 
-def _png(width: int, height: int) -> bytes:
-    """A black 8-bit grayscale PNG (zlib + struct, no image library)."""
-    import struct
-    import zlib
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    raw = b"".join(b"\x00" + bytes(width) for _ in range(height))
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 0,
-                                                               0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 9)) + chunk(b"IEND", b""))
-
-
 def _box2d(box):
-    """The projected 2D box and KITTI alpha of a 3D box for KITTI_CALIB."""
+    """The projected 2D box and KITTI alpha of a 3D box for the fixture's
+    calibration (rect == lidar frame; f = 700, principal point (600, 200))."""
     x, y, z, h, w, l, ry = box
     dx = np.array([l, l, -l, -l, l, l, -l, -l]) / 2
     dz = np.array([w, -w, -w, w, w, -w, -w, w]) / 2
@@ -1765,16 +1763,20 @@ def write_kitti_tree(root: str, frames: int = EVAL_FRAMES, seed: int = 0) -> lis
     """A KITTI tree of ``frames`` frames in the formats of the KITTI devkit:
     calibration text, label lines (cars with their projected 2D boxes and a
     DontCare region), velodyne ``.bin`` float32 (x, y, z, intensity),
-    ground planes, a 1242 x 375 PNG, and a ``val`` split listing every
-    frame.  Each frame: 2-4 cars at 10-40 m with 500 points on each, the
-    rest ground and low clutter, all inside the image frustum and the
-    point-cloud range -> the cars' boxes a frame."""
+    ground planes, a 1242 x 375 PNG, ``val`` and ``train`` splits listing
+    every frame and a ``smallval`` split (``cfgs/default.yaml``'s
+    ``TRAIN.VAL_SPLIT``) listing the first quarter.  Each frame: 2-4 cars
+    at 10-40 m with 500 points on each, the rest ground and low clutter,
+    all inside the image frustum and the point-cloud range -> the cars'
+    boxes a frame."""
+    from pointrcnn_tpu_torch.tools.fixture import CALIB_TXT, PLANE_TXT, png_bytes
+
     rng = np.random.RandomState(seed)
     training = os.path.join(root, "KITTI", "object", "training")
     for sub in ("velodyne", "calib", "label_2", "planes", "image_2"):
         os.makedirs(os.path.join(training, sub), exist_ok=True)
     os.makedirs(os.path.join(root, "KITTI", "ImageSets"), exist_ok=True)
-    png = _png(IMG_W, IMG_H)
+    png = png_bytes(IMG_W, IMG_H)
     all_boxes = []
     for i in range(frames):
         n_car = rng.randint(2, 5)
@@ -1799,9 +1801,9 @@ def write_kitti_tree(root: str, frames: int = EVAL_FRAMES, seed: int = 0) -> lis
         sid = "%06d" % i
         cloud.tofile(os.path.join(training, "velodyne", sid + ".bin"))
         with open(os.path.join(training, "calib", sid + ".txt"), "w") as f:
-            f.write(KITTI_CALIB)
+            f.write(CALIB_TXT)
         with open(os.path.join(training, "planes", sid + ".txt"), "w") as f:
-            f.write(KITTI_PLANE)
+            f.write(PLANE_TXT)
         with open(os.path.join(training, "image_2", sid + ".png"), "wb") as f:
             f.write(png)
         with open(os.path.join(training, "label_2", sid + ".txt"), "w") as f:
@@ -1812,8 +1814,9 @@ def write_kitti_tree(root: str, frames: int = EVAL_FRAMES, seed: int = 0) -> lis
                         f"{w:.2f} {l:.2f} {x:.2f} {y:.2f} {z:.2f} {ry:.2f}\n")
             f.write("DontCare -1 -1 -10 0.00 0.00 20.00 20.00 -1 -1 -1 -1000 -1000 -1000 -10\n")
         all_boxes.append(np.array(boxes, np.float32))
-    with open(os.path.join(root, "KITTI", "ImageSets", "val.txt"), "w") as f:
-        f.write("\n".join("%06d" % i for i in range(frames)) + "\n")
+    for split, n in (("val", frames), ("train", frames), ("smallval", max(frames // 4, 1))):
+        with open(os.path.join(root, "KITTI", "ImageSets", split + ".txt"), "w") as f:
+            f.write("\n".join("%06d" % i for i in range(n)) + "\n")
     return all_boxes
 
 
@@ -2060,6 +2063,202 @@ def phase_kitti_eval(launches, fwd_ms, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- train CLI
+
+# the train CLI's runs on a KITTI tree of write_kitti_tree (EVAL_FRAMES
+# frames, its train split's gt database), each in a directory of its own
+# under TRAIN_WORK_DIR (removed after): (a) rpn at TRAIN_BATCH, one epoch,
+# checkpoint every epoch; (b) (a)'s checkpoint resumed for a second epoch
+# with the loss-only val epoch over smallval; (c) rcnn at RCNN_BATCH, one
+# epoch, the RPN from (b)'s checkpoint
+TRAIN_WORK_DIR = os.path.join(REPO, "pointrcnn_tpu_torch", "_build", "smoke_train")
+
+
+def prepare_train_cli(work: str, frames: int = EVAL_FRAMES) -> tuple[str, str]:
+    """Write the KITTI tree under ``work`` and the gt database of its train
+    split (``python -m pointrcnn_tpu_torch.tools.generate_gt_database``)
+    -> (data root, database path)."""
+    from pointrcnn_tpu_torch.tools import generate_gt_database
+
+    data_root = os.path.join(work, "data")
+    write_kitti_tree(data_root, frames=frames)
+    db = generate_gt_database.main(["--data_root", data_root, "--save_dir",
+                                    os.path.join(work, "gt_database"), "--split", "train"])
+    return data_root, db
+
+
+@contextlib.contextmanager
+def train_instruments():
+    """Record, for each step of a train CLI run, without a sync of its own:
+    CUDA events around the step (its span on the card), its loss (kept on
+    the card), the state it returned, and a copy of the model's tensors
+    before the first step."""
+    from pointrcnn_tpu_torch.train import trainer
+
+    rec = {"events": [], "losses": [], "state": None, "before": None}
+    orig = trainer.make_train_step
+
+    def make_train_step(cfg, tx, seed=0):
+        step = orig(cfg, tx, seed)
+
+        def timed(state, batch, bn_momentum, targets=None):
+            if rec["before"] is None:
+                rec["before"] = {k: v.clone() for k, v in state.model.state_dict().items()}
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, tb = step(state, batch, bn_momentum, targets)
+            end.record()
+            rec["events"].append((start, end))
+            rec["losses"].append(tb["loss"])
+            rec["state"] = state
+            return state, tb
+
+        return timed
+
+    trainer.make_train_step = make_train_step
+    try:
+        yield rec
+    finally:
+        trainer.make_train_step = orig
+        torch.cuda.synchronize()
+        rec["ms"] = [a.elapsed_time(b) for a, b in rec.pop("events")]
+        rec["losses"] = [float(x) for x in rec["losses"]]
+
+
+def _train_cli_run(what, argv, card):
+    """One in-process run of the train CLI on the card -> (its TrainRun,
+    the instruments' record, the kernels' launches)."""
+    from pointrcnn_tpu_torch.train.__main__ import main as train_main
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with train_instruments() as rec:
+        run = train_main(argv)
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms, steps = rec["ms"], sum(e["steps"] for e in run.history)
+    if len(ms) != steps or not all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"train CLI {what}: {len(ms)} steps timed of {steps}, losses "
+                             f"{rec['losses']}")
+    timed = ms[1:]
+    epochs = ", ".join(f"epoch {e['epoch']}: {e['steps']} steps in {1000 * e['seconds']:.3f} ms "
+                       f"after {1000 * e['wait']:.3f} ms on the loader, last loss {e['loss']:.6f}"
+                       + (f", val loss {e['val_loss']:.6f}" if "val_loss" in e else "")
+                       for e in run.history)
+    log(f"{card}: train CLI {what}: {steps} steps, ms/step over steps 2-{steps} (CUDA events "
+        f"around each step) min {min(timed):.3f} median {float(np.median(timed)):.3f} max "
+        f"{max(timed):.3f}; the first {ms[0]:.3f}; {epochs}; peak memory {peak / 2 ** 30:.3f} "
+        f"GiB; whole CLI run {run_s:.3f} s (config, backup, dataset, model, epochs, checkpoints)")
+    log(f"train CLI {what}: losses [{', '.join(f'{x:.6f}' for x in rec['losses'])}]; "
+        f"launches {counts}")
+    return run, rec, counts
+
+
+def _check_ckpt_loads(what, path, cfg, rec, epoch, it):
+    """``path`` loads into a state of other weights and gives back the run's
+    last state bit for bit, with ``epoch`` and ``it``."""
+    from pointrcnn_tpu_torch.train.checkpoint import load_checkpoint
+    from pointrcnn_tpu_torch.train.optimizer import build_optimizer
+    from pointrcnn_tpu_torch.train.state import create_train_state
+
+    def same(a, b):
+        if isinstance(b, dict):
+            return isinstance(a, dict) and a.keys() == b.keys() and all(same(a[k], b[k])
+                                                                        for k in b)
+        return torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b
+
+    live = rec["state"]
+    fresh = create_train_state(cfg, build_optimizer(cfg, 1, 1), seed=7, device="cuda")
+    fresh, e, i = load_checkpoint(path, fresh)
+    equal = (same(fresh.model.state_dict(), live.model.state_dict())
+             and same(fresh.opt_state, live.opt_state) and fresh.step == live.step)
+    if not equal or (e, i) != (epoch, it):
+        raise AssertionError(f"train CLI {what}: {path} loads back as epoch {e}, it {i} (want "
+                             f"{epoch}, {it}), state equal {equal}")
+    log(f"train CLI {what}: {os.path.basename(path)} loads back bit for bit (epoch {e}, it {i}, "
+        f"step {fresh.step})")
+
+
+def phase_train_cli(train_launches, rcnn_launches, card):
+    """The train CLI (``python -m pointrcnn_tpu_torch.train``) in-process on
+    the card at ``cfgs/default.yaml`` as it stands (AUG_DATA, GT_AUG from the
+    tree's database, 16384 points, bf16): runs (a), (b), (c) of
+    TRAIN_WORK_DIR.  Runs (a) and (c) launch every kernel their steps times
+    the per-step counts of phase_train / phase_rcnn_train (``train_launches``
+    and ``rcnn_launches``: their counts over TRAIN_TIMED steps); (c) updates
+    every RCNN parameter and moves the fixed RPN by the weight decay alone
+    -> each run's launches."""
+    from pointrcnn_tpu_torch.entry import rcnn_config, rpn_config
+    from pointrcnn_tpu_torch.train.optimizer import build_optimizer
+
+    work = TRAIN_WORK_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        data_root, db = prepare_train_cli(work)
+        log(f"train CLI data: {EVAL_FRAMES} frames and the train split's gt database "
+            f"({os.path.getsize(db)} bytes) in {time.perf_counter() - t0:.3f} s")
+        common = ["--cfg_file", os.path.join(REPO, "cfgs", "default.yaml"), "--data_root",
+                  data_root, "--gt_database", db, "--device", "cuda", "--ckpt_save_interval", "1"]
+        rpn = common + ["--train_mode", "rpn", "--batch_size", str(TRAIN_BATCH)]
+        run_a, rec_a, counts_a = _train_cli_run(
+            "rpn (a)", rpn + ["--epochs", "1", "--output_dir", os.path.join(work, "rpn")], card)
+        ckpt_a = os.path.join(run_a.ckpt_dir, "checkpoint_epoch_1")
+        _check_ckpt_loads("rpn (a)", ckpt_a, rpn_config(), rec_a, 1, run_a.it)
+        del rec_a
+        run_b, rec_b, counts_b = _train_cli_run(
+            "rpn resume (b)", rpn + ["--ckpt", ckpt_a, "--epochs", "2", "--train_with_eval",
+                                     "--output_dir", os.path.join(work, "resume")], card)
+        ckpt_b = os.path.join(run_b.ckpt_dir, "checkpoint_epoch_2")
+        if run_b.it != 2 * run_a.it or not np.isfinite(run_b.history[-1]["val_loss"]):
+            raise AssertionError(f"train CLI resume: it {run_b.it}, history {run_b.history}")
+        _check_ckpt_loads("rpn resume (b)", ckpt_b, rpn_config(), rec_b, 2, 2 * run_a.it)
+        del rec_b
+        run_c, rec_c, counts_c = _train_cli_run(
+            "rcnn (c)", common + ["--train_mode", "rcnn", "--batch_size", str(RCNN_BATCH),
+                                  "--rpn_ckpt", ckpt_b, "--epochs", "1",
+                                  "--output_dir", os.path.join(work, "rcnn")], card)
+        _check_ckpt_loads("rcnn (c)", os.path.join(run_c.ckpt_dir, "checkpoint_epoch_1"),
+                          rcnn_config(), rec_c, 1, run_c.it)
+
+        for what, run, counts, per in (("rpn (a)", run_a, counts_a, train_launches),
+                                       ("rcnn (c)", run_c, counts_c, rcnn_launches)):
+            want = {k: run.it * v // TRAIN_TIMED for k, v in per.items()}
+            if counts != want or any(v % TRAIN_TIMED for v in per.values()):
+                raise AssertionError(f"train CLI {what}: launches {counts}, not {run.it} times "
+                                     f"the step's {({k: v / TRAIN_TIMED for k, v in per.items()})}")
+        log(f"train CLI: rpn (a) and rcnn (c) launch every kernel {run_a.it} and {run_c.it} "
+            f"times the per-step counts of phase_train and phase_rcnn_train")
+
+        # (c): every RCNN parameter updated; the fixed RPN moved by the
+        # weight decay alone and its BN statistics still
+        model, before = rec_c["state"].model, rec_c["before"]
+        after = model.state_dict()
+        rcnn = [k for k, _ in model.named_parameters() if k.startswith("rcnn_net.")]
+        still = [k for k in rcnn if torch.equal(after[k], before[k])]
+        if still:
+            raise AssertionError(f"train CLI rcnn: RCNN parameters unchanged: {still}")
+        opt = build_optimizer(model.cfg, run_c.it, run_c.it)
+        rpn_params = [k for k, _ in model.named_parameters() if k.startswith("rpn.")]
+        for k in rpn_params:
+            if not torch.equal(after[k], decayed(before[k], opt, run_c.it)):
+                raise AssertionError(f"train CLI rcnn: RPN parameter {k} moved by "
+                                     f"{(after[k] - before[k]).abs().max().item()}, not by the "
+                                     f"weight decay alone")
+        moved_stats = [k for k, _ in model.named_buffers() if not torch.equal(after[k], before[k])]
+        if moved_stats:
+            raise AssertionError(f"train CLI rcnn: BN statistics moved: {moved_stats[:3]}")
+        log(f"train CLI rcnn (c): all {len(rcnn)} RCNN parameters updated; all "
+            f"{len(rpn_params)} RPN parameters moved by the weight decay alone (bit-equal), BN "
+            f"statistics unchanged")
+        return {"rpn": counts_a, "resume": counts_b, "rcnn": counts_c}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2082,16 +2281,21 @@ def main() -> int:
         phase_rcnn_train(rcnn_launches, ckpt)
     finally:
         shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    train_cli_launches = phase_train_cli(train_launches, rcnn_launches, card)
     # launches: the count of the eval forward's run, or for a kernel that
     # only a training stage runs, of that stage's run (the rpn stage's for
     # the gather backward, the rcnn stage's for the MLP backward);
     # train_launches and rcnn_train_launches: each training run's;
-    # eval_cli_launches: the eval CLI's rcnn run's (64 frames, 16 batches)
+    # eval_cli_launches: the eval CLI's rcnn run's (64 frames, 16 batches);
+    # train_cli_launches: the train CLI's runs' (rpn 4 steps, its resume 4
+    # steps and a val epoch, rcnn 16 steps)
     rows = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name] if name in EVAL_KERNELS else
              (train_launches[name] if name in TRAIN_KERNELS else rcnn_launches[name]),
              "train_launches": train_launches[name], "rcnn_train_launches": rcnn_launches[name],
-             "eval_cli_launches": eval_cli_launches[name], **tallies[name].row()}
+             "eval_cli_launches": eval_cli_launches[name],
+             "train_cli_launches": {run: c[name] for run, c in train_cli_launches.items()},
+             **tallies[name].row()}
             for name, source, replaces, _, _ in KERNELS]
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

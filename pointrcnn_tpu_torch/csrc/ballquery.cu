@@ -59,6 +59,9 @@
 //   25 dependent steps of four independent exchanges where kmax serial
 //   warp-wide minima would each wait on the last; lane k ends with
 //   extraction k, so the outputs are stored coalesced, a lane an entry.
+//   Past 32 neighbours (up to 128, one a folded lane) a second
+//   instantiation sorts all 128 keys (sort_store_all) and stores four
+//   entries a lane.
 //
 // Compiled with --fmad=false so the distance is not contracted into FMAs.
 
@@ -156,11 +159,78 @@ struct Out {
   float* rel;
 };
 
+// kmax > 32 (up to 128): all 128 keys sorted, element e = 32 i + lane in
+// slot i of this lane (a bitonic network over e: a distance under 32 is a
+// shuffle, 32 and 64 a swap of slots), then element e stored as extraction
+// e for e < kmax, four a lane; the winners (slots 0-3 of ``g`` after the
+// fold) as in the narrow path
+template <int U, int M>
+__device__ __forceinline__ void sort_store_all(unsigned long long (&key)[U][4],
+                                               const int (&g)[U][M], const float (&c)[U][3],
+                                               const int (&crow)[U], const bool (&ok)[U],
+                                               size_t orow, const Out& o,
+                                               const float* __restrict__ tab) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 128; k <<= 1) {
+#pragma unroll
+    for (int d = k >> 1; d > 0; d >>= 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = 32 * i + lane;
+        const bool up = (e & k) == 0;
+        if (d < 32) {
+          const bool lower = (lane & d) == 0;
+#pragma unroll
+          for (int j = 0; j < U; ++j) key[j][i] = exchange(key[j][i], d, up == lower);
+        } else if ((i & (d / 32)) == 0) {
+          const int i2 = i | (d / 32);
+#pragma unroll
+          for (int j = 0; j < U; ++j) {
+            const unsigned long long a = key[j][i], b = key[j][i2];
+            const bool swap = (b < a) == up;
+            key[j][i] = swap ? b : a;
+            key[j][i2] = swap ? a : b;
+          }
+        }
+      }
+    }
+  }
+  const unsigned big = __float_as_uint(kBig);
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned od = (unsigned)(key[j][i] >> 32);
+      const unsigned ow = od == big ? 0u : (unsigned)key[j][i];
+      const int src = ow >> 2, slot = ow & 3;
+      int q = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int gi = __shfl_sync(kFull, g[j][t], src);
+        if (slot == t) q = gi;
+      }
+      const int e = 32 * i + lane;
+      if (ok[j] && e < o.kmax) {
+        const size_t at = (orow + crow[j]) * o.kmax + e;
+        o.dist2[at] = __uint_as_float(od);
+        o.idx[at] = max(q, 0);
+        if (o.rel != nullptr) {
+          const float* p = tab + 3 * max(q, 0);
+          o.rel[3 * at] = (q < 0 ? 0.0f : p[0]) - c[j][0];
+          o.rel[3 * at + 1] = (q < 0 ? 0.0f : p[1]) - c[j][1];
+          o.rel[3 * at + 2] = (q < 0 ? 0.0f : p[2]) - c[j][2];
+        }
+      }
+    }
+  }
+}
+
 // The selection of the warp's U centroids (c, rows ``crow`` of the batch
 // row's S; ``ok`` false for a padding centroid past S) over the candidates
 // [start, start + count) of the batch row ``tab``, W classes; the block's
-// threads all call it with the same range.
-template <int W, int U>
+// threads all call it with the same range; ``Wide``: kmax > 32.
+template <int W, int U, bool Wide>
 __device__ __forceinline__ void select_range(const float* __restrict__ tab, int start, int count,
                                              const float (&c)[U][3], const int (&crow)[U],
                                              const bool (&ok)[U], size_t orow, const Out& o,
@@ -230,6 +300,10 @@ __device__ __forceinline__ void select_range(const float* __restrict__ tab, int 
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       key[j][i] = (unsigned long long)__float_as_uint(v[j][i]) << 32 | (unsigned)(4 * lane + i);
+  }
+  if constexpr (Wide) {
+    sort_store_all<U, M>(key, g, c, crow, ok, orow, o, tab);
+    return;
   }
   // each slot's 32 keys across the warp: slots 0 and 2 ascending, 1 and 3
   // descending (a bitonic sort, every comparison flipped for descending)
@@ -321,7 +395,7 @@ __device__ __forceinline__ void load_centroids(const Out& o, int b, float (&c)[U
   }
 }
 
-template <int W, int U>
+template <int W, int U, bool Wide>
 __global__ void __launch_bounds__(32 * kMaxWarps) ball_query_kernel(const float* __restrict__ xyz,
                                                                      int n, Out o) {
   extern __shared__ __align__(128) float stage[];
@@ -332,10 +406,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps) ball_query_kernel(const float*
   int crow[U];
   bool ok[U];
   load_centroids<U>(o, b, c, crow, ok);
-  select_range<W, U>(xyz + (size_t)b * n * 3, 0, n, c, crow, ok, (size_t)b * o.s, o, stage, bar);
+  select_range<W, U, Wide>(xyz + (size_t)b * n * 3, 0, n, c, crow, ok, (size_t)b * o.s, o, stage,
+                           bar);
 }
 
-template <int WB, int WF, int U>
+template <int WB, int WF, int U, bool Wide>
 __global__ void __launch_bounds__(32 * kMaxWarps) ball_query_banded_kernel(
     const float* __restrict__ xyz, int n, int n_bands, const unsigned char* __restrict__ bands_ok,
     Out o) {
@@ -353,10 +428,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps) ball_query_banded_kernel(
     const int ns = n / n_bands;
     const int band = (blockIdx.x * (blockDim.x / 32) * U) / (o.s / n_bands);
     const int lo = max(band - 1, 0), hi = min(band + 1, n_bands - 1);
-    select_range<WB, U>(tab, lo * ns, (hi - lo + 1) * ns, c, crow, ok, (size_t)b * o.s, o, stage,
-                        bar);
+    select_range<WB, U, Wide>(tab, lo * ns, (hi - lo + 1) * ns, c, crow, ok, (size_t)b * o.s, o,
+                              stage, bar);
   } else {
-    select_range<WF, U>(tab, 0, n, c, crow, ok, (size_t)b * o.s, o, stage, bar);
+    select_range<WF, U, Wide>(tab, 0, n, c, crow, ok, (size_t)b * o.s, o, stage, bar);
   }
 }
 
@@ -397,21 +472,34 @@ cudaError_t allow_stage(K kernel, bool& done) {
   return e;
 }
 
+template <int W, int U, bool Wide>
+int full_launch_k(dim3 grid, int warps, cudaStream_t stream, const FullArgs& a) {
+  static bool done = false;
+  if (const cudaError_t e = allow_stage(ball_query_kernel<W, U, Wide>, done)) return (int)e;
+  ball_query_kernel<W, U, Wide><<<grid, 32 * warps, kStageBytes, stream>>>(a.xyz, a.n, a.o);
+  return (int)cudaGetLastError();
+}
+
 template <int W, int U>
 int full_launch(dim3 grid, int warps, cudaStream_t stream, const FullArgs& a) {
+  return a.o.kmax > 32 ? full_launch_k<W, U, true>(grid, warps, stream, a)
+                       : full_launch_k<W, U, false>(grid, warps, stream, a);
+}
+
+template <int WB, int WF, int U, bool Wide>
+int banded_launch_k(dim3 grid, int warps, cudaStream_t stream, const BandedArgs& a) {
   static bool done = false;
-  if (const cudaError_t e = allow_stage(ball_query_kernel<W, U>, done)) return (int)e;
-  ball_query_kernel<W, U><<<grid, 32 * warps, kStageBytes, stream>>>(a.xyz, a.n, a.o);
+  if (const cudaError_t e = allow_stage(ball_query_banded_kernel<WB, WF, U, Wide>, done))
+    return (int)e;
+  ball_query_banded_kernel<WB, WF, U, Wide><<<grid, 32 * warps, kStageBytes, stream>>>(
+      a.xyz, a.n, a.n_bands, a.bands_ok, a.o);
   return (int)cudaGetLastError();
 }
 
 template <int WB, int WF, int U>
 int banded_launch(dim3 grid, int warps, cudaStream_t stream, const BandedArgs& a) {
-  static bool done = false;
-  if (const cudaError_t e = allow_stage(ball_query_banded_kernel<WB, WF, U>, done)) return (int)e;
-  ball_query_banded_kernel<WB, WF, U><<<grid, 32 * warps, kStageBytes, stream>>>(
-      a.xyz, a.n, a.n_bands, a.bands_ok, a.o);
-  return (int)cudaGetLastError();
+  return a.o.kmax > 32 ? banded_launch_k<WB, WF, U, true>(grid, warps, stream, a)
+                       : banded_launch_k<WB, WF, U, false>(grid, warps, stream, a);
 }
 
 template <int U>
@@ -457,7 +545,7 @@ int banded_w(int wb, int wf, dim3 grid, int warps, cudaStream_t stream, const Ba
 extern "C" int ball_query_launch(const float* xyz, const float* cent, int batch, int n, int s,
                                  int w, int kmax, int u, int warps, float* dist2, int* idx,
                                  float* rel, void* stream) {
-  if (!plan_in(kFullPlans, u, warps) || !w_ok(w) || n % w != 0 || kmax < 1 || kmax > 32 ||
+  if (!plan_in(kFullPlans, u, warps) || !w_ok(w) || n % w != 0 || kmax < 1 || kmax > 128 ||
       s < 1 || reinterpret_cast<uintptr_t>(xyz) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int per_block = u * warps;
@@ -484,7 +572,7 @@ extern "C" int ball_query_banded_launch(const float* xyz, const float* cent,
   if (!plan_in(kBandedPlans, u, warps) || bands_ok == nullptr || !w_ok(wb) || !w_ok(wf) ||
       wf < wb || n_bands < 1 || n % n_bands != 0 || s % n_bands != 0 ||
       (s / n_bands) % per_block != 0 || (n / n_bands) % wb != 0 || n % wf != 0 || kmax < 1 ||
-      kmax > 32 || rel == nullptr || reinterpret_cast<uintptr_t>(xyz) % 16 != 0)
+      kmax > 128 || rel == nullptr || reinterpret_cast<uintptr_t>(xyz) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(s / per_block, batch);
   const BandedArgs a{xyz, n, n_bands, bands_ok, Out{cent, s, kmax, dist2, idx, rel}};

@@ -1,5 +1,6 @@
-// The deterministic scatter-add of bf16 rows onto table rows, shared by the
-// gather backward (csrc/gather.cu) and the fused MLP backward (csrc/mlp.cu).
+// The deterministic scatter-add of bf16 rows onto table rows, used by the
+// fused MLP backward (csrc/mlp.cu); the gather backward (csrc/gather.cu) has
+// a bucketed scatter of its own.
 //
 // No atomics, so the sums are deterministic and in ascending (s, k) order per
 // table row, the order of a sequential index_add_.  Each block owns a tile of

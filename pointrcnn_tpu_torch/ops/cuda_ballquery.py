@@ -40,9 +40,9 @@ MIN_N = 2048
 
 _W = 512  # stride classes to start from
 _XW = 128  # lanes after the fold
-# the fold leaves 128 lanes; beyond 32 neighbours the extraction would
-# degrade silently, and no configuration asks for more
-MAX_K = 32
+# the TPU predicates' limit: at most one neighbour a folded lane
+# (tests/cfgs_ap.yaml's striped recipe asks for 48 at RPN SA2)
+MAX_K = 128
 _BIG = 3.0e38
 
 # centroids x candidates per chunk of the plain version's distance block
@@ -124,7 +124,7 @@ def _check(xyz, cent, kmax, n_bands=None, bands_ok=None):
         raise ValueError(f"ball_query: cent {tuple(cent.shape)} does not match xyz {tuple(xyz.shape)}")
     if not 1 <= kmax <= MAX_K:
         raise ValueError(f"ball_query: kmax={kmax}; the stride-class selection takes "
-                         f"1 <= kmax <= {MAX_K} (its 128-lane extraction degrades beyond)")
+                         f"1 <= kmax <= {MAX_K} (one a folded lane)")
     pool = N if n_bands is None else N // n_bands
     if n_bands is not None and (n_bands < 2 or N % n_bands or S % n_bands):
         raise ValueError(f"ball_query: {n_bands} bands do not divide N={N} and S={S}")

@@ -3,12 +3,15 @@
 Epochs over any iterable of numpy batch dicts (``set_epoch`` is called when
 the loader has one), one train step per batch, BN momentum set per epoch,
 checkpoints every ``ckpt_save_interval`` epochs, and loss-only validation
-every ``eval_frequency`` epochs.
+every ``eval_frequency`` epochs.  ``history`` keeps each epoch's record for
+the caller: its steps, last loss, wall seconds, the wait for its first
+batch and, where it ran, the validation loss.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
@@ -40,19 +43,23 @@ class Trainer:
         self.eval_frequency, self.ckpt_save_interval = eval_frequency, ckpt_save_interval
         self.logger = logger or logging.getLogger(__name__)
         self.train_step = make_train_step(cfg, tx, seed)
+        self.history: list[dict] = []
 
     def train(self, state: TrainState, start_epoch: int, n_epochs: int, train_loader,
               val_loader=None, start_it: int = 0):
         """-> (state, iterations done)."""
         device = next(state.model.parameters()).device
         it = start_it
+        os.makedirs(self.ckpt_dir, exist_ok=True)
         for epoch in range(start_epoch, n_epochs):
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
             bn_momentum = bn_momentum_for_epoch(self.cfg, epoch)
             t0 = time.time()
-            n_batches, tb = 0, None
+            n_batches, tb, wait = 0, None, float("nan")
             for batch in train_loader:
+                if n_batches == 0:
+                    wait = time.time() - t0
                 state, tb = self.train_step(state, batch_to_device(batch, device), bn_momentum)
                 it += 1
                 n_batches += 1
@@ -60,6 +67,8 @@ class Trainer:
             loss = float(tb["loss"]) if tb is not None else float("nan")
             self.logger.info("epoch %d: %d its in %.1fs (%.2f it/s), last loss %.4f",
                              epoch, n_batches, dt, n_batches / max(dt, 1e-6), loss)
+            self.history.append({"epoch": epoch, "steps": n_batches, "loss": loss,
+                                 "seconds": dt, "wait": wait})
             trained_epoch = epoch + 1
             if trained_epoch % self.ckpt_save_interval == 0:
                 path = save_checkpoint(self.ckpt_dir, state, trained_epoch, it)
@@ -67,6 +76,7 @@ class Trainer:
             if val_loader is not None and trained_epoch % self.eval_frequency == 0:
                 val_loss = self.eval_epoch(state, val_loader)
                 self.logger.info("epoch %d: val loss %.4f", epoch, val_loss)
+                self.history[-1]["val_loss"] = val_loss
         return state, it
 
     def eval_epoch(self, state: TrainState, val_loader) -> float:

@@ -51,6 +51,7 @@ VERBATIM = [
     ("pointrcnn_tpu/data/object3d.py", "pointrcnn_tpu_torch/data/object3d.py"),
     ("pointrcnn_tpu/data/rpn_dataset.py", "pointrcnn_tpu_torch/data/rpn_dataset.py"),
     ("pointrcnn_tpu/data/loader.py", "pointrcnn_tpu_torch/data/loader.py"),
+    ("pointrcnn_tpu/data/gt_database.py", "pointrcnn_tpu_torch/data/gt_database.py"),
     ("pointrcnn_tpu/utils/np_geometry.py", "pointrcnn_tpu_torch/utils/np_geometry.py"),
     ("csrc/host_ops.cpp", "pointrcnn_tpu_torch/csrc/host_ops.cpp"),
 ]
@@ -265,15 +266,20 @@ def test_backup_source_copies_the_port(tmp_path):
 
 
 def test_chip_smoke_kitti_tree(tmp_path):
-    """The KITTI tree ``chip_smoke.py`` writes for its eval phase (no PIL
-    there): every frame has more valid points than ``cfgs/default.yaml``
-    samples (no padding), labels with 2-4 cars whose points lie inside
-    their boxes, and a PNG that PIL reads at 1242 x 375."""
+    """The KITTI tree ``chip_smoke.py`` writes for its eval and train-CLI
+    phases (no PIL there): every frame has more valid points than
+    ``cfgs/default.yaml`` samples (no padding), labels with 2-4 cars whose
+    points lie inside their boxes, a PNG that PIL reads at 1242 x 375, and
+    the ``val``, ``train`` and ``smallval`` splits."""
     from PIL import Image
 
     import chip_smoke
 
     boxes = chip_smoke.write_kitti_tree(str(tmp_path), frames=3, seed=1)
+    ids = ["%06d" % i for i in range(3)]
+    for split, want in (("val", ids), ("train", ids), ("smallval", ids[:1])):
+        with open(tmp_path / "KITTI" / "ImageSets" / f"{split}.txt") as f:
+            assert f.read().split() == want, split
     cfg = load_config(str(_CFG))
     ds = KittiRCNNDataset(str(tmp_path), cfg, npoints=cfg.RPN.NUM_POINTS, split="val",
                           mode="EVAL")

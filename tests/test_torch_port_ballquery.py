@@ -65,6 +65,7 @@ def _check_selection(got, want, xyz, cent):
     (2048, 64, 16, False),  # W=512: fold 512 -> 256 -> 128
     (2304, 40, 32, True),  # W halves to 256: one fold
     (2176, 24, 32, True),  # W halves to 128: no fold
+    (2048, 64, 48, True),  # the striped AP gate's RPN SA2: past 32 neighbours
 ])
 def test_full_scan_plain_matches_pallas(N, S, k, emit_rel):
     rng = np.random.RandomState(N + k)
@@ -91,7 +92,8 @@ def test_full_scan_plain_matches_pallas(N, S, k, emit_rel):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("N,S,n_bands,k", [(4096, 256, 4, 16), (2048, 64, 2, 32)])
+@pytest.mark.parametrize("N,S,n_bands,k", [(4096, 256, 4, 16), (2048, 64, 2, 32),
+                                            (4096, 64, 4, 48)])
 def test_banded_plain_matches_pallas(N, S, n_bands, k):
     # every band count has clamped edge bands; 4 bands have interior ones
     rng = np.random.RandomState(N + n_bands)
@@ -285,11 +287,15 @@ def test_ballquery_launch_plans_are_ones_the_kernels_take():
 
 
 def test_selection_rejects_more_than_32_neighbours():
+    """The selection takes at most one neighbour a folded lane, 128, as the
+    TPU predicates admit (it took at most 32 before the striped AP gate
+    asked for 48)."""
     xyz = torch.zeros((1, 2048, 3))
-    with pytest.raises(ValueError, match="kmax=64"):
-        cuda_ballquery.ball_query(xyz, xyz[:, :8], 64)
-    with pytest.raises(ValueError, match="kmax=64"):
-        cuda_ballquery.ball_query_banded(xyz, xyz[:, :8], 64, 2, torch.tensor(True))
+    for k in (0, 129):
+        with pytest.raises(ValueError, match=f"kmax={k}"):
+            cuda_ballquery.ball_query(xyz, xyz[:, :8], k)
+        with pytest.raises(ValueError, match=f"kmax={k}"):
+            cuda_ballquery.ball_query_banded(xyz, xyz[:, :8], k, 2, torch.tensor(True))
     # the thin-band flag is one bool tensor, never left out
     for flag in (None, True, torch.tensor([True, True]), torch.tensor(1)):
         with pytest.raises(ValueError, match="bands_ok"):

@@ -242,8 +242,9 @@ def test_opt_state_bridge_rejects_mismatches():
 def test_port_imports_nothing_of_jax():
     """The train package, the target layer, the IoU module, the entry points,
     the profilers, the data pipeline, the evaluators and their CLIs, the
-    host-op and geometry copies, the snapshot and chip_smoke.py import
-    neither jax nor the JAX package."""
+    train CLI, the data tools and the AP gate, the host-op and geometry
+    copies, the snapshot and chip_smoke.py import neither jax nor the JAX
+    package."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -258,7 +259,10 @@ def test_port_imports_nothing_of_jax():
         "import pointrcnn_tpu_torch.data.loader, pointrcnn_tpu_torch.eval.evaluator\n"
         "import pointrcnn_tpu_torch.eval.kitti_eval, pointrcnn_tpu_torch.eval.__main__\n"
         "import pointrcnn_tpu_torch.utils.native, pointrcnn_tpu_torch.utils.np_geometry\n"
-        "import pointrcnn_tpu_torch.utils.snapshot\n"
+        "import pointrcnn_tpu_torch.utils.snapshot, pointrcnn_tpu_torch.data.gt_database\n"
+        "import pointrcnn_tpu_torch.train.__main__, pointrcnn_tpu_torch.tools.ap_gate\n"
+        "import pointrcnn_tpu_torch.tools.fixture, pointrcnn_tpu_torch.tools.generate_aug_scene\n"
+        "import pointrcnn_tpu_torch.tools.generate_gt_database\n"
         "assert pointrcnn_tpu_torch.utils.native.get_lib() is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'optax', 'pointrcnn_tpu'))\n"
