@@ -111,6 +111,25 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    min, median and max, the loader's wait before the first batch and the
    peak memory; each checkpoint loads back bit for bit; (c) updates every
    RCNN parameter and moves the fixed RPN by the weight decay alone.
+9b. (after 9) ``RCNN.USE_RPN_FEATURES`` False (RCNN SA1 on 3 + 130
+   channels, no up or merge layer; its SA stages also in 3b): the joint eval
+   forward at batch 4 launches a forward's counts of phase 4 with finite
+   outputs; one rcnn step launches K2 6 and K7 2 times, every stack on the
+   fused route, with a finite loss.
+11. (after 10) the reference's offline recipe through the CLIs on the same
+   tree, from (b)'s RPN: (d) ``--eval_mode rpn --save_rpn_feature`` over the
+   train split at 300 proposals a frame and over smallval (the RPN's share
+   of phase 4's launches a batch); (e) ``--train_mode rcnn_offline`` at
+   batch 4, one epoch, ``--train_with_eval`` over the smallval dump (K1, K2
+   and K7 twice a step, K1 and K2 twice a val batch, nothing else; ms/step
+   by CUDA events, peak memory, the checkpoint loaded back bit for bit),
+   and (e') the same with ``--worker_processes`` (its ms/step beside (e)'s);
+   (f) ``--eval_mode rcnn_offline`` of (e)'s checkpoint on smallval with the
+   official AP (K1 and K2 twice a batch; frames/s, peak memory); then,
+   from seeded weights, an offline train step (one frame's rois sampled
+   from its proposals and gt boxes, with foreground) against the CPU path
+   with phase 9's tolerances, and an offline eval batch: its pooled
+   inputs, the RCNN's outputs and the post-process against the CPU's.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1033,7 +1052,10 @@ def check_mlp_bwd():
 
 
 # ROADMAP C12: the shipped configs whose SA stacks the card must admit
-SHIPPED_CONFIGS = ("default.yaml", "people.yaml", "car_2x.yaml")
+# each shipped config, and default.yaml without RPN features in the RCNN
+# (``RCNN.USE_RPN_FEATURES`` False: SA1 takes 3 + 130 channels)
+SHIPPED_CONFIGS = (("default.yaml", ()), ("people.yaml", ()), ("car_2x.yaml", ()),
+                   ("default.yaml", ("RCNN.USE_RPN_FEATURES", "False")))
 
 
 def _sa_stages(model, cfg):
@@ -1069,8 +1091,9 @@ def check_shipped_stages():
     from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
     from pointrcnn_tpu_torch.ops import cuda_mlp
 
-    for cfg_name in SHIPPED_CONFIGS:
-        cfg = load_config(os.path.join(REPO, "cfgs", cfg_name))
+    for cfg_file, overrides in SHIPPED_CONFIGS:
+        cfg = load_config(os.path.join(REPO, "cfgs", cfg_file), list(overrides))
+        cfg_name = " ".join((cfg_file,) + overrides)
         model = PointRCNN(cfg, mode="TEST", generator=torch.Generator().manual_seed(0)).cuda()
         admitted = []
         for name, mlp, n, S, K, B, train in _sa_stages(model, cfg):
@@ -2190,73 +2213,381 @@ def phase_train_cli(train_launches, rcnn_launches, card):
     the per-step counts of phase_train / phase_rcnn_train (``train_launches``
     and ``rcnn_launches``: their counts over TRAIN_TIMED steps); (c) updates
     every RCNN parameter and moves the fixed RPN by the weight decay alone
-    -> each run's launches."""
+    -> (each run's launches, run (b)'s checkpoint, the tree's data root);
+    the caller removes TRAIN_WORK_DIR."""
     from pointrcnn_tpu_torch.entry import rcnn_config, rpn_config
     from pointrcnn_tpu_torch.train.optimizer import build_optimizer
 
     work = TRAIN_WORK_DIR
     shutil.rmtree(work, ignore_errors=True)
-    try:
+    t0 = time.perf_counter()
+    data_root, db = prepare_train_cli(work)
+    log(f"train CLI data: {EVAL_FRAMES} frames and the train split's gt database "
+        f"({os.path.getsize(db)} bytes) in {time.perf_counter() - t0:.3f} s")
+    common = ["--cfg_file", os.path.join(REPO, "cfgs", "default.yaml"), "--data_root",
+              data_root, "--gt_database", db, "--device", "cuda", "--ckpt_save_interval", "1"]
+    rpn = common + ["--train_mode", "rpn", "--batch_size", str(TRAIN_BATCH)]
+    run_a, rec_a, counts_a = _train_cli_run(
+        "rpn (a)", rpn + ["--epochs", "1", "--output_dir", os.path.join(work, "rpn")], card)
+    ckpt_a = os.path.join(run_a.ckpt_dir, "checkpoint_epoch_1")
+    _check_ckpt_loads("rpn (a)", ckpt_a, rpn_config(), rec_a, 1, run_a.it)
+    del rec_a
+    run_b, rec_b, counts_b = _train_cli_run(
+        "rpn resume (b)", rpn + ["--ckpt", ckpt_a, "--epochs", "2", "--train_with_eval",
+                                 "--output_dir", os.path.join(work, "resume")], card)
+    ckpt_b = os.path.join(run_b.ckpt_dir, "checkpoint_epoch_2")
+    if run_b.it != 2 * run_a.it or not np.isfinite(run_b.history[-1]["val_loss"]):
+        raise AssertionError(f"train CLI resume: it {run_b.it}, history {run_b.history}")
+    _check_ckpt_loads("rpn resume (b)", ckpt_b, rpn_config(), rec_b, 2, 2 * run_a.it)
+    del rec_b
+    run_c, rec_c, counts_c = _train_cli_run(
+        "rcnn (c)", common + ["--train_mode", "rcnn", "--batch_size", str(RCNN_BATCH),
+                              "--rpn_ckpt", ckpt_b, "--epochs", "1",
+                              "--output_dir", os.path.join(work, "rcnn")], card)
+    _check_ckpt_loads("rcnn (c)", os.path.join(run_c.ckpt_dir, "checkpoint_epoch_1"),
+                      rcnn_config(), rec_c, 1, run_c.it)
+
+    for what, run, counts, per in (("rpn (a)", run_a, counts_a, train_launches),
+                                   ("rcnn (c)", run_c, counts_c, rcnn_launches)):
+        want = {k: run.it * v // TRAIN_TIMED for k, v in per.items()}
+        if counts != want or any(v % TRAIN_TIMED for v in per.values()):
+            raise AssertionError(f"train CLI {what}: launches {counts}, not {run.it} times "
+                                 f"the step's {({k: v / TRAIN_TIMED for k, v in per.items()})}")
+    log(f"train CLI: rpn (a) and rcnn (c) launch every kernel {run_a.it} and {run_c.it} "
+        f"times the per-step counts of phase_train and phase_rcnn_train")
+
+    # (c): every RCNN parameter updated; the fixed RPN moved by the
+    # weight decay alone and its BN statistics still
+    model, before = rec_c["state"].model, rec_c["before"]
+    after = model.state_dict()
+    rcnn = [k for k, _ in model.named_parameters() if k.startswith("rcnn_net.")]
+    still = [k for k in rcnn if torch.equal(after[k], before[k])]
+    if still:
+        raise AssertionError(f"train CLI rcnn: RCNN parameters unchanged: {still}")
+    opt = build_optimizer(model.cfg, run_c.it, run_c.it)
+    rpn_params = [k for k, _ in model.named_parameters() if k.startswith("rpn.")]
+    for k in rpn_params:
+        if not torch.equal(after[k], decayed(before[k], opt, run_c.it)):
+            raise AssertionError(f"train CLI rcnn: RPN parameter {k} moved by "
+                                 f"{(after[k] - before[k]).abs().max().item()}, not by the "
+                                 f"weight decay alone")
+    moved_stats = [k for k, _ in model.named_buffers() if not torch.equal(after[k], before[k])]
+    if moved_stats:
+        raise AssertionError(f"train CLI rcnn: BN statistics moved: {moved_stats[:3]}")
+    log(f"train CLI rcnn (c): all {len(rcnn)} RCNN parameters updated; all "
+        f"{len(rpn_params)} RPN parameters moved by the weight decay alone (bit-equal), BN "
+        f"statistics unchanged")
+    return {"rpn": counts_a, "resume": counts_b, "rcnn": counts_c}, ckpt_b, data_root
+
+# ---------------------------------------------------------------- RCNN without RPN features
+
+
+def phase_no_rpn_features(launches, rpn_ckpt):
+    """``RCNN.USE_RPN_FEATURES`` False (no up or merge layer: RCNN SA1 takes
+    the 2 extra channels and the 128 RPN features as its features): the
+    joint eval forward at batch 4 launches every kernel a forward's counts
+    of phase_default with finite outputs, and one rcnn step from the rpn
+    stage's checkpoint launches K2 and K7 as phase_rcnn_train's step does,
+    no stack off the fused route, with a finite loss and gradient norm."""
+    from pointrcnn_tpu_torch.entry import default_config, entry, rcnn_config, train_entry
+    from pointrcnn_tpu_torch.models import layers
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+
+    override = ["RCNN.USE_RPN_FEATURES", "False"]
+    fwd, (model, batch) = entry(batch=BATCH, device="cuda", seed=0, cfg=default_config(override))
+    if hasattr(model.rcnn_net, "xyz_up_layer") or model.rcnn_net.SetAbstraction_0.SharedMLP_0.w0 \
+            .shape[0] != 3 + 2 + 128:
+        raise AssertionError("RCNN.USE_RPN_FEATURES False: the RCNN kept its up layer or SA1's "
+                             "input is not 133 channels")
+    reset_counts()
+    out = fwd(model, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    _check_outputs(out, model.cfg.TEST.RPN_POST_NMS_TOP_N, "no RPN features, cloud 0")
+    per_fwd = {k: v // len(CLOUD_SEEDS) for k, v in launches.items()}
+    if counts != per_fwd:
+        raise AssertionError(f"no RPN features forward: launches {counts}, not {per_fwd}")
+    log(f"no RPN features forward batch {BATCH}: launches {counts} (phase_default's a forward)")
+    del fwd, model, batch, out
+
+    step, (state, data) = train_entry(device="cuda", seed=0, stage="rcnn", rpn_ckpt=rpn_ckpt,
+                                      cfg=rcnn_config(override))
+    layers.generic_grouped_train = 0
+    cuda_mlp.reset_nomatch()
+    reset_counts()
+    state, tb = step(state, data)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    loss, gnorm = tb["loss"].item(), tb["grad_norm"].item()
+    log(f"no RPN features rcnn step batch {RCNN_BATCH}: loss {loss:.6f}, grad norm {gnorm:.6f}, "
+        f"launches {counts}")
+    if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"no RPN features rcnn step: loss {loss}, grad norm {gnorm}")
+    for name, n in RCNN_STEP_LAUNCHES.items():
+        if counts[name] != n:
+            raise AssertionError(f"no RPN features rcnn step: {name} launched {counts[name]} "
+                                 f"times, not {n}")
+    if layers.generic_grouped_train or cuda_mlp.nomatch_count():
+        raise AssertionError(f"no RPN features rcnn step: {layers.generic_grouped_train} SA stacks "
+                             f"off the fused route, {cuda_mlp.nomatch_count()} dropped maxima")
+
+
+# ---------------------------------------------------------------- offline RCNN
+
+# the reference's offline recipe on the train CLI's tree (its rpn run (b)):
+# (d) the rpn eval's feature dump of the train split at 300 proposals a
+# frame and of smallval at TEST.RPN_POST_NMS_TOP_N (100); (e) rcnn_offline
+# at batch 4 for one epoch with the val epoch over the smallval dump; (f)
+# the offline eval of (e)'s checkpoint on smallval with the official AP
+OFFLINE_MODE = ["RPN.ENABLED", "False", "RCNN.ENABLED", "True", "RCNN.ROI_SAMPLE_JIT", "False"]
+# launches of the offline RCNN: K1 and K2 at RCNN SA1 (fold) and SA2 (hilo)
+# a forward, K7 at both in the backward; no other kernel
+OFFLINE_FWD_LAUNCHES = {"fps": 2, "fused_group_mlp_max": 2}
+OFFLINE_STEP_LAUNCHES = {"fps": 2, "fused_group_mlp_max": 2, "fused_group_mlp_backward": 2}
+# the RCNN's eval outputs on the card against the CPU path, on agreeing
+# inputs: check_against_cpu's bound for the RCNN outputs
+OFFLINE_OUT_RTOL = 0.05
+
+
+def _expect(per, n):
+    return {name: per.get(name, 0) * n for name, _, _, _, _ in KERNELS}
+
+
+def _with_gt_rois(data_root, roi_dir, out_dir):
+    """``roi_dir``'s proposal files with each frame's gt boxes first, the
+    rois a trained RPN proposes: the sampled batch then has foreground."""
+    labels = os.path.join(data_root, "KITTI", "object", "training", "label_2")
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(roi_dir):
+        with open(os.path.join(labels, name)) as f:
+            gt = "".join(ln + " 1.0\n" for ln in f.read().splitlines() if ln.startswith("Car"))
+        with open(os.path.join(roi_dir, name)) as f, open(os.path.join(out_dir, name), "w") as g:
+            g.write(gt + f.read())
+    return out_dir
+
+
+def _offline_step_against_cpu(cfg, data_root, rois, feats):
+    """One offline train step (a frame: ROI_PER_IMAGE rois sampled from its
+    proposals and gt boxes) on the card against the port's CPU path, from
+    the same seeded weights: _rcnn_against_cpu's tolerances."""
+    from pointrcnn_tpu_torch.data.rpn_dataset import KittiRCNNDataset
+    from pointrcnn_tpu_torch.train.optimizer import build_optimizer
+    from pointrcnn_tpu_torch.train.state import create_train_state, loss_and_grads
+    from pointrcnn_tpu_torch.train.trainer import batch_to_device
+
+    ds = KittiRCNNDataset(data_root, cfg, npoints=cfg.RPN.NUM_POINTS, split="train", mode="TRAIN",
+                          rcnn_training_roi_dir=rois, rcnn_training_feature_dir=feats)
+    batch = ds.collate_batch([ds.getitem(0, np.random.RandomState(0))])
+    state = create_train_state(cfg, build_optimizer(cfg, 1, 1), seed=1, device="cuda")
+    cpu_model = copy.deepcopy(state.model).cpu()
+    gl, gtb, gg = loss_and_grads(state.model, cfg, batch_to_device(batch, "cuda"))
+    t0 = time.perf_counter()
+    cl, _, cg = loss_and_grads(cpu_model, cfg, batch_to_device(batch, "cpu"))
+    log(f"offline step vs cpu: cpu reference step {time.perf_counter() - t0:.1f} s")
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in cg.values())))
+    card_norm = float(torch.sqrt(sum((g.double().cpu() ** 2).sum() for g in gg.values())))
+    e_loss, e_norm = abs(gl.item() / cl.item() - 1), abs(card_norm / gnorm - 1)
+    share = max(float((gg[k].cpu() - g).norm()) / gnorm for k, g in cg.items())
+    log(f"offline step vs cpu ({batch['pts_input'].shape[0]} rois, {int(gtb['rcnn_cls_fg'])} fg / "
+        f"{int(gtb['rcnn_cls_bg'])} bg, {int(gtb['rcnn_reg_fg'])} reg fg): loss {gl.item():.6f} vs "
+        f"{cl.item():.6f} (rel {e_loss:.2e}, tol {RCNN_LOSS_RTOL}), grad norm {card_norm:.6f} vs "
+        f"{gnorm:.6f} (rel {e_norm:.2e}, tol {RCNN_GNORM_RTOL}), worst gradient leaf {share:.2e} "
+        f"of the global norm (tol {RCNN_LEAF_SHARE})")
+    if not (int(gtb["rcnn_cls_fg"]) and int(gtb["rcnn_reg_fg"])):
+        raise AssertionError("offline step vs cpu: the sampled batch has no foreground")
+    if e_loss > RCNN_LOSS_RTOL or e_norm > RCNN_GNORM_RTOL or share > RCNN_LEAF_SHARE:
+        raise AssertionError("the card's offline step differs from the CPU path")
+
+
+def _offline_eval_against_cpu(cfg, data_root, rois, feats):
+    """One offline eval batch (EVAL_BATCH frames of smallval) from seeded
+    weights on the card against the port's CPU path: the pooled inputs,
+    the RCNN's outputs on them (OFFLINE_OUT_RTOL of their magnitude), and
+    the post-process on the card's outputs run on both (the same NMS
+    survivors in order, boxes to POST_BOX_RTOL)."""
+    from pointrcnn_tpu_torch.eval import evaluator
+    from pointrcnn_tpu_torch.eval.__main__ import ProposalDataset
+    from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
+
+    ds = ProposalDataset(data_root, cfg, npoints=cfg.RPN.NUM_POINTS, split="smallval",
+                         mode="EVAL", rcnn_eval_roi_dir=rois, rcnn_eval_feature_dir=feats)
+    frames = min(EVAL_BATCH, len(ds))
+    batch = ds.collate_batch([ds.getitem(i, np.random.RandomState(i)) for i in range(frames)])
+    model = PointRCNN(cfg, mode="TEST", generator=torch.Generator().manual_seed(1)).to("cuda")
+    model.eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    args = [torch.from_numpy(batch[k]) for k in evaluator.OFFLINE_INPUTS]
+    with torch.inference_mode():
+        card_in = evaluator.rcnn_offline_inputs(cfg, *[a.cuda() for a in args[:-1]])
+        cpu_in = evaluator.rcnn_offline_inputs(cfg, *args[:-1])
+        e_in = (card_in.cpu() - cpu_in).abs().max().item()
+        scale_in = cpu_in.abs().max().item()
+        out = model({"pts_input": card_in})
         t0 = time.perf_counter()
-        data_root, db = prepare_train_cli(work)
-        log(f"train CLI data: {EVAL_FRAMES} frames and the train split's gt database "
-            f"({os.path.getsize(db)} bytes) in {time.perf_counter() - t0:.3f} s")
-        common = ["--cfg_file", os.path.join(REPO, "cfgs", "default.yaml"), "--data_root",
-                  data_root, "--gt_database", db, "--device", "cuda", "--ckpt_save_interval", "1"]
-        rpn = common + ["--train_mode", "rpn", "--batch_size", str(TRAIN_BATCH)]
-        run_a, rec_a, counts_a = _train_cli_run(
-            "rpn (a)", rpn + ["--epochs", "1", "--output_dir", os.path.join(work, "rpn")], card)
-        ckpt_a = os.path.join(run_a.ckpt_dir, "checkpoint_epoch_1")
-        _check_ckpt_loads("rpn (a)", ckpt_a, rpn_config(), rec_a, 1, run_a.it)
-        del rec_a
-        run_b, rec_b, counts_b = _train_cli_run(
-            "rpn resume (b)", rpn + ["--ckpt", ckpt_a, "--epochs", "2", "--train_with_eval",
-                                     "--output_dir", os.path.join(work, "resume")], card)
-        ckpt_b = os.path.join(run_b.ckpt_dir, "checkpoint_epoch_2")
-        if run_b.it != 2 * run_a.it or not np.isfinite(run_b.history[-1]["val_loss"]):
-            raise AssertionError(f"train CLI resume: it {run_b.it}, history {run_b.history}")
-        _check_ckpt_loads("rpn resume (b)", ckpt_b, rpn_config(), rec_b, 2, 2 * run_a.it)
-        del rec_b
-        run_c, rec_c, counts_c = _train_cli_run(
-            "rcnn (c)", common + ["--train_mode", "rcnn", "--batch_size", str(RCNN_BATCH),
-                                  "--rpn_ckpt", ckpt_b, "--epochs", "1",
-                                  "--output_dir", os.path.join(work, "rcnn")], card)
-        _check_ckpt_loads("rcnn (c)", os.path.join(run_c.ckpt_dir, "checkpoint_epoch_1"),
-                          rcnn_config(), rec_c, 1, run_c.it)
+        ref = cpu_model({"pts_input": card_in.cpu()})
+        log(f"offline eval vs cpu: cpu reference forward {time.perf_counter() - t0:.1f} s")
+        errs = {k: ((out[k].cpu() - ref[k]).abs().max().item(), ref[k].abs().max().item())
+                for k in ("rcnn_cls", "rcnn_reg")}
+        rois_t, valid = args[-2], args[-1]
+        card = {k: v.cpu() for k, v in evaluator.refine_postprocess(
+            cfg, rois_t.cuda(), valid.cuda(), out["rcnn_cls"], out["rcnn_reg"]).items()}
+        cpu = evaluator.refine_postprocess(cfg, rois_t, valid, out["rcnn_cls"].cpu(),
+                                           out["rcnn_reg"].cpu())
+    log(f"offline eval vs cpu (batch {frames}, {int(valid.sum())} valid of "
+        f"{valid.numel()} rois): pooled input max err {e_in:.3e} (scale {scale_in:.3e}); "
+        + ", ".join(f"{k} max err {e:.3e} (scale {sc:.3e})" for k, (e, sc) in errs.items())
+        + f" (tol {OFFLINE_OUT_RTOL} relative)")
+    if e_in > 1e-5 * scale_in or any(e > OFFLINE_OUT_RTOL * sc + 1e-6 for e, sc in errs.values()):
+        raise AssertionError("the card's offline eval forward differs from the CPU path")
+    same = (torch.equal(card["sel_valid"], cpu["sel_valid"])
+            and torch.equal(card["sel_idx"][card["sel_valid"]], cpu["sel_idx"][cpu["sel_valid"]]))
+    scale = cpu["pred_boxes3d"].abs().max().item()
+    err = (card["pred_boxes3d"] - cpu["pred_boxes3d"]).abs().max().item()
+    if not same or err > POST_BOX_RTOL * scale or not int(cpu["sel_valid"].sum()):
+        raise AssertionError(f"offline post-process card vs cpu: same survivors {same} (of "
+                             f"{int(cpu['sel_valid'].sum())}), boxes max err {err} (scale {scale})")
+    log(f"offline post-process card vs cpu (same network outputs): "
+        f"{int(cpu['sel_valid'].sum())} NMS survivors identical in order, pred_boxes3d max err "
+        f"{err:.3e} (scale {scale:.3e}, tol {POST_BOX_RTOL} relative)")
 
-        for what, run, counts, per in (("rpn (a)", run_a, counts_a, train_launches),
-                                       ("rcnn (c)", run_c, counts_c, rcnn_launches)):
-            want = {k: run.it * v // TRAIN_TIMED for k, v in per.items()}
-            if counts != want or any(v % TRAIN_TIMED for v in per.values()):
-                raise AssertionError(f"train CLI {what}: launches {counts}, not {run.it} times "
-                                     f"the step's {({k: v / TRAIN_TIMED for k, v in per.items()})}")
-        log(f"train CLI: rpn (a) and rcnn (c) launch every kernel {run_a.it} and {run_c.it} "
-            f"times the per-step counts of phase_train and phase_rcnn_train")
 
-        # (c): every RCNN parameter updated; the fixed RPN moved by the
-        # weight decay alone and its BN statistics still
-        model, before = rec_c["state"].model, rec_c["before"]
-        after = model.state_dict()
-        rcnn = [k for k, _ in model.named_parameters() if k.startswith("rcnn_net.")]
-        still = [k for k in rcnn if torch.equal(after[k], before[k])]
-        if still:
-            raise AssertionError(f"train CLI rcnn: RCNN parameters unchanged: {still}")
-        opt = build_optimizer(model.cfg, run_c.it, run_c.it)
-        rpn_params = [k for k, _ in model.named_parameters() if k.startswith("rpn.")]
-        for k in rpn_params:
-            if not torch.equal(after[k], decayed(before[k], opt, run_c.it)):
-                raise AssertionError(f"train CLI rcnn: RPN parameter {k} moved by "
-                                     f"{(after[k] - before[k]).abs().max().item()}, not by the "
-                                     f"weight decay alone")
-        moved_stats = [k for k, _ in model.named_buffers() if not torch.equal(after[k], before[k])]
-        if moved_stats:
-            raise AssertionError(f"train CLI rcnn: BN statistics moved: {moved_stats[:3]}")
-        log(f"train CLI rcnn (c): all {len(rcnn)} RCNN parameters updated; all "
-            f"{len(rpn_params)} RPN parameters moved by the weight decay alone (bit-equal), BN "
-            f"statistics unchanged")
-        return {"rpn": counts_a, "resume": counts_b, "rcnn": counts_c}
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+def phase_offline(launches, data_root, rpn_ckpt, card):
+    """The reference's offline recipe through the port's CLIs in-process on
+    the card, at cfgs/default.yaml as it stands, from the train CLI's rpn
+    run (b): (d) ``--eval_mode rpn --save_rpn_feature`` over the train split
+    (``TEST.RPN_POST_NMS_TOP_N`` 300, as the README's recipe) and over
+    smallval; (e) ``--train_mode rcnn_offline`` at batch 4, one epoch, with
+    ``--train_with_eval`` over the smallval dump, and (e') the same with
+    ``--worker_processes``; (f) ``--eval_mode rcnn_offline`` of (e)'s
+    checkpoint on smallval with the official AP.
+    Launches: (d) phase_default's per-forward RPN counts a batch; (e) K1,
+    K2 and K7 twice a step and K1, K2 twice a val batch; (f) K1 and K2
+    twice a batch; nothing else.  Then an offline step and an offline eval
+    batch from seeded weights against the CPU path.  ``launches``: phase_default's counts over
+    its forwards -> each run's launches."""
+    from pointrcnn_tpu_torch.entry import default_config
+    from pointrcnn_tpu_torch.eval.__main__ import main as eval_main
+
+    work = os.path.join(TRAIN_WORK_DIR, "offline")
+    cfg_file = os.path.join(REPO, "cfgs", "default.yaml")
+    base = ["--cfg_file", cfg_file, "--data_root", data_root, "--device", "cuda"]
+    counts, dirs = {}, {}
+    # (d): the RPN's share of a forward of phase_default, a batch
+    rpn_fwd = {k: v // len(CLOUD_SEEDS) - OFFLINE_FWD_LAUNCHES.get(k, 0)
+               for k, v in launches.items()}
+    for split, top_n in (("train", 300), ("smallval", None)):
+        out = os.path.join(work, f"dump_{split}")
+        sets = ["TEST.SPLIT", split] + (["TEST.RPN_POST_NMS_TOP_N", str(top_n)] if top_n else [])
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with eval_instruments() as rec:
+            ret = eval_main(base + ["--eval_mode", "rpn", "--rpn_ckpt", rpn_ckpt,
+                                    "--batch_size", str(EVAL_BATCH), "--save_rpn_feature",
+                                    "--output_dir", out, "--set", *sets])
+        run_s = time.perf_counter() - t0
+        counts[f"d_{split}"] = read_counts()
+        (e0, e1), n_frames = rec["epoch"][0], len(os.listdir(os.path.join(out, "rpn_result",
+                                                                            "data")))
+        rois = [sum(1 for _ in open(os.path.join(out, "rpn_result", "data", f)))
+                for f in sorted(os.listdir(os.path.join(out, "rpn_result", "data")))]
+        log(f"{card}: offline (d) rpn dump {split}: {n_frames} frames, {min(rois)}-{max(rois)} "
+            f"proposals a frame, epoch {1000 * (e1 - e0):.3f} ms ({n_frames / (e1 - e0):.3f} "
+            f"frames/s, files included), whole CLI run {run_s:.3f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; recall@0.5/0.7 "
+            f"{ret['recall_0.5']:.4f}/{ret['recall_0.7']:.4f}; launches {counts[f'd_{split}']}")
+        dirs[split] = (os.path.join(out, "rpn_result", "data"), os.path.join(out, "features"))
+        if counts[f"d_{split}"] != _expect(rpn_fwd, len(rec["enq"])):
+            raise AssertionError(f"offline (d) {split}: launches {counts[f'd_{split}']}, not "
+                                 f"{len(rec['enq'])} times the RPN's {rpn_fwd}")
+        if len(os.listdir(dirs[split][1])) != 5 * n_frames:
+            raise AssertionError(f"offline (d) {split}: {len(os.listdir(dirs[split][1]))} feature "
+                                 f"files for {n_frames} frames")
+
+    # (e)
+    flags = ["--rcnn_training_roi_dir", dirs["train"][0], "--rcnn_training_feature_dir",
+             dirs["train"][1], "--rcnn_eval_roi_dir", dirs["smallval"][0],
+             "--rcnn_eval_feature_dir", dirs["smallval"][1]]
+    run_e, rec_e, counts["e"] = _train_cli_run(
+        "rcnn_offline (e)", base + ["--train_mode", "rcnn_offline", "--batch_size",
+                                    str(RCNN_BATCH), "--epochs", "1", "--ckpt_save_interval", "1",
+                                    "--train_with_eval", "--output_dir",
+                                    os.path.join(work, "train"), *flags], card)
+    ckpt_e = os.path.join(run_e.ckpt_dir, "checkpoint_epoch_1")
+    ms_e, losses_e = rec_e["ms"], rec_e["losses"]
+    cfg = default_config(OFFLINE_MODE)
+    _check_ckpt_loads("rcnn_offline (e)", ckpt_e, cfg, rec_e, 1, run_e.it)
+    val_batches = -(-len(open(os.path.join(data_root, "KITTI", "ImageSets", "smallval.txt"))
+                         .read().split()) // RCNN_BATCH)
+    if not np.isfinite(run_e.history[-1]["val_loss"]):
+        raise AssertionError(f"offline (e): val loss {run_e.history[-1]}")
+    model, before = rec_e["state"].model, rec_e["before"]
+    moved = [k for k, v in model.state_dict().items() if not torch.equal(v, before[k])]
+    if hasattr(model, "rpn") or not moved:
+        raise AssertionError("offline (e): an RPN was built, or no parameter moved")
+    log(f"offline (e): {len(moved)} of {len(before)} RCNN parameters moved, no RPN; val loss "
+        f"{run_e.history[-1]['val_loss']:.6f} over {val_batches} batches")
+    del rec_e, model, before
+    # (e'): the same run with the loader in forked processes, not threads
+    # (its sampling and pooling are Python loops that hold the interpreter
+    # lock the step's launches need): the same batches, so the same losses
+    # and launches
+    run_p, rec_p, counts["e_processes"] = _train_cli_run(
+        "rcnn_offline (e') worker processes",
+        base + ["--train_mode", "rcnn_offline", "--batch_size", str(RCNN_BATCH), "--epochs", "1",
+                "--train_with_eval", "--worker_processes", "--output_dir",
+                os.path.join(work, "train_processes"), *flags], card)
+    log(f"offline (e) against (e'): median ms/step over steps 2-{run_e.it} threads "
+        f"{float(np.median(ms_e[1:])):.3f}, processes {float(np.median(rec_p['ms'][1:])):.3f}; "
+        f"epoch s {run_e.history[0]['seconds']:.3f} and {run_p.history[0]['seconds']:.3f}; the "
+        f"same losses: {losses_e == rec_p['losses']}")
+    del rec_p
+
+    # (f)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with eval_instruments() as rec:
+        ret = eval_main(base + ["--eval_mode", "rcnn_offline", "--ckpt", ckpt_e, "--batch_size",
+                                str(EVAL_BATCH), "--rcnn_eval_roi_dir", dirs["smallval"][0],
+                                "--rcnn_eval_feature_dir", dirs["smallval"][1],
+                                "--output_dir", os.path.join(work, "eval"),
+                                "--set", "TEST.SPLIT", "smallval"])
+    run_s = time.perf_counter() - t0
+    counts["f"] = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    final = os.path.join(work, "eval", "final_result", "data")
+    n_frames = len(open(os.path.join(data_root, "KITTI", "ImageSets", "smallval.txt"))
+                   .read().split())
+    scalars = {k: float(v) for k, v in ret.items()}
+    if len(os.listdir(final)) != n_frames or "Car_3d_easy" not in scalars \
+            or not all(np.isfinite(list(scalars.values()))):
+        raise AssertionError(f"offline (f): {len(os.listdir(final))} result files for {n_frames} "
+                             f"frames, {scalars}")
+    (e0, e1), enq = rec["epoch"][0], rec["enq"]
+    log(f"{card}: offline (f) eval smallval batch {EVAL_BATCH}: {n_frames / (e1 - e0):.3f} "
+        f"frames/s over the epoch of {n_frames} frames ({1000 * (e1 - e0):.3f} ms, loader to "
+        f"files), device step host spans ms [{', '.join(f'{1000 * (b - a):.3f}' for a, b in enq)}]"
+        f", whole CLI run {run_s:.3f} s, peak memory {peak / 2 ** 30:.3f} GiB; recall@0.5/0.7 "
+        f"{scalars['recall_0.5']:.4f}/{scalars['recall_0.7']:.4f}, Car 3d AP easy/moderate/hard "
+        f"{scalars['Car_3d_easy']:.4f}/{scalars['Car_3d_moderate']:.4f}/"
+        f"{scalars['Car_3d_hard']:.4f} (one epoch of training)")
+
+    want = {"e": _expect(OFFLINE_STEP_LAUNCHES, run_e.it), "f": _expect(OFFLINE_FWD_LAUNCHES,
+                                                                        len(enq))}
+    for name, n in _expect(OFFLINE_FWD_LAUNCHES, val_batches).items():
+        want["e"][name] += n
+    want["e_processes"] = want["e"]
+    for run in ("e", "e_processes", "f"):
+        if counts[run] != want[run]:
+            raise AssertionError(f"offline ({run}): launches {counts[run]}, not {want[run]}")
+    log(f"offline: (e) {run_e.it} steps and {val_batches} val batches, (f) {len(enq)} batches "
+        f"launch K1 and K2 twice a forward and K7 twice a step, no other kernel")
+    gt_rois = _with_gt_rois(data_root, dirs["train"][0], os.path.join(work, "gt_rois"))
+    _offline_step_against_cpu(cfg, data_root, gt_rois, dirs["train"][1])
+    _offline_eval_against_cpu(cfg, data_root, *dirs["smallval"])
+    return counts
+
 
 
 def main() -> int:
@@ -2279,22 +2610,32 @@ def main() -> int:
     ckpt = phase_train(train_launches)
     try:
         phase_rcnn_train(rcnn_launches, ckpt)
+        phase_no_rpn_features(launches, ckpt)
     finally:
         shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
-    train_cli_launches = phase_train_cli(train_launches, rcnn_launches, card)
+    try:
+        train_cli_launches, rpn_ckpt, data_root = phase_train_cli(train_launches, rcnn_launches,
+                                                                  card)
+        offline_launches = phase_offline(launches, data_root, rpn_ckpt, card)
+    finally:
+        shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
     # launches: the count of the eval forward's run, or for a kernel that
     # only a training stage runs, of that stage's run (the rpn stage's for
     # the gather backward, the rcnn stage's for the MLP backward);
     # train_launches and rcnn_train_launches: each training run's;
     # eval_cli_launches: the eval CLI's rcnn run's (64 frames, 16 batches);
     # train_cli_launches: the train CLI's runs' (rpn 4 steps, its resume 4
-    # steps and a val epoch, rcnn 16 steps)
+    # steps and a val epoch, rcnn 16 steps); offline_launches: the offline
+    # recipe's runs' (d_train, d_smallval: the rpn dumps; e: rcnn_offline 16
+    # steps and a val epoch; e_processes: the same with worker processes; f:
+    # the offline eval, 4 batches)
     rows = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name] if name in EVAL_KERNELS else
              (train_launches[name] if name in TRAIN_KERNELS else rcnn_launches[name]),
              "train_launches": train_launches[name], "rcnn_train_launches": rcnn_launches[name],
              "eval_cli_launches": eval_cli_launches[name],
              "train_cli_launches": {run: c[name] for run, c in train_cli_launches.items()},
+             "offline_launches": {run: c[name] for run, c in offline_launches.items()},
              **tallies[name].row()}
             for name, source, replaces, _, _ in KERNELS]
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")

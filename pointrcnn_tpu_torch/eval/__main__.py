@@ -8,7 +8,9 @@ Modes:
   rpn   — RPN-only eval: proposal recall, seg IoU, optional feature dump
           (--save_rpn_feature) for the offline RCNN stage interface
   rcnn  — full two-stage eval: recall, KITTI result files, official AP
-  rcnn_offline — not ported (ROADMAP A9): raises NotImplementedError
+  rcnn_offline — the RCNN alone over the proposals and features that an
+          rpn eval with --save_rpn_feature wrote (--rcnn_eval_roi_dir,
+          --rcnn_eval_feature_dir): recall, KITTI result files, official AP
 
 --eval_all evaluates every checkpoint in the ckpt dir (reference
 repeat_eval_ckpt / eval_all, eval_rcnn.py:729-841); each checkpoint's
@@ -27,6 +29,8 @@ import time
 
 import numpy as np
 import torch
+
+from pointrcnn_tpu_torch.data.rpn_dataset import KittiRCNNDataset
 
 
 def parse_args(argv=None):
@@ -124,21 +128,40 @@ def restore(args, model, ckpt_path, logger) -> int:
     return epoch
 
 
+class ProposalDataset(KittiRCNNDataset):
+    """The offline eval's dataset: a frame's saved proposals without their
+    scores.  Frames hold different counts of proposals; ``collate_batch``
+    pads the boxes (``roi_valid``) but stacks the scores as they are, which
+    fails on the first batch whose frames differ, and no step reads them
+    (``tools/eval.py`` stops there: ROADMAP C20)."""
+
+    def get_proposal_from_file(self, index: int) -> dict:
+        info = super().get_proposal_from_file(index)
+        del info["roi_scores"]
+        return info
+
+
 def eval_ckpt(args, cfg, ckpt_path, logger):
     from pointrcnn_tpu_torch.data.loader import DataLoader
-    from pointrcnn_tpu_torch.data.rpn_dataset import KittiRCNNDataset
-    from pointrcnn_tpu_torch.eval.evaluator import eval_one_epoch_joint, eval_one_epoch_rpn
+    from pointrcnn_tpu_torch.eval.evaluator import (
+        eval_one_epoch_joint,
+        eval_one_epoch_rcnn_offline,
+        eval_one_epoch_rpn,
+    )
     from pointrcnn_tpu_torch.eval.kitti_eval import evaluate
     from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
 
     np.random.seed(666 if args.eval_mode == "rcnn" else 1024)  # reference seeds
     split = cfg.TEST.SPLIT if not args.test else "test"
     mode = "TEST" if args.test else "EVAL"
-    dataset = KittiRCNNDataset(
+    dataset_cls = ProposalDataset if args.eval_mode == "rcnn_offline" else KittiRCNNDataset
+    dataset = dataset_cls(
         args.data_root, cfg, npoints=cfg.RPN.NUM_POINTS, split=split, mode=mode,
         classes=cfg.CLASSES, logger=logger, random_select=True,
+        rcnn_eval_roi_dir=args.rcnn_eval_roi_dir,
+        rcnn_eval_feature_dir=args.rcnn_eval_feature_dir,
         # per-point labels only feed the rpn evaluator's seg-IoU; skip the
-        # host label pass for the joint mode
+        # host label pass for the joint and offline modes
         rpn_eval_labels=(args.eval_mode == "rpn"),
     )
     loader = DataLoader(dataset, batch_size=args.batch_size, num_workers=args.workers,
@@ -163,10 +186,14 @@ def eval_ckpt(args, cfg, ckpt_path, logger):
         )
         return ret
 
-    ret, final_dir = eval_one_epoch_joint(
-        model, cfg, loader, out_root, logger,
-        test_mode=args.test, save_result=args.save_result,
-    )
+    if args.eval_mode == "rcnn_offline":
+        ret, final_dir = eval_one_epoch_rcnn_offline(model, cfg, loader, out_root, logger,
+                                                     test_mode=args.test)
+    else:
+        ret, final_dir = eval_one_epoch_joint(
+            model, cfg, loader, out_root, logger,
+            test_mode=args.test, save_result=args.save_result,
+        )
     if not args.test:
         split_file = os.path.join(args.data_root, "KITTI", "ImageSets", f"{split}.txt")
         label_dir = os.path.join(args.data_root, "KITTI", "object", "training", "label_2")
@@ -179,17 +206,20 @@ def eval_ckpt(args, cfg, ckpt_path, logger):
 
 def main(argv=None):
     args = parse_args(argv)
-    if (args.eval_mode == "rcnn_offline" or args.rcnn_eval_roi_dir
-            or args.rcnn_eval_feature_dir):
-        raise NotImplementedError("--eval_mode rcnn_offline: the offline RCNN is not ported "
-                                  "(ROADMAP A9)")
     from pointrcnn_tpu_torch.config import load_config, merge_from_list
     from pointrcnn_tpu_torch.train.checkpoint import list_checkpoints
     from pointrcnn_tpu_torch.utils.snapshot import backup_source
 
     cfg = load_config(args.cfg_file, args.set_cfgs)
-    overrides = ["RPN.ENABLED", "True"]
-    overrides += ["RCNN.ENABLED", "True" if args.eval_mode == "rcnn" else "False"]
+    if args.eval_mode == "rcnn_offline":
+        overrides = ["RPN.ENABLED", "False", "RCNN.ENABLED", "True",
+                     "RCNN.ROI_SAMPLE_JIT", "False"]
+        assert args.rcnn_eval_roi_dir and args.rcnn_eval_feature_dir, (
+            "rcnn_offline eval requires --rcnn_eval_roi_dir and --rcnn_eval_feature_dir"
+        )
+    else:
+        overrides = ["RPN.ENABLED", "True"]
+        overrides += ["RCNN.ENABLED", "True" if args.eval_mode == "rcnn" else "False"]
     cfg = merge_from_list(cfg, overrides)
 
     tag = os.path.splitext(os.path.basename(args.cfg_file))[0]

@@ -1,14 +1,16 @@
 """Detection evaluation pipelines (counterpart of
 ``pointrcnn_tpu/eval/evaluator.py``; reference tools/eval_rcnn.py:113-683).
 
-Each mode has an eval step that runs on the model's device: the forward,
-box decode, score threshold, the final rotated NMS a frame and the recall
-IoUs.  The host loop does file IO, recall accounting and the KITTI-format
+Each mode (joint, rpn, and the offline RCNN over saved proposals and
+features) has an eval step that runs on the model's device: the forward,
+box decode, score threshold, the final rotated NMS of a batch's frames and
+the recall IoUs.  The host loop does file IO, recall accounting and the KITTI-format
 output, one batch behind the device (:func:`_pipelined_epoch`).
 
 The post-process of each step is a function of the network's outputs
-(:func:`joint_postprocess`, :func:`rpn_postprocess`), so it can be run on
-outputs that were computed elsewhere.
+(:func:`joint_postprocess`, :func:`rpn_postprocess`,
+:func:`refine_postprocess`), so it can be run on outputs that were computed
+elsewhere.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ import os
 import numpy as np
 import torch
 
-from pointrcnn_tpu_torch.models.point_rcnn import num_classes_for
+from pointrcnn_tpu_torch.models.point_rcnn import canonical_transform, num_classes_for
 from pointrcnn_tpu_torch.models.proposal import proposal_layer
 from pointrcnn_tpu_torch.ops.iou3d import boxes_iou3d
 from pointrcnn_tpu_torch.ops.nms import nms_bev
+from pointrcnn_tpu_torch.ops.roipool3d import roipool3d
 from pointrcnn_tpu_torch.utils.box_coder import decode_bbox_target
 from pointrcnn_tpu_torch.utils.box_ops import boxes3d_to_bev
 from pointrcnn_tpu_torch.utils.np_geometry import boxes3d_to_corners3d
@@ -96,27 +99,24 @@ def save_rpn_features(result_dir, sample_id, seg_result, rpn_scores_raw,
     np.save(os.path.join(result_dir, "%06d_rawscore.npy" % sample_id), rpn_scores_raw)
 
 
-def joint_postprocess(cfg, out: dict, gt_boxes3d=None) -> dict:
-    """The joint eval step after the forward (reference eval_one_epoch_joint
-    body, eval_rcnn.py:459-630), on the two-stage TEST outputs ``out``:
-    the 2-class sigmoid head, or the multi-class softmax with the box
-    decoded on the predicted class's anchor (ranked by log softmax, not by
-    the raw logit, which the background logit shifts), the score threshold
-    and ``roi_valid``, the rotated final NMS a frame over all M boxes, and
-    with ``gt_boxes3d`` each gt box's best 3D IoU over the refined boxes
-    and over the rois."""
+def refine_postprocess(cfg, rois, roi_valid, rcnn_cls, rcnn_reg) -> dict:
+    """The RCNN's outputs on ``rois`` (B, M, 7) -> final boxes: the 2-class
+    sigmoid head, or the multi-class softmax with the box decoded on the
+    predicted class's anchor (ranked by log softmax, not by the raw logit,
+    which the background logit shifts), the score threshold and
+    ``roi_valid``, and the rotated final NMS over all M boxes of every
+    frame in one batched call (JAX vmaps it a frame)."""
     n_cls = num_classes_for(cfg)
-    rois = out["rois"]
     B, M = rois.shape[0], rois.shape[1]
-    rcnn_reg = out["rcnn_reg"].reshape(B, M, -1)
+    rcnn_reg = rcnn_reg.reshape(B, M, -1)
 
     if n_cls == 2:
-        raw_scores = out["rcnn_cls"].reshape(B, M)
+        raw_scores = rcnn_cls.reshape(B, M)
         norm_scores = torch.sigmoid(raw_scores)
         pred_cls = torch.zeros((B, M), dtype=torch.int32, device=rois.device)
         anchor = torch.as_tensor(cfg.CLS_MEAN_SIZE[0], device=rois.device)
     else:
-        logits = out["rcnn_cls"].reshape(B, M, n_cls)
+        logits = rcnn_cls.reshape(B, M, n_cls)
         probs = torch.softmax(logits, dim=-1)
         pred_cls = torch.argmax(probs[..., 1:], dim=-1).to(torch.int32)
         norm_scores = torch.max(probs[..., 1:], dim=-1).values
@@ -135,29 +135,33 @@ def joint_postprocess(cfg, out: dict, gt_boxes3d=None) -> dict:
         get_ry_fine=True,
     ).reshape(B, M, 7)
 
-    keep_score = (norm_scores > cfg.RCNN.SCORE_THRESH) & out["roi_valid"]
-    # every frame's NMS in one batched call (JAX vmaps it)
+    keep_score = (norm_scores > cfg.RCNN.SCORE_THRESH) & roi_valid
     sel_idx, sel_valid = nms_bev(boxes3d_to_bev(pred_boxes3d), raw_scores,
                                  thresh=cfg.RCNN.NMS_THRESH, pre_max=M, post_max=M,
                                  rotated=True, valid=keep_score)
+    return {"pred_boxes3d": pred_boxes3d, "raw_scores": raw_scores,
+            "norm_scores": norm_scores, "pred_cls": pred_cls, "sel_idx": sel_idx,
+            "sel_valid": sel_valid}
 
+
+def joint_postprocess(cfg, out: dict, gt_boxes3d=None) -> dict:
+    """The joint eval step after the forward (reference eval_one_epoch_joint
+    body, eval_rcnn.py:459-630), on the two-stage TEST outputs ``out``:
+    :func:`refine_postprocess`, and with ``gt_boxes3d`` each gt box's best
+    3D IoU over the refined boxes and over the rois."""
+    rois = out["rois"]
     result = {
         "rois": rois,
         "roi_scores_raw": out["roi_scores_raw"],
         "roi_valid": out["roi_valid"],
         "seg_result": out["seg_result"],
-        "pred_boxes3d": pred_boxes3d,
-        "raw_scores": raw_scores,
-        "norm_scores": norm_scores,
-        "pred_cls": pred_cls,
-        "sel_idx": sel_idx,
-        "sel_valid": sel_valid,
+        **refine_postprocess(cfg, rois, out["roi_valid"], out["rcnn_cls"], out["rcnn_reg"]),
         "rpn_cls": out["rpn_cls"],
         "backbone_xyz": out["backbone_xyz"],
         "backbone_features": out["backbone_features"],
     }
     if gt_boxes3d is not None:
-        result["gt_max_iou"] = boxes_iou3d(pred_boxes3d, gt_boxes3d).max(dim=1).values
+        result["gt_max_iou"] = boxes_iou3d(result["pred_boxes3d"], gt_boxes3d).max(dim=1).values
         result["roi_gt_max_iou"] = boxes_iou3d(rois, gt_boxes3d).max(dim=1).values
     return result
 
@@ -206,6 +210,47 @@ def build_rpn_eval_step(model, cfg, with_gt: bool):
         with torch.inference_mode():
             out = model({"pts_input": pts_input})
             return rpn_postprocess(cfg, model.mode, out, gt_boxes3d if with_gt else None)
+
+    return step
+
+
+def rcnn_offline_inputs(cfg, rpn_xyz, rpn_features, rpn_intensity, seg_mask, pts_depth, rois):
+    """The RCNN's input from saved RPN outputs: each roi's pooled points
+    (xyz, [intensity,] seg mask, [depth,] RPN features) in its canonical
+    frame -> pts_input (B * M, NUM_POINTS, C)."""
+    extra = [seg_mask[..., None]]
+    if cfg.RCNN.USE_INTENSITY:
+        extra.insert(0, rpn_intensity[..., None])
+    if cfg.RCNN.USE_DEPTH:
+        extra.append((pts_depth / 70.0 - 0.5)[..., None])
+    pts_feature = torch.cat(extra + [rpn_features], dim=-1)
+    pooled, _ = roipool3d(rpn_xyz, pts_feature, rois, cfg.RCNN.POOL_EXTRA_WIDTH,
+                          cfg.RCNN.NUM_POINTS, method=cfg.RCNN.ROIPOOL_METHOD)
+    pooled = torch.cat([canonical_transform(pooled[..., 0:3], rois), pooled[..., 3:]], dim=-1)
+    B, M = rois.shape[0], rois.shape[1]
+    return pooled.reshape(B * M, cfg.RCNN.NUM_POINTS, -1)
+
+
+def build_rcnn_offline_eval_step(model, cfg, with_gt: bool):
+    """The RCNN-only eval step over saved RPN proposals and features
+    ``(rpn_xyz, rpn_features, rpn_intensity, seg_mask, pts_depth, rois,
+    roi_valid[, gt_boxes3d]) -> outputs`` on the model's device (reference
+    eval_one_epoch_rcnn, eval_rcnn.py:256-456): roipool and the canonical
+    transform, the RCNN, :func:`refine_postprocess`, and with ``gt_boxes3d``
+    each gt box's best 3D IoU over the refined boxes of valid rois (a
+    padded roi never counts)."""
+
+    def step(rpn_xyz, rpn_features, rpn_intensity, seg_mask, pts_depth, rois, roi_valid,
+             gt_boxes3d=None):
+        with torch.inference_mode():
+            pts_input = rcnn_offline_inputs(cfg, rpn_xyz, rpn_features, rpn_intensity,
+                                            seg_mask, pts_depth, rois)
+            out = model({"pts_input": pts_input})
+            result = refine_postprocess(cfg, rois, roi_valid, out["rcnn_cls"], out["rcnn_reg"])
+            if with_gt and gt_boxes3d is not None:
+                iou = boxes_iou3d(result["pred_boxes3d"], gt_boxes3d)
+                result["gt_max_iou"] = torch.where(roi_valid[..., None], iou, 0.0).max(dim=1).values
+            return result
 
     return step
 
@@ -435,3 +480,72 @@ def eval_one_epoch_rpn(model, cfg, loader, result_dir, logger=None, test_mode=Fa
     if seg_cnt > 0:
         ret["rpn_seg_iou"] = seg_iou_sum / seg_cnt
     return ret, rpn_output_dir
+
+
+OFFLINE_INPUTS = ("rpn_xyz", "rpn_features", "rpn_intensity", "seg_mask", "pts_depth",
+                  "roi_boxes3d", "roi_valid")
+
+
+def eval_one_epoch_rcnn_offline(model, cfg, loader, result_dir, logger=None, test_mode=False):
+    """RCNN refinement over saved proposals (reference eval_rcnn.py:256-456):
+    recall of the refined boxes, the KITTI result files, an empty file for
+    each frame without a detection."""
+    logger = logger or logging.getLogger(__name__)
+    dataset = loader.dataset
+    device = _device(model)
+    final_output_dir = os.path.join(result_dir, "final_result", "data")
+    os.makedirs(final_output_dir, exist_ok=True)
+
+    with_gt = not test_mode
+    step = build_rcnn_offline_eval_step(model, cfg, with_gt)
+    total_recalled = np.zeros(len(THRESH_LIST), np.int64)
+    total_gt = 0
+
+    fetch = ["pred_boxes3d", "raw_scores", "pred_cls", "sel_idx", "sel_valid"]
+    if with_gt:
+        fetch += ["gt_max_iou"]
+
+    def enqueue(batch):
+        dev = _put(batch, OFFLINE_INPUTS + ("gt_boxes3d",), device)
+        args = [dev[k] for k in OFFLINE_INPUTS]
+        out = step(*args, dev["gt_boxes3d"]) if with_gt and "gt_boxes3d" in dev else step(*args)
+        return {k: out[k] for k in fetch if k in out}
+
+    def process(batch, out):
+        nonlocal total_gt
+        B = batch["rpn_xyz"].shape[0]
+        if with_gt and "gt_max_iou" in out:
+            for k in range(B):
+                v = batch["gt_valid"][k]
+                if v.sum() == 0:
+                    continue
+                gmi = out["gt_max_iou"][k][v]
+                for i, th in enumerate(THRESH_LIST):
+                    total_recalled[i] += int((gmi > th).sum())
+                total_gt += int(v.sum())
+
+        for k in range(B):
+            sel = out["sel_idx"][k][out["sel_valid"][k]]
+            if sel.size == 0:
+                continue
+            sample_id = int(batch["sample_id"][k])
+            calib = dataset.get_calib(sample_id)
+            img_shape = dataset.get_image_shape(sample_id)
+            save_kitti_format(
+                sample_id, calib, out["pred_boxes3d"][k][sel], final_output_dir,
+                out["raw_scores"][k][sel], img_shape, class_name=cfg.CLASSES,
+                pred_cls=out["pred_cls"][k][sel],
+            )
+
+    _pipelined_epoch(loader, enqueue, process)
+
+    for s in dataset.image_idx_list:
+        path = os.path.join(final_output_dir, "%06d.txt" % int(s))
+        if not os.path.exists(path):
+            open(path, "w").close()
+
+    ret = {"total_gt_bbox": max(total_gt, 1)}
+    for i, th in enumerate(THRESH_LIST):
+        ret[f"recall_{th}"] = total_recalled[i] / max(total_gt, 1)
+        logger.info("rcnn recall@%.1f: %.4f", th, ret[f"recall_{th}"])
+    return ret, final_output_dir

@@ -1,7 +1,9 @@
 """Top-level two-stage detector (counterpart of
 ``pointrcnn_tpu/models/point_rcnn.py``): the TEST forward, the TRAIN forward
-of the ``rpn`` stage (``RCNN.ENABLED`` False) and of the ``rcnn`` stage
-(online proposals and targets)."""
+of the ``rpn`` stage (``RCNN.ENABLED`` False), of the ``rcnn`` stage
+(online proposals and targets) and the offline RCNN (``RPN.ENABLED``
+False: the data layer's pooled points and RPN features go straight to the
+RCNN)."""
 
 from __future__ import annotations
 
@@ -43,25 +45,25 @@ class PointRCNN(nn.Module):
     With ``RPN.FIXED`` the RPN stays in eval mode whatever ``train()`` is
     told (running BN statistics, the eval kernels) and runs without
     gradients, as JAX's ``rpn_train = train and not cfg.RPN.FIXED`` under
-    ``stop_gradient``.  Not ported, and raising: the offline RCNN
-    (``RPN.ENABLED`` False)."""
+    ``stop_gradient``.  With ``RPN.ENABLED`` False (the offline RCNN) there
+    is no RPN: the forward concatenates the batch's ``pts_input`` and
+    ``pts_features`` and returns the RCNN's outputs."""
 
     def __init__(self, cfg, num_classes: int | None = None, mode: str = "TEST",
                  generator: torch.Generator | None = None):
         super().__init__()
         if mode not in ("TEST", "TRAIN"):
             raise ValueError(f"mode must be 'TEST' or 'TRAIN', got {mode!r}")
-        if not cfg.RPN.ENABLED:
-            raise NotImplementedError("RPN.ENABLED False (offline RCNN) is not ported")
         self.cfg, self.mode = cfg, mode
-        self.rpn = RPN(cfg, gen=generator)
+        if cfg.RPN.ENABLED:
+            self.rpn = RPN(cfg, gen=generator)
         if cfg.RCNN.ENABLED:
             self.rcnn_net = RCNNNet(cfg, num_classes or num_classes_for(cfg), gen=generator)
         self.train(mode == "TRAIN")
 
     def train(self, mode: bool = True):
         super().train(mode)
-        if self.cfg.RPN.FIXED:
+        if self.cfg.RPN.ENABLED and self.cfg.RPN.FIXED:
             self.rpn.train(False)
         return self
 
@@ -72,6 +74,11 @@ class PointRCNN(nn.Module):
         layer takes ``targets`` (:func:`~pointrcnn_tpu_torch.models.target.target_draws`),
         else draws them from ``target_generator``."""
         cfg = self.cfg
+        if not cfg.RPN.ENABLED:
+            pts_input = input_data["pts_input"]
+            if "pts_features" in input_data:
+                pts_input = torch.cat([pts_input, input_data["pts_features"]], dim=-1)
+            return self.rcnn_net(pts_input, generator)
         no_grad = torch.no_grad() if cfg.RPN.FIXED else contextlib.nullcontext()
         with no_grad:
             output = dict(self.rpn(input_data["pts_input"], generator))

@@ -1,7 +1,9 @@
 """Stage-2 box refinement network (counterpart of
 ``pointrcnn_tpu/models/rcnn.py``).  Input (R, num_points, C), channel-last:
 canonical xyz, extra channels (mask, depth [, intensity]) and the 128 RPN
-features."""
+features.  With ``RCNN.USE_RPN_FEATURES`` False there is no
+``xyz_up_layer`` or ``merge_down_layer``: SA1 takes every channel after xyz
+as its features (none for a 3-channel input), as JAX's module does."""
 
 from __future__ import annotations
 
@@ -24,17 +26,21 @@ class RCNNNet(nn.Module):
         super().__init__()
         c = cfg.RCNN
         dtype = compute_dtype(cfg)
-        if not c.USE_RPN_FEATURES:
-            raise NotImplementedError("RCNN.USE_RPN_FEATURES False is not ported")
         self.in_ch = rcnn_input_channels(cfg)
-        up = c.XYZ_UP_LAYER
-        self.xyz_up_layer = SharedMLP(self.in_ch, up, bn=c.USE_BN, kernel_init=xavier_normal,
-                                      dtype=dtype, gen=gen)
-        self.merge_down_layer = SharedMLP(up[-1] + cfg.RPN.FP_MLPS[0][-1], (up[-1],), bn=c.USE_BN,
-                                          kernel_init=xavier_normal, dtype=dtype, gen=gen)
+        self.use_rpn_features = bool(c.USE_RPN_FEATURES)
+        rpn_ch = cfg.RPN.FP_MLPS[0][-1]
+        if self.use_rpn_features:
+            up = c.XYZ_UP_LAYER
+            self.xyz_up_layer = SharedMLP(self.in_ch, up, bn=c.USE_BN, kernel_init=xavier_normal,
+                                          dtype=dtype, gen=gen)
+            self.merge_down_layer = SharedMLP(up[-1] + rpn_ch, (up[-1],), bn=c.USE_BN,
+                                              kernel_init=xavier_normal, dtype=dtype, gen=gen)
+            cin = up[-1]
+        else:
+            # the input's channels after xyz: the extras and the RPN features
+            cin = self.in_ch - 3 + rpn_ch
         sa = c.SA_CONFIG
         self.n_sa = len(sa.NPOINTS)
-        cin = up[-1]
         for k in range(self.n_sa):
             self.add_module(f"SetAbstraction_{k}", SetAbstraction(
                 cin, sa.NPOINTS[k] if sa.NPOINTS[k] != -1 else None, sa.RADIUS[k],
@@ -59,9 +65,13 @@ class RCNNNet(nn.Module):
         where admitted (BN-free), and ``generator`` draws the heads' dropout
         masks (``RCNN.DP_RATIO``)."""
         xyz = pts_input[..., 0:3].contiguous()
-        xyz_feature = self.xyz_up_layer(pts_input[..., 0:self.in_ch])
-        merged = torch.cat([xyz_feature, pts_input[..., self.in_ch:]], dim=-1)
-        l_xyz, l_features = xyz, self.merge_down_layer(merged)
+        if self.use_rpn_features:
+            xyz_feature = self.xyz_up_layer(pts_input[..., 0:self.in_ch])
+            merged = torch.cat([xyz_feature, pts_input[..., self.in_ch:]], dim=-1)
+            features = self.merge_down_layer(merged)
+        else:
+            features = pts_input[..., 3:].contiguous() if pts_input.shape[-1] > 3 else None
+        l_xyz, l_features = xyz, features
         for k in range(self.n_sa):
             l_xyz, l_features = getattr(self, f"SetAbstraction_{k}")(l_xyz, l_features)
         return {"rcnn_cls": self.cls_head(l_features, generator)[:, 0, :],

@@ -7,7 +7,7 @@ the official 11-point AP), and print the metric dict as one JSON line.
     python -m pointrcnn_tpu_torch.tools.ap_gate [--striped] [--people] [--device cpu]
 
 The recipe is ``tests/test_ap_convergence.py``'s: 24 fixture frames, batch
-4, 250 rpn and 150 rcnn epochs, ``tests/cfgs_ap.yaml`` (Car) or
+4, 250 rpn and 160 rcnn epochs, ``tests/cfgs_ap.yaml`` (Car) or
 ``tests/cfgs_ap_people.yaml`` (``--people``: Pedestrian + Cyclist); the
 fixture's design is explained in ``tools/ap_gate.py``.  ``--striped``
 scales it to 4096 points (``STRIPED_SET``) so the shipping approximations
@@ -62,7 +62,7 @@ def launch_counts() -> dict:
             "ball_query_banded": cuda_ballquery.banded_launches}
 
 
-def run_gate(work=WORK, rpn_epochs=250, rcnn_epochs=150, num_samples=24,
+def run_gate(work=WORK, rpn_epochs=250, rcnn_epochs=160, num_samples=24,
              batch_size=4, fresh=False, set_cfgs=None, n_points=1100,
              pts_per_obj=300, cfg_file=AP_CFG, classes=("Car", "Car"), device="cuda",
              seed=0):
@@ -103,7 +103,8 @@ def run_gate(work=WORK, rpn_epochs=250, rcnn_epochs=150, num_samples=24,
     if not logger.handlers:
         logger.addHandler(logging.StreamHandler())
     eargs = argparse.Namespace(
-        eval_mode="rcnn", rpn_ckpt=None, rcnn_ckpt=None, test=False, batch_size=batch_size,
+        eval_mode="rcnn", rcnn_eval_roi_dir=None, rcnn_eval_feature_dir=None, rpn_ckpt=None,
+        rcnn_ckpt=None, test=False, batch_size=batch_size,
         workers=1, worker_processes=False, data_root=root,
         output_dir=os.path.join(work, "eval"), save_rpn_feature=False, save_result=False,
         device=device,
@@ -116,7 +117,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--work", type=str, default=WORK)
     p.add_argument("--rpn_epochs", type=int, default=250)
-    p.add_argument("--rcnn_epochs", type=int, default=150)
+    p.add_argument("--rcnn_epochs", type=int, default=160)
     p.add_argument("--num_samples", type=int, default=24)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--device", type=str, default="cuda")

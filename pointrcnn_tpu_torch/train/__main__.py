@@ -8,12 +8,19 @@ tools/train_rcnn.py), on the card unless ``--device`` says otherwise:
 Modes (reference train_rcnn.py:151-164):
   rpn   — train stage 1
   rcnn  — train stage 2 online (frozen RPN weights via --rpn_ckpt)
-  rcnn_offline — not ported (ROADMAP A9): raises NotImplementedError, as
-          do the four --rcnn_*_dir flags
+  rcnn_offline — train stage 2 over the proposals and features that an rpn
+          eval with --save_rpn_feature wrote (--rcnn_training_roi_dir,
+          --rcnn_training_feature_dir; with --train_with_eval also
+          --rcnn_eval_roi_dir, --rcnn_eval_feature_dir)
 
 What ``tools/train.py`` does that this CLI leaves out:
 - the data-parallel mesh over every device that divides the batch: this
   CLI trains on one device (data parallel is ROADMAP A8);
+- in ``rcnn_offline`` mode the val epoch's dataset: ``tools/train.py``
+  gives it the saved proposals of the val split without targets, and its
+  first val epoch fails (ROADMAP C18); this CLI samples the val split's
+  rois as the training set's (``AUG_DATA`` off) so the loss-only val epoch
+  has its targets;
 - the tensorboard writer: ``tensorboardX`` is no dependency of the port,
   and ``tools/train.py`` skips the writer where it is absent.  The log
   (``log_train.txt``) has each epoch's steps, time and last loss, and the
@@ -78,11 +85,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> TrainRun:
     args = parse_args(argv)
-    if (args.train_mode == "rcnn_offline" or args.rcnn_training_roi_dir
-            or args.rcnn_training_feature_dir or args.rcnn_eval_roi_dir
-            or args.rcnn_eval_feature_dir):
-        raise NotImplementedError("--train_mode rcnn_offline: the offline RCNN is not ported "
-                                  "(ROADMAP A9)")
     from pointrcnn_tpu_torch.config import format_config, load_config, merge_from_list
     from pointrcnn_tpu_torch.data.loader import DataLoader
     from pointrcnn_tpu_torch.data.rpn_dataset import KittiRCNNDataset
@@ -99,8 +101,15 @@ def main(argv=None) -> TrainRun:
     # mode switch (reference train_rcnn.py:151-164)
     if args.train_mode == "rpn":
         overrides = ["RPN.ENABLED", "True", "RCNN.ENABLED", "False"]
-    else:
+    elif args.train_mode == "rcnn":
         overrides = ["RPN.ENABLED", "True", "RPN.FIXED", "True", "RCNN.ENABLED", "True"]
+    else:  # rcnn_offline: stage 2 over saved RPN proposals and features
+        overrides = ["RPN.ENABLED", "False", "RCNN.ENABLED", "True",
+                     "RCNN.ROI_SAMPLE_JIT", "False"]
+        assert args.rcnn_training_roi_dir and args.rcnn_training_feature_dir, (
+            "rcnn_offline requires --rcnn_training_roi_dir and --rcnn_training_feature_dir "
+            "(written by python -m pointrcnn_tpu_torch.eval --eval_mode rpn --save_rpn_feature)"
+        )
     cfg = merge_from_list(cfg, overrides)
     root_result_dir = args.output_dir or os.path.join("output", args.train_mode, tag)
     os.makedirs(root_result_dir, exist_ok=True)
@@ -113,6 +122,8 @@ def main(argv=None) -> TrainRun:
     train_set = KittiRCNNDataset(
         args.data_root, cfg, npoints=cfg.RPN.NUM_POINTS, split=cfg.TRAIN.SPLIT,
         mode="TRAIN", classes=cfg.CLASSES, gt_database_path=gt_db, logger=logger,
+        rcnn_training_roi_dir=args.rcnn_training_roi_dir,
+        rcnn_training_feature_dir=args.rcnn_training_feature_dir,
     )
     train_loader = DataLoader(
         train_set, batch_size=args.batch_size, shuffle=True,
@@ -120,11 +131,27 @@ def main(argv=None) -> TrainRun:
         use_processes=args.worker_processes,
     )
     val_loader = None
-    if args.train_with_eval:
+    if args.train_with_eval and args.train_mode == "rcnn_offline":
+        # the loss-only val epoch needs targets: the val split's saved rois
+        # are sampled and pooled as the training set's are, with no
+        # augmentation (tools/train.py hands it the proposals alone, and its
+        # first val epoch stops on the missing pts_input: ROADMAP C18)
+        assert args.rcnn_eval_roi_dir and args.rcnn_eval_feature_dir, (
+            "rcnn_offline --train_with_eval requires --rcnn_eval_roi_dir and "
+            "--rcnn_eval_feature_dir")
+        val_set = KittiRCNNDataset(
+            args.data_root, merge_from_list(cfg, ["AUG_DATA", "False"]),
+            npoints=cfg.RPN.NUM_POINTS, split=cfg.TRAIN.VAL_SPLIT, mode="TRAIN",
+            classes=cfg.CLASSES, logger=logger,
+            rcnn_training_roi_dir=args.rcnn_eval_roi_dir,
+            rcnn_training_feature_dir=args.rcnn_eval_feature_dir,
+        )
+    elif args.train_with_eval:
         val_set = KittiRCNNDataset(
             args.data_root, cfg, npoints=cfg.RPN.NUM_POINTS, split=cfg.TRAIN.VAL_SPLIT,
             mode="EVAL", classes=cfg.CLASSES, logger=logger,
         )
+    if args.train_with_eval:
         val_loader = DataLoader(val_set, batch_size=args.batch_size, num_workers=args.workers,
                                 use_processes=args.worker_processes)
 

@@ -144,10 +144,13 @@ def get_rcnn_loss(cfg, rcnn_cls, rcnn_reg, target: dict):
 
 
 def model_loss(cfg, outputs: dict, batch: dict):
-    """The RPN loss of ``outputs`` unless the RPN is fixed, with labels from
-    the batch or made on the device from ``pts_input``, ``gt_boxes3d`` and
-    ``gt_valid``; plus the RCNN loss, on the targets the forward sampled."""
-    loss = torch.zeros((), dtype=torch.float32, device=outputs["rpn_cls"].device)
+    """The RPN loss of ``outputs`` unless the RPN is fixed or off, with
+    labels from the batch or made on the device from ``pts_input``,
+    ``gt_boxes3d`` and ``gt_valid``; plus the RCNN loss, on the targets the
+    forward sampled or, offline (``RCNN.ROI_SAMPLE_JIT`` False or no RPN),
+    the batch's."""
+    head = outputs["rpn_cls"] if "rpn_cls" in outputs else outputs["rcnn_cls"]
+    loss = torch.zeros((), dtype=torch.float32, device=head.device)
     tb = {}
     if cfg.RPN.ENABLED and not cfg.RPN.FIXED:
         if "rpn_cls_label" in batch:

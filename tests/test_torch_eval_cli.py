@@ -10,7 +10,8 @@ the CPU (``--device cpu``), on a mini-KITTI fixture tree (4 frames).
   modes, ``--rpn_ckpt`` + ``--rcnn_ckpt`` (equal to one merged
   checkpoint), ``--eval_all`` with ``--start_epoch``, ``--test`` (no
   labels, no AP), the ``--save_result`` and ``--save_rpn_feature`` trees,
-  ``--extra_tag``; ``rcnn_offline`` raises.
+  ``--extra_tag``; ``rcnn_offline`` and the ``--rcnn_eval_*_dir`` flags
+  run.
 - ``chip_smoke.py``'s eval phase's inputs (its KITTI tree, a port
   checkpoint) through the CLI on the CPU at TINY widths.
 """
@@ -201,11 +202,32 @@ def test_cli_test_split_and_extra_tag(tree, tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ["--eval_mode", "rcnn_offline"],
-    ["--eval_mode", "rcnn", "--rcnn_eval_roi_dir", "rois", "--rcnn_eval_feature_dir", "f"]])
-def test_cli_offline_raises(tmp_path, args):
-    with pytest.raises(NotImplementedError, match="offline RCNN is not ported"):
-        main(["--cfg_file", TINY_CFG, "--output_dir", str(tmp_path), *args])
+    ["--eval_mode", "rcnn_offline", "--rcnn_eval_roi_dir", "ROIS", "--rcnn_eval_feature_dir", "F"],
+    ["--eval_mode", "rcnn", "--rcnn_eval_roi_dir", "ROIS", "--rcnn_eval_feature_dir", "F"],
+    ["--eval_mode", "rcnn_offline", "--rcnn_eval_roi_dir", "ROIS"]],
+    ids=["offline", "rcnn-dirs", "offline-no-features"])
+def test_cli_offline_raises(tree, tmp_path, args):
+    """``--eval_mode rcnn_offline`` and the ``--rcnn_eval_*_dir`` flags,
+    ported (they raised before the offline RCNN was): the offline eval over
+    an rpn run's dump writes a result file for every frame with recall and
+    AP, and without both dirs fails as ``tools/eval.py`` does; ``rcnn`` mode
+    reads no dir.  Its parity with ``tools/eval.py`` is
+    ``test_torch_offline_cli.py``."""
+    rpn_ck, _ = port_ckpt(str(tmp_path / "rpn_ckpt"), TINY_CFG, 1, seed=2, rcnn=False)
+    run(tree, tmp_path / "rpn", "--eval_mode", "rpn", "--ckpt", rpn_ck, "--save_rpn_feature")
+    dirs = {"ROIS": str(tmp_path / "rpn" / "rpn_result" / "data"),
+            "F": str(tmp_path / "rpn" / "features")}
+    args = [dirs.get(a, a) for a in args]
+    if "--rcnn_eval_feature_dir" not in args:
+        with pytest.raises(AssertionError, match="rcnn_offline eval requires"):
+            main(["--cfg_file", TINY_CFG, "--output_dir", str(tmp_path), *args])
+        return
+    # a joint checkpoint: the offline model (no RPN) restores its RCNN
+    ck, _ = port_ckpt(str(tmp_path / "ckpt"), TINY_CFG, 3, seed=3)
+    ret = run(tree, tmp_path / "out", *args, "--rpn_ckpt", ck, "--rcnn_ckpt", ck)
+    assert "Car_3d_easy" in ret and np.isfinite(ret["recall_0.7"])
+    assert len(os.listdir(tmp_path / "out" / "final_result" / "data")) == 4
+    assert ("final_total" in ret) == ("rcnn" in args)
 
 
 def test_kitti_eval_cli_matches_tools_evaluate(tree, tmp_path, capsys, monkeypatch):

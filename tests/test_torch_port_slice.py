@@ -338,12 +338,16 @@ def test_weight_bridge_rejects_mismatched_trees():
 
 @pytest.mark.parametrize("override", [["RCNN.USE_RPN_FEATURES", "False"]])
 def test_unported_config_values_raise(override):
-    """Config values the port does not run raise when the model is built
-    (rotated NMS, ``RPN.NMS_TYPE rotate``, is ported:
-    ``tests/test_torch_eval_nms.py``)."""
+    """Config values that raised before they were ported now build and run:
+    ``RCNN.USE_RPN_FEATURES`` False (no up or merge layer; its parity with
+    JAX is ``tests/test_torch_offline_model.py``).  Rotated NMS, ``RPN.NMS_TYPE
+    rotate``, is held to JAX's in ``tests/test_torch_eval_nms.py``."""
     cfg = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["COMPUTE_DTYPE", "float32"] + override)
-    with pytest.raises(NotImplementedError, match=override[0]):
-        PointRCNN(cfg, generator=torch.Generator().manual_seed(0))
+    model = PointRCNN(cfg, generator=torch.Generator().manual_seed(0))
+    assert not hasattr(model.rcnn_net, "xyz_up_layer")
+    with torch.inference_mode():
+        out = model({"pts_input": torch.from_numpy(synthetic_cloud(1, cfg.RPN.NUM_POINTS, seed=0))})
+    assert torch.isfinite(out["rcnn_cls"]).all() and torch.isfinite(out["rcnn_reg"]).all()
 
 
 def _plain(node):
@@ -368,14 +372,16 @@ def test_port_config_equals_jax_config(name):
 
 def test_training_mode_raises():
     """Both training stages are ported (``tests/test_torch_train_*.py``,
-    ``tests/test_torch_rcnn_*.py``); the offline RCNN (RPN disabled) still
-    raises.  Rotated NMS (``NMS_TYPE: rotate``) is ported and runs in the
+    ``tests/test_torch_rcnn_*.py``), and so is the offline RCNN (RPN
+    disabled), which raised before: it builds no RPN and starts in the
+    mode's training state (``tests/test_torch_offline_model.py`` holds it to
+    JAX's).  Rotated NMS (``NMS_TYPE: rotate``) is ported and runs in the
     rcnn stage's forward (``tests/test_torch_eval_nms.py`` holds it to
     JAX's)."""
     offline = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RPN.ENABLED", "False"])
     for mode in ("TRAIN", "TEST"):
-        with pytest.raises(NotImplementedError, match="offline RCNN"):
-            PointRCNN(offline, mode=mode)
+        model = PointRCNN(offline, mode=mode)
+        assert not hasattr(model, "rpn") and model.training == (mode == "TRAIN")
     rotate = load_config(str(_CFG), EXACT_OVERRIDES + TINY + ["RPN.NMS_TYPE", "rotate",
                                                                "RPN.FIXED", "True"])
     model = PointRCNN(rotate, mode="TRAIN", generator=torch.Generator().manual_seed(0))

@@ -242,8 +242,9 @@ def test_opt_state_bridge_rejects_mismatches():
 def test_port_imports_nothing_of_jax():
     """The train package, the target layer, the IoU module, the entry points,
     the profilers, the data pipeline, the evaluators and their CLIs, the
-    train CLI, the data tools and the AP gate, the host-op and geometry
-    copies, the snapshot and chip_smoke.py import neither jax nor the JAX
+    train CLI, the data tools and the AP gate, the reference-checkpoint
+    converter and the TPU record's eval, the host-op and geometry copies,
+    the snapshot and chip_smoke.py import neither jax nor the JAX
     package."""
     code = (
         "import sys\n"
@@ -263,6 +264,8 @@ def test_port_imports_nothing_of_jax():
         "import pointrcnn_tpu_torch.train.__main__, pointrcnn_tpu_torch.tools.ap_gate\n"
         "import pointrcnn_tpu_torch.tools.fixture, pointrcnn_tpu_torch.tools.generate_aug_scene\n"
         "import pointrcnn_tpu_torch.tools.generate_gt_database\n"
+        "import pointrcnn_tpu_torch.tools.convert_torch_ckpt\n"
+        "import pointrcnn_tpu_torch.tools.eval_tpu_record\n"
         "assert pointrcnn_tpu_torch.utils.native.get_lib() is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'optax', 'pointrcnn_tpu'))\n"

@@ -18,8 +18,9 @@ fixture tree, batch 2 (3 steps an epoch).
 - rcnn mode from ``--rpn_ckpt``: every step's loss equals a loop of the
   port's ``make_train_step`` over the same loader batches, and the fixed
   RPN moves by the weight decay alone (ROADMAP C10).
-- ``rcnn_offline`` and the ``--rcnn_*_dir`` flags raise; ``--device``
-  defaults to ``cuda``.
+- ``rcnn_offline`` and the ``--rcnn_*_dir`` flags run (the parity of the
+  offline mode with ``tools/train.py`` is ``test_torch_offline_cli.py``);
+  ``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -247,15 +248,53 @@ def test_rcnn_steps_equal_a_train_step_loop(tree, tmp_path, monkeypatch):
     assert n_rpn and all(torch.equal(v, init[k]) for k, v in got["batch_stats"].items())
 
 
+@pytest.fixture(scope="module")
+def offline_dirs(tree, tmp_path_factory):
+    """The rpn eval's feature dump of the tree (train and val list the same
+    frames) by the port's eval CLI -> (roi dir, feature dir)."""
+    from pointrcnn_tpu_torch.eval.__main__ import main as eval_main
+
+    root, _, _ = tree
+    work = tmp_path_factory.mktemp("offline_dump")
+    cfg = load_config(TINY_CFG, ["RCNN.ENABLED", "False"])
+    ckpt = save_checkpoint(str(work / "rpn"), create_train_state(
+        cfg, build_optimizer(cfg, 1, 1), seed=1, device="cpu"), 1, 0)
+    eval_main(["--cfg_file", TINY_CFG, "--data_root", root, "--batch_size", str(BATCH),
+               "--workers", "1", "--device", "cpu", "--eval_mode", "rpn", "--rpn_ckpt", ckpt,
+               "--save_rpn_feature", "--output_dir", str(work / "dump")])
+    return str(work / "dump" / "rpn_result" / "data"), str(work / "dump" / "features")
+
+
+TRAIN_DIRS = ["--rcnn_training_roi_dir", "ROIS", "--rcnn_training_feature_dir", "FEATS"]
+EVAL_DIRS = ["--rcnn_eval_roi_dir", "ROIS", "--rcnn_eval_feature_dir", "FEATS"]
+
+
 @pytest.mark.parametrize("args", [
-    ["--train_mode", "rcnn_offline"],
-    ["--train_mode", "rcnn", "--rcnn_training_roi_dir", "rois"],
-    ["--train_mode", "rcnn", "--rcnn_training_feature_dir", "feats"],
-    ["--train_mode", "rpn", "--rcnn_eval_roi_dir", "rois"],
-    ["--train_mode", "rpn", "--rcnn_eval_feature_dir", "feats"]])
-def test_cli_offline_raises(tmp_path, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        main(["--cfg_file", TINY_CFG, "--output_dir", str(tmp_path), *args])
+    ["--train_mode", "rcnn_offline", *TRAIN_DIRS],
+    ["--train_mode", "rcnn_offline", *TRAIN_DIRS, "--train_with_eval", *EVAL_DIRS],
+    ["--train_mode", "rcnn_offline", "--rcnn_training_roi_dir", "ROIS"],
+    ["--train_mode", "rcnn", *TRAIN_DIRS],
+    ["--train_mode", "rpn", *EVAL_DIRS]],
+    ids=["offline", "offline-with-eval", "offline-no-features", "rcnn-dirs", "rpn-dirs"])
+def test_cli_offline_raises(tree, offline_dirs, tmp_path, args):
+    """The offline mode and the four ``--rcnn_*_dir`` flags, ported (they
+    raised before the offline RCNN was): ``rcnn_offline`` trains over the
+    dump (with ``--train_with_eval`` its val epoch too), and without both
+    training dirs fails as ``tools/train.py`` does; the online modes run
+    and read no dir, as there."""
+    root, _, _ = tree
+    rois, feats = offline_dirs
+    args = [{"ROIS": rois, "FEATS": feats}.get(a, a) for a in args]
+    if "--rcnn_training_feature_dir" not in args and "rcnn_offline" in args:
+        with pytest.raises(AssertionError, match="rcnn_offline requires"):
+            cli(root, tmp_path, *args)
+        return
+    run = cli(root, tmp_path, *args, "--epochs", "1", "--ckpt_save_interval", "1")
+    (epoch,) = run.history
+    assert (run.epoch, run.it) == (1, STEPS) and np.isfinite(epoch["loss"])
+    assert ("val_loss" in epoch) == ("--train_with_eval" in args)
+    params = torch.load(str(tmp_path / "ckpt" / "checkpoint_epoch_1"), weights_only=True)["params"]
+    assert any(k.startswith("rpn.") for k in params) == ("rcnn_offline" not in args)
 
 
 def test_cli_runs_on_cuda_by_default(tree, tmp_path):

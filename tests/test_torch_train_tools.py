@@ -12,7 +12,8 @@
   train and smallval splits, the gt database) through a one-step train CLI
   run with GT_AUG on the CPU;
 - ``python -m pointrcnn_tpu_torch.tools.ap_gate`` end to end at one epoch
-  a stage (the recipe itself is ``test_torch_ap_gate.py``, slow).
+  a stage (the recipe itself is ``test_torch_ap_gate.py``, slow), and its
+  defaults held to ``tools/ap_gate.py``'s.
 """
 
 from __future__ import annotations
@@ -167,3 +168,41 @@ def test_ap_gate_tool_on_cpu(tmp_path, capsys):
     for stage, epoch in (("rpn", 1), ("rcnn", 1)):
         assert (tmp_path / stage / "ckpt" / f"checkpoint_epoch_{epoch}").is_file()
     assert len(os.listdir(tmp_path / "eval" / "final_result" / "data")) == 4
+
+
+@pytest.mark.parametrize("flags", [[], ["--striped"], ["--people"]], ids=["car", "striped", "people"])
+def test_ap_gate_defaults_equal_the_tools(flags, monkeypatch):
+    """Every default of the twin's parser and of its ``run_gate`` is
+    ``tools/ap_gate.py``'s (ROADMAP C16: the twin trained the rcnn stage 150
+    epochs, the tool 160); only the work directory (the twin writes under
+    the port's ``_build``) and the twin's own ``--device`` and ``--seed``
+    differ."""
+    import inspect
+
+    sys.path.insert(0, str(REPO / "tools"))
+    tool = importlib.import_module("ap_gate")
+    own = ("work", "device", "seed")
+
+    def defaults(fn):
+        return {k: p.default for k, p in inspect.signature(fn).parameters.items() if k not in own}
+
+    want_defaults, got_defaults = defaults(tool.run_gate), defaults(ap_gate.run_gate)
+    for d in (want_defaults, got_defaults):
+        d["cfg_file"] = pathlib.Path(d["cfg_file"]).resolve()
+    assert got_defaults == want_defaults and want_defaults["rcnn_epochs"] == 160
+    calls = {}
+
+    def recorder(key, fn):
+        def run_gate(*args, **kwargs):
+            bound = inspect.signature(fn).bind(*args, **kwargs).arguments
+            calls[key] = {k: v for k, v in bound.items() if k not in own}
+            calls[key]["cfg_file"] = pathlib.Path(calls[key]["cfg_file"]).resolve()
+            return {}
+        return run_gate
+
+    monkeypatch.setattr(tool, "run_gate", recorder("jax", tool.run_gate))
+    monkeypatch.setattr(sys, "argv", ["ap_gate.py", *flags])
+    tool.main()
+    monkeypatch.setattr(ap_gate, "run_gate", recorder("port", ap_gate.run_gate))
+    ap_gate.main(flags)
+    assert calls["port"] == calls["jax"] and calls["jax"]["rcnn_epochs"] == 160
