@@ -130,9 +130,39 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    from its proposals and gt boxes, with foreground) against the CPU path
    with phase 9's tolerances, and an offline eval batch: its pooled
    inputs, the RCNN's outputs and the post-process against the CPU's.
+12. (after 11) data parallel on the one card: (a)
+   ``entry.dryrun_multichip(2)``, the two ranks under ``gloo`` on this card
+   (NCCL refuses two ranks on one card): three joint steps of its mid-size
+   config, a checkpoint round trip whose restored state gives the saved
+   state's next loss, a sharded eval step against the whole batch's on one
+   rank, every kernel launched on rank 0; (b) the default rpn step at
+   global batch 16 through torchrun (``python -m
+   pointrcnn_tpu_torch.tools.dp_step``), world 1 under ``nccl`` and world
+   2 under ``gloo`` with both ranks on cuda:0: each rank's ms/step, peak
+   memory and launches (K4 and K8 6 a step, every kernel of the path),
+   world 2 within the CPU tests' bf16 bounds of world 1 (loss, gradient
+   norm, parameters, BN statistics), and a world 2 with a planted fault
+   (each rank's batch norms on its own rows) outside them; (c) the train CLI under torchrun, rpn
+   at batch 16 for one epoch of phase 10's tree, world 1 ``nccl`` and world
+   2 ``gloo`` on cuda:0, each logging its process group and checkpoint,
+   the last losses within the same bound.  A 4-card run is not possible on
+   this machine;
+13. cfgs/car_2x.yaml at full width (32768 points): the eval forward at
+   batch 4 (two clouds, every eval kernel, frames/s, peak memory, a batch-1
+   forward against the CPU path), the rpn step at batch 16 and the rcnn
+   step at batch 4 from its checkpoint (each ms/step, frames/s, peak
+   memory, the per-step launches of phases 7 and 9, every trained
+   parameter moved, a batch-1 step against the CPU path);
+14. cfgs/people.yaml's joint step (RPN and 3-class RCNN trained together,
+   as shipped) at batch 4: the same records, K4 and K8 6 and K2 and K7 2 a
+   step, and a batch-1 step against the CPU path with the card's proposals
+   and target draws handed to it, on the joint scene and on one whose gt
+   boxes all sit on proposals (few foreground points: held within 5 times
+   what the CPU's own step moves when its input moves by one ulp).
 
-The second-to-last line is the kernel table as JSON, the last line
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The second-to-last line is the kernel table as JSON (with the launches of
+phases 12-14), the last line ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -173,24 +203,23 @@ PEAK_BYTES_PER_MS = 3.35e12 / 1e3
 PEAK_F32_PER_MS = 33.5e12 / 1e3
 PEAK_BF16_PER_MS = 989e12 / 1e3
 
-# (kernel, source, TPU kernel it replaces, counter module, counter name)
+# (kernel, source, TPU kernel it replaces); its launches are counted in
+# pointrcnn_tpu_torch.ops.counts
 KERNELS = (
-    ("fps", "pointrcnn_tpu_torch/csrc/fps.cu", "pointrcnn_tpu/ops/pallas_fps.py:34",
-     "cuda_fps", "launches"),
-    ("three_nn", "pointrcnn_tpu_torch/csrc/knn.cu", "pointrcnn_tpu/ops/pallas_knn.py:25",
-     "cuda_knn", "launches"),
+    ("fps", "pointrcnn_tpu_torch/csrc/fps.cu", "pointrcnn_tpu/ops/pallas_fps.py:34"),
+    ("three_nn", "pointrcnn_tpu_torch/csrc/knn.cu", "pointrcnn_tpu/ops/pallas_knn.py:25"),
     ("group_gather", "pointrcnn_tpu_torch/csrc/gather.cu",
-     "pointrcnn_tpu/ops/pallas_gather.py:69", "cuda_gather", "launches"),
+     "pointrcnn_tpu/ops/pallas_gather.py:69"),
     ("fused_group_mlp_max", "pointrcnn_tpu_torch/csrc/mlp.cu",
-     "pointrcnn_tpu/ops/pallas_mlp.py:84", "cuda_mlp", "launches"),
+     "pointrcnn_tpu/ops/pallas_mlp.py:84"),
     ("ball_query", "pointrcnn_tpu_torch/csrc/ballquery.cu",
-     "pointrcnn_tpu/ops/pallas_ballquery.py:151", "cuda_ballquery", "launches"),
+     "pointrcnn_tpu/ops/pallas_ballquery.py:151"),
     ("ball_query_banded", "pointrcnn_tpu_torch/csrc/ballquery.cu",
-     "pointrcnn_tpu/ops/pallas_ballquery.py:229", "cuda_ballquery", "banded_launches"),
+     "pointrcnn_tpu/ops/pallas_ballquery.py:229"),
     ("gather_backward", "pointrcnn_tpu_torch/csrc/gather.cu",
-     "pointrcnn_tpu/ops/pallas_gather.py:95", "cuda_gather", "bwd_launches"),
+     "pointrcnn_tpu/ops/pallas_gather.py:95"),
     ("fused_group_mlp_backward", "pointrcnn_tpu_torch/csrc/mlp.cu",
-     "pointrcnn_tpu/ops/pallas_mlp.py:458", "cuda_mlp", "bwd_launches"),
+     "pointrcnn_tpu/ops/pallas_mlp.py:458"),
 )
 # the kernels of each path: the eval forward, the rpn and the rcnn training
 # stages
@@ -313,22 +342,16 @@ class Tally:
                 **({"shapes": self.shapes} if self.shapes else {}), **self.notes}
 
 
-def counters():
-    from pointrcnn_tpu_torch.ops import (cuda_ballquery, cuda_fps, cuda_gather, cuda_knn,
-                                         cuda_mlp)
-
-    mods = {"cuda_fps": cuda_fps, "cuda_knn": cuda_knn, "cuda_gather": cuda_gather,
-            "cuda_mlp": cuda_mlp, "cuda_ballquery": cuda_ballquery}
-    return {name: (mods[mod], attr) for name, _, _, mod, attr in KERNELS}
-
-
 def reset_counts() -> None:
-    for mod, attr in counters().values():
-        setattr(mod, attr, 0)
+    from pointrcnn_tpu_torch.ops import counts
+
+    counts.reset()
 
 
 def read_counts() -> dict:
-    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    from pointrcnn_tpu_torch.ops import counts
+
+    return counts.read()
 
 
 def phase_card() -> str:
@@ -1524,30 +1547,32 @@ def check_against_cpu(model, cloud, tag):
             raise AssertionError(f"{tag}: {k} differs from the CPU reference by {e} (scale {scale})")
 
 
-def _train_against_cpu():
-    """A batch-2 train step's loss, gradient norm and gradients on the card
-    against the port's CPU path, same weights and scene, dropout off."""
+def _train_against_cpu(cfg=None, batch_size=2, tag="train step"):
+    """A train step's loss, gradient norm and gradients on the card against
+    the port's CPU path, same weights and scene, dropout off: the rpn stage
+    of ``cfg`` (default cfgs/default.yaml's) at ``batch_size`` frames."""
     from pointrcnn_tpu_torch.entry import rpn_config, train_entry
     from pointrcnn_tpu_torch.train.state import loss_and_grads
 
-    cfg = rpn_config(["RPN.DP_RATIO", "0.0"])
-    _, (state, batch) = train_entry(batch=2, device="cuda", seed=3, cfg=cfg)
+    cfg = rpn_config(["RPN.DP_RATIO", "0.0"]) if cfg is None else cfg
+    _, (state, batch) = train_entry(batch=batch_size, device="cuda", seed=3, cfg=cfg)
     cpu_model = copy.deepcopy(state.model).cpu()
     t0 = time.perf_counter()
     cl, _, cg = loss_and_grads(cpu_model, cfg, {k: v.cpu() for k, v in batch.items()})
-    log(f"train step vs cpu: cpu reference step {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} vs cpu: cpu reference step {time.perf_counter() - t0:.1f} s")
     gl, _, gg = loss_and_grads(state.model, cfg, batch)
     gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in cg.values())))
     card_norm = float(torch.sqrt(sum((g.double().cpu() ** 2).sum() for g in gg.values())))
     e_loss = abs(gl.item() / cl.item() - 1)
     e_norm = abs(card_norm / gnorm - 1)
     share = max(float((gg[k].cpu() - g).norm()) / gnorm for k, g in cg.items())
-    log(f"train step vs cpu (batch 2, dropout off): loss {gl.item():.6f} vs {cl.item():.6f} "
+    log(f"{tag} vs cpu (batch {batch_size}, dropout off): loss {gl.item():.6f} vs "
+        f"{cl.item():.6f} "
         f"(rel {e_loss:.2e}, tol {TRAIN_LOSS_RTOL}), grad norm {card_norm:.6f} vs {gnorm:.6f} "
         f"(rel {e_norm:.2e}, tol {TRAIN_GNORM_RTOL}), worst gradient leaf {share:.2e} of the "
         f"global norm (tol {TRAIN_LEAF_SHARE})")
     if e_loss > TRAIN_LOSS_RTOL or e_norm > TRAIN_GNORM_RTOL or share > TRAIN_LEAF_SHARE:
-        raise AssertionError("the card's train step differs from the CPU path")
+        raise AssertionError(f"the card's {tag} differs from the CPU path")
 
 
 def phase_train(train_launches):
@@ -1613,16 +1638,17 @@ def phase_train(train_launches):
     return path
 
 
-def _rcnn_against_cpu(rpn_ckpt):
-    """A batch-1 rcnn step on the card against the port's CPU path: the
-    same weights, the same target draws, and the card's RPN outputs handed
-    to the CPU model (the RPN is fixed, and its eval forward is held to the
-    CPU path in phase_default)."""
+def _rcnn_against_cpu(rpn_ckpt, cfg=None, tag="rcnn step"):
+    """A batch-1 rcnn step (of ``cfg``, default cfgs/default.yaml's) on the
+    card against the port's CPU path: the same weights, the same target
+    draws, and the card's RPN outputs handed to the CPU model (the RPN is
+    fixed, and its eval forward is held to the CPU path in phase_default)."""
     from pointrcnn_tpu_torch.entry import train_entry
     from pointrcnn_tpu_torch.models.target import target_draws
     from pointrcnn_tpu_torch.train.state import loss_and_grads
 
-    _, (state, batch) = train_entry(batch=1, device="cuda", seed=5, stage="rcnn", rpn_ckpt=rpn_ckpt)
+    _, (state, batch) = train_entry(batch=1, device="cuda", seed=5, cfg=cfg, stage="rcnn",
+                                    rpn_ckpt=rpn_ckpt)
     model, cfg = state.model, state.model.cfg
     cpu_model = copy.deepcopy(model).cpu()
     seen = {}
@@ -1638,22 +1664,22 @@ def _rcnn_against_cpu(rpn_ckpt):
     t0 = time.perf_counter()
     cl, _, cg = loss_and_grads(cpu_model, cfg, {k: v.cpu() for k, v in batch.items()},
                                targets={k: v.cpu() for k, v in draws.items()})
-    log(f"rcnn step vs cpu: cpu reference step {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} vs cpu: cpu reference step {time.perf_counter() - t0:.1f} s")
     for k in ("cls_label", "reg_valid_mask"):
         if not torch.equal(seen["card"][k].cpu(), seen["cpu"][k]):
-            raise AssertionError(f"rcnn step vs cpu: the target layer's {k} differs")
+            raise AssertionError(f"{tag} vs cpu: the target layer's {k} differs")
     gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in cg.values())))
     card_norm = float(torch.sqrt(sum((g.double().cpu() ** 2).sum() for g in gg.values())))
     e_loss, e_norm = abs(gl.item() / cl.item() - 1), abs(card_norm / gnorm - 1)
     share = max(float((gg[k].cpu() - g).norm()) / gnorm for k, g in cg.items()
                 if k.startswith("rcnn_net."))
-    log(f"rcnn step vs cpu (batch 1, {int(gtb['rcnn_cls_fg'])} fg / {int(gtb['rcnn_cls_bg'])} bg "
+    log(f"{tag} vs cpu (batch 1, {int(gtb['rcnn_cls_fg'])} fg / {int(gtb['rcnn_cls_bg'])} bg "
         f"rois, same decisions): loss {gl.item():.6f} vs {cl.item():.6f} (rel {e_loss:.2e}, tol "
         f"{RCNN_LOSS_RTOL}), grad norm {card_norm:.6f} vs {gnorm:.6f} (rel {e_norm:.2e}, tol "
         f"{RCNN_GNORM_RTOL}), worst RCNN gradient leaf {share:.2e} of the global norm "
         f"(tol {RCNN_LEAF_SHARE})")
     if e_loss > RCNN_LOSS_RTOL or e_norm > RCNN_GNORM_RTOL or share > RCNN_LEAF_SHARE:
-        raise AssertionError("the card's rcnn step differs from the CPU path")
+        raise AssertionError(f"the card's {tag} differs from the CPU path")
 
 
 def decayed(p, opt, steps):
@@ -2213,8 +2239,8 @@ def phase_train_cli(train_launches, rcnn_launches, card):
     the per-step counts of phase_train / phase_rcnn_train (``train_launches``
     and ``rcnn_launches``: their counts over TRAIN_TIMED steps); (c) updates
     every RCNN parameter and moves the fixed RPN by the weight decay alone
-    -> (each run's launches, run (b)'s checkpoint, the tree's data root);
-    the caller removes TRAIN_WORK_DIR."""
+    -> (each run's launches, run (b)'s checkpoint, the tree's data root and
+    gt database); the caller removes TRAIN_WORK_DIR."""
     from pointrcnn_tpu_torch.entry import rcnn_config, rpn_config
     from pointrcnn_tpu_torch.train.optimizer import build_optimizer
 
@@ -2277,7 +2303,7 @@ def phase_train_cli(train_launches, rcnn_launches, card):
     log(f"train CLI rcnn (c): all {len(rcnn)} RCNN parameters updated; all "
         f"{len(rpn_params)} RPN parameters moved by the weight decay alone (bit-equal), BN "
         f"statistics unchanged")
-    return {"rpn": counts_a, "resume": counts_b, "rcnn": counts_c}, ckpt_b, data_root
+    return {"rpn": counts_a, "resume": counts_b, "rcnn": counts_c}, ckpt_b, data_root, db
 
 # ---------------------------------------------------------------- RCNN without RPN features
 
@@ -2350,7 +2376,7 @@ OFFLINE_OUT_RTOL = 0.05
 
 
 def _expect(per, n):
-    return {name: per.get(name, 0) * n for name, _, _, _, _ in KERNELS}
+    return {name: per.get(name, 0) * n for name, _, _ in KERNELS}
 
 
 def _with_gt_rois(data_root, roi_dir, out_dir):
@@ -2589,6 +2615,444 @@ def phase_offline(launches, data_root, rpn_ckpt, card):
     return counts
 
 
+# ---------------------------------------------------------------- shipped configs
+
+# per-step launches that a step's structure fixes: the RPN in training
+# gathers (K4) and scatters back (K8) at SA2-SA4's six radii, the RCNN's SA1
+# and SA2 run K2 forward and K7 backward; the joint step does both (its RPN
+# SA3 and SA4 train on the generic route, so K2 only in the RCNN)
+RPN_STEP_LAUNCHES = {"group_gather": 6, "gather_backward": 6}
+JOINT_STEP_LAUNCHES = {"group_gather": 6, "gather_backward": 6, "fused_group_mlp_max": 2,
+                       "fused_group_mlp_backward": 2}
+ALL_KERNELS = tuple(name for name, _, _ in KERNELS)
+# car_2x's RPN SA2 groups from an 8192-point table, past the gather kernel's
+# 4096 (the TPU kernel's predicate, ``cuda_gather.group_points_supported``):
+# its neighbourhoods are gathered by indexing, on the TPU by XLA, so K4 and
+# K8 run at SA3 and SA4 alone (4 a step) and not in the eval forward
+CAR_2X_EVAL_KERNELS = tuple(k for k in EVAL_KERNELS if k != "group_gather")
+CAR_2X_RPN_STEP_LAUNCHES = {"group_gather": 4, "gather_backward": 4}
+CAR_2X_RCNN_STEP_LAUNCHES = {**RCNN_STEP_LAUNCHES, "group_gather": 0}
+CAR_2X_RCNN_KERNELS = tuple(k for k in RCNN_TRAIN_KERNELS if k != "group_gather")
+CAR_2X_WORK_DIR = os.path.join(REPO, "pointrcnn_tpu_torch", "_build", "smoke_car_2x")
+# the car_2x and people steps: warm-up and timed steps (fewer than phase_train's:
+# each phase also runs its CPU reference)
+SHIPPED_WARMUP, SHIPPED_TIMED = 1, 3
+
+
+def _timed_steps(what, step, state, batch, per_step, kernels, card):
+    """``SHIPPED_TIMED`` steps after ``SHIPPED_WARMUP``: ms/step (host clock
+    to a synchronise), frames/s and peak memory, the launches (``per_step``
+    exactly a step, every kernel of ``kernels`` at least once), every
+    parameter of the trained modules moved (or zero) -> (state, the launches over the
+    timed steps)."""
+    frames = batch["pts_input"].shape[0]
+    before = {k: v.clone() for k, v in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(SHIPPED_WARMUP):
+        state, tb = step(state, batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(SHIPPED_TIMED):
+        state, tb = step(state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SHIPPED_TIMED
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss, gnorm = tb["loss"].item(), tb["grad_norm"].item()
+    log(f"{card}: {what} batch {frames} x {batch['pts_input'].shape[1]} points: "
+        f"{1000 * dt:.3f} ms/step, {frames / dt:.3f} frames/s ({SHIPPED_TIMED} steps after "
+        f"{SHIPPED_WARMUP} warm-up), peak memory {peak / 2 ** 30:.3f} GiB; loss {loss:.6f}, "
+        f"grad norm {gnorm:.6f}; launches {counts}")
+    if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"{what}: loss {loss}, grad norm {gnorm}")
+    for name in kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the {what} path")
+    for name, n in per_step.items():
+        if counts[name] != n * SHIPPED_TIMED:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} times in "
+                                 f"{SHIPPED_TIMED} steps, not {n} a step")
+    # a zero-initialised bias whose gradient is zero (a head without
+    # foreground) stays zero under Adam and the weight decay
+    fixed = "rpn." if state.model.cfg.RPN.FIXED else None
+    still = [k for k, v in state.model.named_parameters()
+             if torch.equal(v, before[k]) and bool(v.any())
+             and (fixed is None or not k.startswith(fixed))]
+    if still:
+        raise AssertionError(f"{what}: parameters unchanged: {still[:5]}")
+    return state, counts
+
+
+def phase_car_2x(card):
+    """cfgs/car_2x.yaml (32768 points, SA stages twice as wide in sites) at
+    full width: the eval forward at batch 4 on two clouds, the rpn stage at
+    batch 16 and the rcnn stage at batch 4 from the rpn stage's state, each
+    timed with its peak memory and launches, and each against the CPU path
+    at batch 1 -> the launches (eval: over the two forwards; steps: over
+    the timed steps)."""
+    from pointrcnn_tpu_torch.entry import entry, shipped_config, synthetic_cloud, train_entry
+    from pointrcnn_tpu_torch.train import checkpoint
+
+    out = {}
+    cfg = shipped_config("car_2x")
+    fwd, (model, _) = entry(batch=BATCH, device="cuda", seed=0, cfg=cfg)
+    clouds = [torch.from_numpy(synthetic_cloud(BATCH, cfg.RPN.NUM_POINTS, s)).cuda()
+              for s in CLOUD_SEEDS[:2]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
+    torch.cuda.synchronize()
+    out["eval"] = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"car_2x forward x{len(clouds)} launches: {out['eval']}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    for s, o in zip(CLOUD_SEEDS, outs):
+        _check_outputs(o, cfg.TEST.RPN_POST_NMS_TOP_N, f"car_2x, cloud {s}")
+    for name in CAR_2X_EVAL_KERNELS:
+        if out["eval"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the car_2x forward")
+    if any(out["eval"][k] for k in ALL_KERNELS if k not in CAR_2X_EVAL_KERNELS):
+        raise AssertionError(f"the car_2x forward launched K4 or a backward: {out['eval']}")
+    ms = _frames_per_s(fwd, model, clouds[0], f"{card}: car_2x")
+    log(f"car_2x forward: {ms:.3f} ms a batch of {BATCH} x {cfg.RPN.NUM_POINTS} points")
+    check_against_cpu(model, synthetic_cloud(1, cfg.RPN.NUM_POINTS, 5), "car_2x")
+    del fwd, model, outs, clouds
+    torch.cuda.empty_cache()
+
+    rpn_cfg = shipped_config("car_2x", "rpn")
+    step, (state, batch) = train_entry(batch=TRAIN_BATCH, device="cuda", seed=0, cfg=rpn_cfg)
+    state, out["rpn_step"] = _timed_steps("car_2x rpn step", step, state, batch,
+                                          CAR_2X_RPN_STEP_LAUNCHES, TRAIN_KERNELS, card)
+    ckpt = checkpoint.save_checkpoint(CAR_2X_WORK_DIR, state, epoch=1, it=state.step)
+    del step, state, batch
+    torch.cuda.empty_cache()
+    _train_against_cpu(shipped_config("car_2x", "rpn", ["RPN.DP_RATIO", "0.0"]), 1,
+                       "car_2x rpn step")
+
+    rcnn_cfg = shipped_config("car_2x", "rcnn")
+    step, (state, batch) = train_entry(batch=RCNN_BATCH, device="cuda", seed=0, cfg=rcnn_cfg,
+                                       stage="rcnn", rpn_ckpt=ckpt)
+    state, out["rcnn_step"] = _timed_steps("car_2x rcnn step", step, state, batch,
+                                           CAR_2X_RCNN_STEP_LAUNCHES, CAR_2X_RCNN_KERNELS, card)
+    del step, state, batch
+    torch.cuda.empty_cache()
+    _rcnn_against_cpu(ckpt, rcnn_cfg, "car_2x rcnn step")
+    return out
+
+
+# the joint step's second scene: every gt box moved onto a proposal, as the
+# rcnn stage's scene, which leaves the RPN few foreground points (11 in
+# people.yaml's), and its gradients hang on those points' neighbourhoods.
+# There the card is held to the CPU within JOINT_FEW_FG_FACTOR times what the
+# CPU's own step moves when its input moves by one ulp (never tighter than
+# the bounds above).  Measured on an H100 at 700 W: the CPU one ulp up moves
+# the grad norm by 1.1e-2 and its worst leaf by 6.1e-2 of the norm (on the
+# joint scene, 1009 fg points, 1.6e-3 and 1.6e-2); the card departs by
+# 4.0e-2 and 0.101, bf16 roundings at every layer against one input ulp
+JOINT_FEW_FG_FACTOR = 5
+
+
+def _grad_readings(loss, grads, ref_loss, ref_grads):
+    """(loss rel, gradient norm rel, each leaf's departure over the
+    reference's global norm) of a step against a reference step."""
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in ref_grads.values())))
+    other = float(torch.sqrt(sum((g.double().cpu() ** 2).sum() for g in grads.values())))
+    leaf = {k: float((grads[k].cpu() - g).norm()) / norm for k, g in ref_grads.items()}
+    return abs(float(loss) / float(ref_loss) - 1), abs(other / norm - 1), leaf
+
+
+def _joint_against_cpu(cfg, tag, keep=True):
+    """A batch-1 joint step on the card against the port's CPU path: the
+    same weights, scene and target draws, dropout off, and the card's
+    proposals and RPN features handed to the CPU model's RCNN (the RPN
+    trains, so its forward runs on both sides and is compared through the
+    loss and its gradients; in bf16 the two RPNs' outputs part by
+    roundings, and with random weights the proposal ranking hangs on them):
+    the target layer's decisions equal, the loss, gradient norm and every
+    gradient leaf within the bounds of the rpn step's comparison.  The CPU
+    step is also taken on the input moved by one ulp (every coordinate to
+    the next float up, the same hand-off), the witness of how far roundings
+    alone move it.  ``keep`` False: the scene of :data:`JOINT_FEW_FG_FACTOR`
+    -> the two readings (card against CPU, CPU against itself)."""
+    from pointrcnn_tpu_torch.entry import gt_on_proposals, synthetic_scene, train_entry
+    from pointrcnn_tpu_torch.models import point_rcnn
+    from pointrcnn_tpu_torch.models.target import target_draws
+    from pointrcnn_tpu_torch.train.state import dropout_generator, loss_and_grads
+
+    _, (state, batch) = train_entry(batch=1, device="cuda", seed=5, cfg=cfg, stage="joint")
+    model = state.model
+    if not keep:
+        scene = synthetic_scene(1, cfg.RPN.NUM_POINTS, cfg.RCNN.MAX_GT_BOXES, 5)
+        batch = gt_on_proposals(model, {k: torch.from_numpy(v).cuda() for k, v in scene.items()},
+                                dropout_generator(5, 0, "cuda"))
+    cpu_model = copy.deepcopy(model).cpu()
+    ulp_model = copy.deepcopy(cpu_model)
+    seen = {}
+    model.register_forward_hook(lambda m, a, o: seen.update(card=o))
+    cpu_model.register_forward_hook(lambda m, a, o: seen.update(cpu=o))
+    # the RCNN reads the RPN's features through a detached hand-off: the CPU
+    # RCNN gets the card's (the RPN's own loss and gradients are the CPU's)
+    model.rpn.register_forward_hook(lambda m, a, o: seen.update(features=o["backbone_features"]))
+    for m in (cpu_model.rpn, ulp_model.rpn):
+        m.register_forward_hook(
+            lambda m, a, o: {**o, "backbone_features": seen["features"].detach().cpu()})
+    draws = target_draws(cfg, torch.Generator(device="cuda").manual_seed(11), 1,
+                         cfg.TRAIN.RPN_POST_NMS_TOP_N, device="cuda")
+    cpu_draws = {k: v.cpu() for k, v in draws.items()}
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    ulp_batch = {**cpu_batch, "pts_input": torch.nextafter(
+        cpu_batch["pts_input"], torch.full_like(cpu_batch["pts_input"], float("inf")))}
+    orig = point_rcnn.proposal_layer
+
+    def recorded(*a, **k):
+        seen["proposals"] = orig(*a, **k)
+        return seen["proposals"]
+
+    point_rcnn.proposal_layer = recorded
+    try:
+        gl, gtb, gg = loss_and_grads(model, cfg, batch, targets=draws)
+        point_rcnn.proposal_layer = lambda *a, **k: tuple(v.cpu() for v in seen["proposals"])
+        t0 = time.perf_counter()
+        cl, _, cg = loss_and_grads(cpu_model, cfg, cpu_batch, targets=cpu_draws)
+        log(f"{tag} vs cpu: cpu reference step {time.perf_counter() - t0:.1f} s")
+        ul, _, ug = loss_and_grads(ulp_model, cfg, ulp_batch, targets=cpu_draws)
+    finally:
+        point_rcnn.proposal_layer = orig
+    for k in ("cls_label", "reg_valid_mask"):
+        if not torch.equal(seen["card"][k].cpu(), seen["cpu"][k]):
+            raise AssertionError(f"{tag} vs cpu: the target layer's {k} differs")
+    e_loss, e_norm, leaf = _grad_readings(gl.item(), gg, cl.item(), cg)
+    u_loss, u_norm, u_leaf = _grad_readings(ul.item(), ug, cl.item(), cg)
+    share, u_share = max(leaf.values()), max(u_leaf.values())
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in cg.values())))
+    part = {p: (max(v for k, v in leaf.items() if k.startswith(p)),
+                float(torch.sqrt(sum((g.double() ** 2).sum() for k, g in cg.items()
+                                     if k.startswith(p)))))
+            for p in ("rpn.", "rcnn_net.")}
+    log(f"{tag} vs cpu: worst leaf / CPU gradient norm of the RPN {part['rpn.'][0]:.2e} / "
+        f"{part['rpn.'][1]:.6f}, of the RCNN {part['rcnn_net.'][0]:.2e} / "
+        f"{part['rcnn_net.'][1]:.6f}; the worst leaf {max(leaf, key=leaf.get)}")
+    log(f"{tag}: the CPU against itself with the input one ulp up: loss rel {u_loss:.2e}, grad "
+        f"norm rel {u_norm:.2e}, worst gradient leaf {u_share:.2e} of the global norm "
+        f"({max(u_leaf, key=u_leaf.get)})")
+    tol = (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_SHARE)
+    if not keep:
+        tol = tuple(max(t, JOINT_FEW_FG_FACTOR * u) for t, u in zip(tol, (u_loss, u_norm, u_share)))
+    log(f"{tag} vs cpu (batch 1, dropout off, {int(gtb['rpn_fg_sum'])} fg points, "
+        f"{int(gtb['rcnn_cls_fg'])} fg / {int(gtb['rcnn_cls_bg'])} bg rois, the same proposals, "
+        f"RCNN inputs and decisions): loss {gl.item():.6f} vs {cl.item():.6f} (rel {e_loss:.2e}, "
+        f"tol {tol[0]:.2e}), grad norm {gnorm:.6f} on the CPU (rel {e_norm:.2e}, tol "
+        f"{tol[1]:.2e}), worst gradient leaf {share:.2e} of the global norm (tol {tol[2]:.2e})")
+    if e_loss > tol[0] or e_norm > tol[1] or share > tol[2]:
+        raise AssertionError(f"the card's {tag} differs from the CPU path")
+    return (e_loss, e_norm, share), (u_loss, u_norm, u_share)
+
+
+def phase_people_joint(card):
+    """cfgs/people.yaml's joint step (the RPN and the 3-class RCNN trained
+    together, as shipped) at batch 4 x 16384 points: timed, its peak memory,
+    every kernel launched (K4 and K8 6 a step, K2 and K7 2), every parameter
+    updated, and a batch-1 step against the CPU path on two scenes
+    (:func:`_joint_against_cpu`) -> the launches over the timed steps."""
+    from pointrcnn_tpu_torch.entry import shipped_config, train_entry
+
+    cfg = shipped_config("people", "joint")
+    step, (state, batch) = train_entry(batch=RCNN_BATCH, device="cuda", seed=0, cfg=cfg,
+                                       stage="joint")
+    state, counts = _timed_steps("people joint step", step, state, batch, JOINT_STEP_LAUNCHES,
+                                 ALL_KERNELS, card)
+    del step, state, batch
+    torch.cuda.empty_cache()
+    cpu_cfg = shipped_config("people", "joint", ["RPN.DP_RATIO", "0.0"])
+    _joint_against_cpu(cpu_cfg, "people joint step")
+    _joint_against_cpu(cpu_cfg, "people joint step, boxes on proposals", keep=False)
+    return counts
+
+
+# ---------------------------------------------------------------- data parallel
+
+# world 2 (gloo, both ranks on this card) against world 1 (nccl) on the
+# default rpn step at global batch 16, the bounds of the CPU tests' bf16
+# world-2 step (tests/test_torch_parallel_step.py, W1_BF16_TOL): every step's
+# loss and gradient norm relative; after the first step (the same weights
+# before it) parameters in the mean in 2 lr, BN statistics relative to each
+# leaf's largest magnitude.  Adam's first update moves every element by lr
+# either way, so the mean in 2 lr is the share of elements whose gradient
+# sign the two runs disagree on, and the elementwise departure (logged, not
+# held) cannot pass 2 lr.  Later states are not held: at full width each
+# update moves a parameter whose gradient is near zero by lr either way, and
+# the two runs' weights part further each step.  The first step's loss (the
+# same weights on both sides: only the order of the global sums, and the
+# bf16 roundings it flips, differ) is held tighter, DP_FIRST_LOSS_RTOL
+# (measured on an H100 at 700 W: 8.0e-6; 3.1e-4 with the planted fault below)
+DP_STEPS = 3
+DP_LOSS_RTOL, DP_GNORM_RTOL, DP_MEAN, DP_STAT = 5e-3, 5e-2, 5e-2, 1e-2
+DP_FIRST_LOSS_RTOL = 1e-4
+# a planted fault the bounds must fail: world 2 with each rank's batch norms
+# on its own rows' statistics (``batch_stats`` as at world 1), the per-replica
+# BN of DistributedDataParallel.  torchrun runs it as a script in the work dir
+DP_FAULT_SCRIPT = """import sys, types
+from pointrcnn_tpu_torch.models import layers
+from pointrcnn_tpu_torch.tools import dp_step
+
+per_rank = types.ModuleType("per_rank_mesh")
+per_rank.__dict__.update(vars(layers.mesh))
+per_rank.world = lambda: 1
+layers.mesh = per_rank
+dp_step.main(sys.argv[1:])
+"""
+DP_WORK_DIR = os.path.join(REPO, "pointrcnn_tpu_torch", "_build", "smoke_dp")
+DP_TIMEOUT_S = 300
+
+
+def _torchrun(nproc: int, module: str, args: list, what: str) -> str:
+    """``torchrun --standalone --nproc_per_node nproc -m module args`` (a
+    ``module`` ending in ``.py``: that script) -> its output; a failure
+    raises with its end."""
+    target = [module] if module.endswith(".py") else ["-m", module]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *target, *args]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [REPO, os.environ.get("PYTHONPATH", "")]), "OMP_NUM_THREADS": "4"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=DP_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: torchrun exited {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    log(f"{what}: torchrun --nproc_per_node {nproc} ran {time.perf_counter() - t0:.3f} s "
+        f"(process start, group, build load, run)")
+    return proc.stdout
+
+
+def _dp_step(nproc, device, backend, what, card, module="pointrcnn_tpu_torch.tools.dp_step"):
+    out = os.path.join(DP_WORK_DIR, what.replace(" ", "_"))
+    args = ["--out", out, "--batch", str(TRAIN_BATCH), "--steps",
+            str(DP_STEPS), "--device", device] + (["--dist_backend", backend] if backend else [])
+    _torchrun(nproc, module, args, what)
+    first = torch.load(os.path.join(out, "state1.pt"), weights_only=True)
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        rec = ranks[-1]
+        log(f"{card}: {what} rank {r} ({rec['backend']} on {rec['device']}, {rec['frames']} "
+            f"frames): ms/step [{', '.join(f'{x:.3f}' for x in rec['ms'])}], peak memory "
+            f"{rec['peak_bytes'] / 2 ** 30:.3f} GiB, losses "
+            f"[{', '.join(f'{x:.6f}' for x in rec['loss'])}], launches {rec['launches']}")
+        for name in TRAIN_KERNELS:
+            if rec["launches"][name] <= 0:
+                raise AssertionError(f"{what} rank {r}: kernel {name} never launched")
+        for name, n in RPN_STEP_LAUNCHES.items():
+            if rec["launches"][name] != n * DP_STEPS:
+                raise AssertionError(f"{what} rank {r}: {name} launched "
+                                     f"{rec['launches'][name]} times in {DP_STEPS} steps")
+        if rec["frames"] != TRAIN_BATCH // nproc or rec["world"] != nproc:
+            raise AssertionError(f"{what} rank {r}: {rec['frames']} frames of world "
+                                 f"{rec['world']}")
+    if any(r["loss"] != ranks[0]["loss"] for r in ranks):
+        raise AssertionError(f"{what}: the ranks' losses differ")
+    return ranks, first
+
+
+def _dp_compare(w1, s1, w2, s2, what):
+    """World 2 against world 1: each step's loss and gradient norm, the
+    parameters and BN statistics after the first step -> whether they are
+    within the DP_* bounds."""
+    from pointrcnn_tpu_torch.entry import KITTI_TRAIN_FRAMES, TRAIN_EPOCHS, rpn_config
+    from pointrcnn_tpu_torch.train.optimizer import build_optimizer, steps_for
+
+    tx = build_optimizer(rpn_config(), *steps_for(KITTI_TRAIN_FRAMES, TRAIN_BATCH, TRAIN_EPOCHS))
+    lr_sum = tx.lr(0)
+    e_first = abs(w2["loss"][0] / w1["loss"][0] - 1)
+    e_loss = max(abs(a / b - 1) for a, b in zip(w2["loss"], w1["loss"]))
+    e_norm = max(abs(a / b - 1) for a, b in zip(w2["grad_norm"], w1["grad_norm"]))
+    elem, diffs, stat = 0.0, [], 0.0
+    for k, v in s1.items():
+        if not v.dtype.is_floating_point:
+            continue
+        d = (s2[k] - v).abs()
+        if k.endswith(("mean", "var")):
+            stat = max(stat, float(d.max() / v.abs().max().clamp(min=1e-30)))
+        else:
+            elem = max(elem, float(d.max()) / lr_sum)
+            diffs.append(d.reshape(-1))
+    mean = float(torch.cat(diffs).mean()) / (2 * lr_sum)
+    gaps = ", ".join(f"{abs(a / b - 1):.2e}" for a, b in zip(w2["grad_norm"], w1["grad_norm"]))
+    log(f"data parallel: {what} against world 1 (nccl) over {DP_STEPS} steps: the first "
+        f"step's loss rel {e_first:.2e} (tol {DP_FIRST_LOSS_RTOL}), loss rel {e_loss:.2e} (tol "
+        f"{DP_LOSS_RTOL}), grad norm rel {e_norm:.2e} (tol {DP_GNORM_RTOL}; by step {gaps}); "
+        f"after the first step parameters in the mean {mean:.2e} of 2 lr (tol {DP_MEAN}), "
+        f"elementwise {elem:.3f} lr (not held), BN statistics {stat:.2e} (tol {DP_STAT})")
+    return e_first <= DP_FIRST_LOSS_RTOL and e_loss <= DP_LOSS_RTOL \
+        and e_norm <= DP_GNORM_RTOL and mean <= DP_MEAN and stat <= DP_STAT
+
+
+def phase_data_parallel(data_root, db, card):
+    """Data parallel on the one card: (a) ``entry.dryrun_multichip(2)`` (gloo,
+    both ranks on this card: three joint steps, a checkpoint round trip, a
+    sharded eval step against one rank's); (b) the default rpn step at global
+    batch 16 through torchrun, world 1 under nccl and world 2 under gloo with
+    both ranks on cuda:0, every rank launching every kernel of the path, world 2
+    within the CPU tests' bf16 bounds of world 1; (c) the train CLI under
+    torchrun, rpn at batch 16 for one epoch of the KITTI tree, world 1 nccl and
+    world 2 gloo on cuda:0 -> the launches of (a) rank 0 and (b) each rank."""
+    from pointrcnn_tpu_torch.entry import dryrun_multichip
+
+    shutil.rmtree(DP_WORK_DIR, ignore_errors=True)
+    out = {}
+    t0 = time.perf_counter()
+    rec = dryrun_multichip(2, device="cuda", timeout_s=DP_TIMEOUT_S, threads=4)
+    if rec["backend"] != "gloo" or not rec["device"].startswith("cuda"):
+        raise AssertionError(f"dryrun_multichip on one card: {rec}")
+    # its mid-size config reaches the kernels whose predicates admit 4096
+    # points: the run must have launched on the card, whichever they are
+    if not sum(rec["launches"].values()):
+        raise AssertionError("dryrun_multichip: rank 0 launched no kernel")
+    out["dryrun_rank0"] = rec["launches"]
+    log(f"{card}: dryrun_multichip(2) in {time.perf_counter() - t0:.3f} s: {rec}")
+
+    w1, s1 = _dp_step(1, "cuda", None, "dp rpn step world 1", card)
+    w2, s2 = _dp_step(2, "cuda:0", "gloo", "dp rpn step world 2", card)
+    if w1[0]["backend"] != "nccl" or w2[0]["backend"] != "gloo":
+        raise AssertionError(f"data parallel backends {w1[0]['backend']}, {w2[0]['backend']}")
+    if not _dp_compare(w1[0], s1, w2[0], s2, "world 2 (gloo, one card)"):
+        raise AssertionError("data parallel: world 2 differs from world 1")
+    fault = os.path.join(DP_WORK_DIR, "per_rank_bn.py")
+    with open(fault, "w") as f:
+        f.write(DP_FAULT_SCRIPT)
+    wf, sf = _dp_step(2, "cuda:0", "gloo", "dp rpn step world 2 per-rank BN", card, fault)
+    if _dp_compare(w1[0], s1, wf[0], sf, "world 2 with per-rank BN statistics (a planted fault)"):
+        raise AssertionError("data parallel: the bounds pass world 2 with per-rank BN statistics")
+    out["world1_nccl"] = w1[0]["launches"]
+    for r, rec in enumerate(w2):
+        out[f"world2_gloo_rank{r}"] = rec["launches"]
+
+    common = ["--cfg_file", os.path.join(REPO, "cfgs", "default.yaml"), "--data_root", data_root,
+              "--gt_database", db, "--train_mode", "rpn", "--batch_size", str(TRAIN_BATCH),
+              "--epochs", "1", "--ckpt_save_interval", "1"]
+    losses = {}
+    for nproc, device, backend in ((1, "cuda", "nccl"), (2, "cuda:0", "gloo")):
+        what = f"train CLI world {nproc} {backend}"
+        run_dir = os.path.join(DP_WORK_DIR, f"cli_{nproc}")
+        _torchrun(nproc, "pointrcnn_tpu_torch.train", common + [
+            "--device", device, "--dist_backend", backend, "--output_dir", run_dir], what)
+        with open(os.path.join(run_dir, "log_train.txt")) as f:
+            text = f.read()
+        line = [x for x in text.splitlines() if "epoch 0:" in x and "last loss" in x]
+        if f"process group of {nproc} ranks ({backend})" not in text or len(line) != 1 or \
+                not os.path.exists(os.path.join(run_dir, "ckpt", "checkpoint_epoch_1")):
+            raise AssertionError(f"{what}: log {text[-2000:]}")
+        losses[nproc] = float(line[0].rsplit("last loss", 1)[1])
+        log(f"{card}: {what}: {line[0].split('INFO', 1)[-1].strip()}")
+    if abs(losses[2] / losses[1] - 1) > DP_LOSS_RTOL:
+        raise AssertionError(f"train CLI: world 2's last loss {losses[2]}, world 1's {losses[1]}")
+    shutil.rmtree(DP_WORK_DIR, ignore_errors=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2614,11 +3078,18 @@ def main() -> int:
     finally:
         shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
     try:
-        train_cli_launches, rpn_ckpt, data_root = phase_train_cli(train_launches, rcnn_launches,
-                                                                  card)
+        train_cli_launches, rpn_ckpt, data_root, db = phase_train_cli(
+            train_launches, rcnn_launches, card)
         offline_launches = phase_offline(launches, data_root, rpn_ckpt, card)
+        torch.cuda.empty_cache()
+        dp_launches = phase_data_parallel(data_root, db, card)
     finally:
         shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    try:
+        car_2x_launches = phase_car_2x(card)
+    finally:
+        shutil.rmtree(CAR_2X_WORK_DIR, ignore_errors=True)
+    people_launches = phase_people_joint(card)
     # launches: the count of the eval forward's run, or for a kernel that
     # only a training stage runs, of that stage's run (the rpn stage's for
     # the gather backward, the rcnn stage's for the MLP backward);
@@ -2628,7 +3099,11 @@ def main() -> int:
     # steps and a val epoch, rcnn 16 steps); offline_launches: the offline
     # recipe's runs' (d_train, d_smallval: the rpn dumps; e: rcnn_offline 16
     # steps and a val epoch; e_processes: the same with worker processes; f:
-    # the offline eval, 4 batches)
+    # the offline eval, 4 batches); car_2x_launches: car_2x's runs' (eval: two
+    # forwards at batch 4; rpn_step, rcnn_step: their timed steps);
+    # people_joint_launches: people.yaml's joint step's timed steps';
+    # data_parallel_launches: dryrun_multichip's rank 0 (three steps, a resumed
+    # step and the eval), the rpn step's world 1 and each world-2 rank (its steps)
     rows = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name] if name in EVAL_KERNELS else
              (train_launches[name] if name in TRAIN_KERNELS else rcnn_launches[name]),
@@ -2636,8 +3111,11 @@ def main() -> int:
              "eval_cli_launches": eval_cli_launches[name],
              "train_cli_launches": {run: c[name] for run, c in train_cli_launches.items()},
              "offline_launches": {run: c[name] for run, c in offline_launches.items()},
+             "car_2x_launches": {run: c[name] for run, c in car_2x_launches.items()},
+             "people_joint_launches": people_launches[name],
+             "data_parallel_launches": {run: c[name] for run, c in dp_launches.items()},
              **tallies[name].row()}
-            for name, source, replaces, _, _ in KERNELS]
+            for name, source, replaces in KERNELS]
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,14 @@ Modes:
           rpn eval with --save_rpn_feature wrote (--rcnn_eval_roi_dir,
           --rcnn_eval_feature_dir): recall, KITTI result files, official AP
 
+Data parallel: under torchrun (``torchrun --nproc_per_node N -m
+pointrcnn_tpu_torch.eval ...``) every rank loads the same batches and runs
+the step on its slice of each (``--batch_size`` is the global batch; the
+slices of a last batch that the world does not divide differ by a frame);
+rank 0 gathers the outputs, writes the log and the KITTI files and
+computes recall, seg IoU and AP, which every rank returns.  The files and
+results equal one device's.
+
 --eval_all evaluates every checkpoint in the ckpt dir (reference
 repeat_eval_ckpt / eval_all, eval_rcnn.py:729-841); each checkpoint's
 scalars go to the log and, one JSON line an epoch, to
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from pointrcnn_tpu_torch.data.rpn_dataset import KittiRCNNDataset
+from pointrcnn_tpu_torch.parallel import mesh
 
 
 def parse_args(argv=None):
@@ -77,7 +86,11 @@ def parse_args(argv=None):
     p.add_argument("--save_rpn_feature", action="store_true")
     p.add_argument("--save_result", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device of the model and the eval step")
+                   help="torch device of the model and the eval step (under "
+                        "torchrun: cuda is cuda:<LOCAL_RANK>)")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   help="torch.distributed backend under torchrun (default: nccl "
+                        "on cuda, gloo on cpu)")
     p.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
@@ -88,10 +101,16 @@ AP_CLASSES = {  # cfg.CLASSES -> kitti_eval class indices
 
 
 def create_logger(log_file, name):
-    os.makedirs(os.path.dirname(log_file), exist_ok=True)
+    """A logger to ``log_file`` and the console; under data parallel on rank
+    0 alone (the other ranks' logger drops every record)."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     logger.handlers.clear()
+    logger.propagate = False
+    if mesh.rank() != 0:
+        logger.addHandler(logging.NullHandler())
+        return logger
+    os.makedirs(os.path.dirname(log_file), exist_ok=True)
     fmt = logging.Formatter("%(asctime)s  %(levelname)5s  %(message)s")
     fh = logging.FileHandler(log_file)
     fh.setFormatter(fmt)
@@ -99,7 +118,6 @@ def create_logger(log_file, name):
     sh.setFormatter(fmt)
     logger.addHandler(fh)
     logger.addHandler(sh)
-    logger.propagate = False
     return logger
 
 
@@ -141,7 +159,9 @@ class ProposalDataset(KittiRCNNDataset):
         return info
 
 
-def eval_ckpt(args, cfg, ckpt_path, logger):
+def eval_ckpt(args, cfg, ckpt_path, logger, device=None):
+    """Evaluate one checkpoint on ``device`` (default ``args.device``) -> the
+    result dict (every rank's, under data parallel)."""
     from pointrcnn_tpu_torch.data.loader import DataLoader
     from pointrcnn_tpu_torch.eval.evaluator import (
         eval_one_epoch_joint,
@@ -169,7 +189,7 @@ def eval_ckpt(args, cfg, ckpt_path, logger):
 
     # weights drawn from a fixed seed stand wherever no checkpoint restores
     model = PointRCNN(cfg, mode="TEST", generator=torch.Generator().manual_seed(0))
-    model = model.to(torch.device(args.device))
+    model = model.to(torch.device(args.device) if device is None else device)
     epoch = restore(args, model, ckpt_path, logger)
     model.eval()
 
@@ -194,18 +214,23 @@ def eval_ckpt(args, cfg, ckpt_path, logger):
             model, cfg, loader, out_root, logger,
             test_mode=args.test, save_result=args.save_result,
         )
-    if not args.test:
+    if not args.test and mesh.rank() == 0:
         split_file = os.path.join(args.data_root, "KITTI", "ImageSets", f"{split}.txt")
         label_dir = os.path.join(args.data_root, "KITTI", "object", "training", "label_2")
         result_str, ap = evaluate(label_dir, final_dir, split_file,
                                   current_classes=AP_CLASSES[cfg.CLASSES])
         logger.info("\n%s", result_str)
         ret.update(ap)
-    return ret
+    return mesh.broadcast_object(ret)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    with mesh.process_group(args.device, args.dist_backend) as device:
+        return _evaluate(args, device)
+
+
+def _evaluate(args, device):
     from pointrcnn_tpu_torch.config import load_config, merge_from_list
     from pointrcnn_tpu_torch.train.checkpoint import list_checkpoints
     from pointrcnn_tpu_torch.utils.snapshot import backup_source
@@ -232,15 +257,18 @@ def main(argv=None):
         )
     log_dir = args.output_dir or os.path.join("output", args.eval_mode, tag)
     logger = create_logger(os.path.join(log_dir, "log_eval.txt"), "eval")
-    backup_source(log_dir, logger)
+    if mesh.rank() == 0:
+        backup_source(log_dir, logger)
 
     if args.eval_all:
         # per-checkpoint eval scalars (reference eval_rcnn.py:833-836)
         scalars = os.path.join(log_dir, f"eval_all_{cfg.TEST.SPLIT}.jsonl")
         evaluated: set[int] = set()
         while True:
-            ckpts = [c for c in list_checkpoints(args.ckpt_dir or args.ckpt)
-                     if c[0] not in evaluated and c[0] >= args.start_epoch]
+            # rank 0's listing: a checkpoint written meanwhile would part the ranks
+            ckpts = mesh.broadcast_object(
+                [c for c in list_checkpoints(args.ckpt_dir or args.ckpt)
+                 if c[0] not in evaluated and c[0] >= args.start_epoch])
             if not ckpts and not args.wait:
                 assert evaluated, (
                     f"no checkpoints under {args.ckpt_dir or args.ckpt} "
@@ -249,12 +277,13 @@ def main(argv=None):
                 break
             for epoch, path in ckpts:
                 logger.info("==== evaluating %s ====", path)
-                ret = eval_ckpt(args, cfg, path, logger)
+                ret = eval_ckpt(args, cfg, path, logger, device)
                 logger.info("epoch %d: %s", epoch, ret)
                 row = {key: float(val) for key, val in ret.items()
                        if isinstance(val, (int, float, np.floating, np.integer))}
-                with open(scalars, "a") as f:
-                    f.write(json.dumps({"epoch": epoch, **row}) + "\n")
+                if mesh.rank() == 0:
+                    with open(scalars, "a") as f:
+                        f.write(json.dumps({"epoch": epoch, **row}) + "\n")
                 evaluated.add(epoch)
             if not args.wait:
                 break
@@ -263,7 +292,7 @@ def main(argv=None):
     assert args.ckpt or args.rpn_ckpt or args.rcnn_ckpt, (
         "one of --ckpt / --rpn_ckpt / --rcnn_ckpt required"
     )
-    ret = eval_ckpt(args, cfg, args.ckpt, logger)
+    ret = eval_ckpt(args, cfg, args.ckpt, logger, device)
     logger.info("result: %s", ret)
     return ret
 

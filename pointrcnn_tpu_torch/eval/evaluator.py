@@ -26,6 +26,7 @@ from pointrcnn_tpu_torch.models.proposal import proposal_layer
 from pointrcnn_tpu_torch.ops.iou3d import boxes_iou3d
 from pointrcnn_tpu_torch.ops.nms import nms_bev
 from pointrcnn_tpu_torch.ops.roipool3d import roipool3d
+from pointrcnn_tpu_torch.parallel import mesh
 from pointrcnn_tpu_torch.utils.box_coder import decode_bbox_target
 from pointrcnn_tpu_torch.utils.box_ops import boxes3d_to_bev
 from pointrcnn_tpu_torch.utils.np_geometry import boxes3d_to_corners3d
@@ -273,20 +274,40 @@ def _pipelined_epoch(loader, enqueue, process):
     file writes).  A batch's outputs come to the host only after the next
     batch is enqueued, so the host work of one batch overlaps the device
     work of the next, as the reference gets from CUDA stream asynchrony and
-    DataLoader workers."""
+    DataLoader workers.
+
+    Under data parallel (:mod:`pointrcnn_tpu_torch.parallel.mesh`) every
+    rank loads the same batches and runs the step on its slice (the slices
+    of a batch the world does not divide differ by a frame; a rank may get
+    none); the outputs, fixed-shape and padded with their valid masks, are
+    gathered to rank 0 in rank order, and rank 0 alone processes the whole
+    batch, as one device would."""
     def fetch(handles):
         return {k: v.cpu().numpy() for k, v in handles.items()}
 
+    def finish(batch, handles):
+        out = fetch(handles) if handles is not None else None
+        if mesh.world() > 1:
+            parts = [p for p in mesh.gather_to_rank0(out) or () if p is not None]
+            if mesh.rank() != 0:
+                return
+            out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        process(batch, out)
+
     pending = None
     for batch in loader:
-        handles = enqueue(batch)
+        local = mesh.shard_batch(batch, even=False, n=_batch_size(batch))
+        handles = enqueue(local) if _batch_size(local) else None
         if pending is not None:
-            pb, ph = pending
-            process(pb, fetch(ph))
+            finish(*pending)
         pending = (batch, handles)
     if pending is not None:
-        pb, ph = pending
-        process(pb, fetch(ph))
+        finish(*pending)
+
+
+def _batch_size(batch: dict) -> int:
+    lead = batch["pts_input"] if "pts_input" in batch else batch["rpn_xyz"]
+    return lead.shape[0]
 
 
 def eval_one_epoch_joint(model, cfg, loader, result_dir, logger=None, test_mode=False,
@@ -380,11 +401,11 @@ def eval_one_epoch_joint(model, cfg, loader, result_dir, logger=None, test_mode=
     _pipelined_epoch(loader, enqueue, process)
 
     # empty files for samples with no detections (reference eval_rcnn.py:631-642)
-    split_file_ids = [int(s) for s in dataset.image_idx_list]
-    for sid in split_file_ids:
-        path = os.path.join(final_output_dir, "%06d.txt" % sid)
-        if not os.path.exists(path):
-            open(path, "w").close()
+    if mesh.rank() == 0:
+        for sid in dataset.image_idx_list:
+            path = os.path.join(final_output_dir, "%06d.txt" % int(sid))
+            if not os.path.exists(path):
+                open(path, "w").close()
 
     ret = {"final_total": final_total, "total_gt_bbox": max(total_gt, 1)}
     for i, th in enumerate(THRESH_LIST):
@@ -393,7 +414,7 @@ def eval_one_epoch_joint(model, cfg, loader, result_dir, logger=None, test_mode=
         logger.info(
             "recall@%.1f: %.4f (roi %.4f)", th, ret[f"recall_{th}"], ret[f"roi_recall_{th}"]
         )
-    return ret, final_output_dir
+    return mesh.broadcast_object(ret), final_output_dir
 
 
 def eval_one_epoch_rpn(model, cfg, loader, result_dir, logger=None, test_mode=False,
@@ -479,7 +500,7 @@ def eval_one_epoch_rpn(model, cfg, loader, result_dir, logger=None, test_mode=Fa
         logger.info("rpn recall@%.1f: %.4f", th, ret[f"recall_{th}"])
     if seg_cnt > 0:
         ret["rpn_seg_iou"] = seg_iou_sum / seg_cnt
-    return ret, rpn_output_dir
+    return mesh.broadcast_object(ret), rpn_output_dir
 
 
 OFFLINE_INPUTS = ("rpn_xyz", "rpn_features", "rpn_intensity", "seg_mask", "pts_depth",
@@ -539,13 +560,14 @@ def eval_one_epoch_rcnn_offline(model, cfg, loader, result_dir, logger=None, tes
 
     _pipelined_epoch(loader, enqueue, process)
 
-    for s in dataset.image_idx_list:
-        path = os.path.join(final_output_dir, "%06d.txt" % int(s))
-        if not os.path.exists(path):
-            open(path, "w").close()
+    if mesh.rank() == 0:
+        for s in dataset.image_idx_list:
+            path = os.path.join(final_output_dir, "%06d.txt" % int(s))
+            if not os.path.exists(path):
+                open(path, "w").close()
 
     ret = {"total_gt_bbox": max(total_gt, 1)}
     for i, th in enumerate(THRESH_LIST):
         ret[f"recall_{th}"] = total_recalled[i] / max(total_gt, 1)
         logger.info("rcnn recall@%.1f: %.4f", th, ret[f"recall_{th}"])
-    return ret, final_output_dir
+    return mesh.broadcast_object(ret), final_output_dir

@@ -40,6 +40,7 @@ from pointrcnn_tpu_torch.ops.cuda_mlp import (
     fused_mlp_max,
 )
 from pointrcnn_tpu_torch.ops.grouping import group_points
+from pointrcnn_tpu_torch.parallel import mesh
 
 BN_EPS = 1e-5
 
@@ -105,13 +106,24 @@ def _linear(cin, cout, use_bias, init, gen):
 
 def batch_stats(y):
     """Mean and biased variance over every axis but the last, as JAX's
-    ``max(E[y^2] - E[y]^2, 0)``; and the row count."""
+    ``max(E[y^2] - E[y]^2, 0)``; and the row count.  Under data parallel
+    (:mod:`pointrcnn_tpu_torch.parallel.mesh`) they are the global batch's:
+    the sums of y and y^2 are summed across ranks (differentiably: every
+    rank's loss depends on every rank's rows through them) and the count is
+    ``world()`` times the rank's, every rank holding as many rows."""
     axes = tuple(range(y.ndim - 1))
-    mean = y.mean(dim=axes)
-    var = torch.clamp((y * y).mean(dim=axes) - mean * mean, min=0.0)
     n = 1
     for d in y.shape[:-1]:
         n *= d
+    if mesh.world() == 1:
+        mean = y.mean(dim=axes)
+        var = torch.clamp((y * y).mean(dim=axes) - mean * mean, min=0.0)
+        return mean, var, n
+    c = y.shape[-1]
+    sums = mesh.all_reduce_sum(torch.cat([y.sum(dim=axes), (y * y).sum(dim=axes)]))
+    n *= mesh.world()
+    mean = sums[:c] / n
+    var = torch.clamp(sums[c:] / n - mean * mean, min=0.0)
     return mean, var, n
 
 
@@ -307,6 +319,9 @@ class HeadMLP(nn.Module):
             x = getattr(self, f"ConvBN_{i}")(x)
             if i == 0 and self.training and self.dp_ratio > 0:
                 keep_prob = 1.0 - self.dp_ratio
-                keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+                # drawn for the global batch's rows, the rank's kept
+                keep = mesh.local_rows(torch.rand(mesh.global_shape(x.shape),
+                                                  generator=generator, device=x.device))
+                keep = keep < keep_prob
                 x = torch.where(keep, x / keep_prob, 0.0)
         return dense(x, self.Dense_0.weight, self.Dense_0.bias, self.dtype).to(torch.float32)

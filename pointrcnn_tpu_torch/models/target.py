@@ -30,6 +30,7 @@ import torch
 
 from pointrcnn_tpu_torch.ops.iou3d import boxes_iou3d, boxes_iou3d_paired
 from pointrcnn_tpu_torch.ops.roipool3d import roipool3d
+from pointrcnn_tpu_torch.parallel import mesh
 from pointrcnn_tpu_torch.utils.box_ops import rotate_pc_along_y
 
 # pos_range, hwl_range, angle_range per jitter scheme of random_aug_box3d
@@ -48,8 +49,10 @@ N_MASKS = 4
 
 
 def target_draws(cfg, generator: torch.Generator, B: int, M: int, device=None) -> dict:
-    """Every random number :func:`proposal_target_layer` takes for B frames
-    of M rois, drawn from ``generator`` on ``device``:
+    """Every random number :func:`proposal_target_layer` takes for the
+    rank's B frames of M rois, drawn from ``generator`` on ``device``: the
+    draws are made for the global batch (``world()`` times B frames, see
+    :mod:`pointrcnn_tpu_torch.parallel.mesh`) and the rank keeps its frames'.
 
     - ``sample_r`` (B, 4, M), ``sample_u`` (B, 4, R) uniforms: the order keys
       and picks of each mask's sampling;
@@ -60,6 +63,7 @@ def target_draws(cfg, generator: torch.Generator, B: int, M: int, device=None) -
     """
     device = generator.device if device is None else device
     R, T = cfg.RCNN.ROI_PER_IMAGE, int(cfg.RCNN.ROI_FG_AUG_TIMES)
+    B = B * mesh.world()
     normal = cfg.RCNN.REG_AUG_METHOD == "normal"
 
     def u(*shape):
@@ -68,7 +72,7 @@ def target_draws(cfg, generator: torch.Generator, B: int, M: int, device=None) -
     def n(*shape):
         return torch.randn(shape, generator=generator, device=device)
 
-    return {
+    draws = {
         "sample_r": u(B, N_MASKS, M), "sample_u": u(B, N_MASKS, R),
         "keep": u(B, T, R), "pos": (n if normal else u)(B, T, R, 3),
         "hwl": (n if normal else u)(B, T, R, 3), "ang": u(B, T, R, 1),
@@ -76,6 +80,7 @@ def target_draws(cfg, generator: torch.Generator, B: int, M: int, device=None) -
                                 device=device),
         "rot": u(B, R), "scale": u(B, R), "flip": u(B, R),
     }
+    return {k: mesh.local_rows(v) for k, v in draws.items()}
 
 
 def random_aug_box3d(boxes, pos_u, hwl_u, ang_u, scheme, method: str):

@@ -4,6 +4,20 @@ tools/train_rcnn.py), on the card unless ``--device`` says otherwise:
     python -m pointrcnn_tpu_torch.train --train_mode rpn --data_root data [--device cpu]
     python -m pointrcnn_tpu_torch.train --train_mode rcnn --data_root data \\
         --rpn_ckpt output/rpn/default/ckpt/checkpoint_epoch_200
+    torchrun --nproc_per_node 4 -m pointrcnn_tpu_torch.train --train_mode rpn \\
+        --data_root data --batch_size 16
+
+Data parallel (``tools/train.py``'s mesh): under torchrun each rank joins
+the process group its environment describes (``nccl`` on the cards,
+``gloo`` on the CPU, or ``--dist_backend``) on ``cuda:<LOCAL_RANK>`` (a
+``--device`` with an index pins every rank to it).  ``--batch_size`` is
+the global batch: every rank loads the same batches and steps on its
+contiguous slice, and the step computes what one device computes on the
+global batch (:mod:`pointrcnn_tpu_torch.parallel.mesh`).  A batch size
+that the world does not divide is an error (``tools/train.py`` drops
+devices until one divides it; torchrun's world is fixed), and so is a val
+split whose last batch it does not divide.  Rank 0 alone writes the log,
+the source backup and the checkpoints; ``--ckpt`` resumes every rank.
 
 Modes (reference train_rcnn.py:151-164):
   rpn   — train stage 1
@@ -14,8 +28,6 @@ Modes (reference train_rcnn.py:151-164):
           --rcnn_eval_roi_dir, --rcnn_eval_feature_dir)
 
 What ``tools/train.py`` does that this CLI leaves out:
-- the data-parallel mesh over every device that divides the batch: this
-  CLI trains on one device (data parallel is ROADMAP A8);
 - in ``rcnn_offline`` mode the val epoch's dataset: ``tools/train.py``
   gives it the saved proposals of the val split without targets, and its
   first val epoch fails (ROADMAP C18); this CLI samples the val split's
@@ -78,17 +90,29 @@ def parse_args(argv=None):
     p.add_argument("--train_with_eval", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device of the model and the train step")
+                   help="torch device of the model and the train step (under "
+                        "torchrun: cuda is cuda:<LOCAL_RANK>)")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   help="torch.distributed backend under torchrun (default: nccl "
+                        "on cuda, gloo on cpu)")
     p.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
 
 def main(argv=None) -> TrainRun:
     args = parse_args(argv)
+    from pointrcnn_tpu_torch.parallel import mesh
+
+    with mesh.process_group(args.device, args.dist_backend) as device:
+        return _train(args, device)
+
+
+def _train(args, device) -> TrainRun:
     from pointrcnn_tpu_torch.config import format_config, load_config, merge_from_list
     from pointrcnn_tpu_torch.data.loader import DataLoader
     from pointrcnn_tpu_torch.data.rpn_dataset import KittiRCNNDataset
     from pointrcnn_tpu_torch.eval.__main__ import create_logger
+    from pointrcnn_tpu_torch.parallel import mesh
     from pointrcnn_tpu_torch.train.checkpoint import load_checkpoint, load_params_partial
     from pointrcnn_tpu_torch.train.optimizer import build_optimizer
     from pointrcnn_tpu_torch.train.state import create_train_state
@@ -111,12 +135,20 @@ def main(argv=None) -> TrainRun:
             "(written by python -m pointrcnn_tpu_torch.eval --eval_mode rpn --save_rpn_feature)"
         )
     cfg = merge_from_list(cfg, overrides)
+    if args.batch_size % mesh.world():
+        raise ValueError(f"--batch_size {args.batch_size} does not divide over a world of "
+                         f"{mesh.world()} ranks")
     root_result_dir = args.output_dir or os.path.join("output", args.train_mode, tag)
     os.makedirs(root_result_dir, exist_ok=True)
 
     logger = create_logger(os.path.join(root_result_dir, "log_train.txt"), "train")
     logger.info("**** config ****\n%s", format_config(cfg))
-    backup_source(root_result_dir, logger)
+    if mesh.rank() == 0:
+        backup_source(root_result_dir, logger)
+    if mesh.active():
+        logger.info("process group of %d ranks (%s): %d frames a rank of the global batch %d",
+                    mesh.world(), mesh.backend(), args.batch_size // mesh.world(),
+                    args.batch_size)
 
     gt_db = args.gt_database if cfg.GT_AUG_ENABLED and os.path.exists(args.gt_database) else None
     train_set = KittiRCNNDataset(
@@ -154,11 +186,14 @@ def main(argv=None) -> TrainRun:
     if args.train_with_eval:
         val_loader = DataLoader(val_set, batch_size=args.batch_size, num_workers=args.workers,
                                 use_processes=args.worker_processes)
+        if len(val_set) % args.batch_size % mesh.world():
+            raise ValueError(f"the val split's last batch of {len(val_set) % args.batch_size} "
+                             f"frames does not divide over a world of {mesh.world()} ranks")
 
     steps_per_epoch = len(train_loader)
     total_steps = steps_per_epoch * args.epochs
     tx = build_optimizer(cfg, total_steps, steps_per_epoch)
-    state = create_train_state(cfg, tx, seed=args.seed, device=args.device)
+    state = create_train_state(cfg, tx, seed=args.seed, device=device)
 
     start_epoch = start_it = 0
     ckpt_dir = os.path.join(root_result_dir, "ckpt")
@@ -168,6 +203,7 @@ def main(argv=None) -> TrainRun:
     elif args.rpn_ckpt:
         load_params_partial(args.rpn_ckpt, state.model, ("rpn",))
         logger.info("loaded RPN weights from %s", args.rpn_ckpt)
+    mesh.replicate(state.model)
 
     trainer = Trainer(cfg, tx, ckpt_dir, ckpt_save_interval=args.ckpt_save_interval,
                       logger=logger, seed=args.seed)

@@ -3,7 +3,9 @@
 
 A checkpoint is one ``torch.save`` file ``<root>/checkpoint_epoch_<N>`` of
 ``{params, batch_stats, opt_state, step, meta: {epoch, it}}``, parameters
-and BN running statistics keyed by their module paths.
+and BN running statistics keyed by their module paths.  Under data parallel
+rank 0 alone writes (every rank holds the same state), and every rank
+returns once the file is there; every rank loads.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import re
 
 import torch
 
+from pointrcnn_tpu_torch.parallel import mesh
 from pointrcnn_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"checkpoint_epoch_(\d+)$")
@@ -36,6 +39,13 @@ def _to_device(tree, device):
 
 def save_checkpoint(ckpt_root: str, state: TrainState, epoch: int, it: int) -> str:
     path = _ckpt_path(ckpt_root, epoch)
+    if mesh.rank() == 0:
+        _write(path, state, epoch, it)
+    mesh.barrier()
+    return path
+
+
+def _write(path: str, state: TrainState, epoch: int, it: int) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     model = state.model
     payload = {
@@ -48,7 +58,6 @@ def save_checkpoint(ckpt_root: str, state: TrainState, epoch: int, it: int) -> s
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
-    return path
 
 
 def load_checkpoint(path: str, state: TrainState):

@@ -1,12 +1,23 @@
 """Loss assembly (counterpart of ``pointrcnn_tpu/train/loss.py``): the RPN
-loss of the ``rpn`` stage and the RCNN loss of the ``rcnn`` stage."""
+loss of the ``rpn`` stage and the RCNN loss of the ``rcnn`` stage.
+
+Under data parallel each count a loss divides by is the global batch's
+(:func:`~pointrcnn_tpu_torch.utils.losses.global_count`): a rank's loss is
+its rows' sum over the global count, the share whose sum across ranks is
+the global batch's loss, and its gradients are summed across ranks."""
 
 from __future__ import annotations
 
 import torch
 
 from pointrcnn_tpu_torch.train.labels import rpn_training_labels_batch
+from pointrcnn_tpu_torch.parallel import mesh
 from pointrcnn_tpu_torch.utils import losses
+from pointrcnn_tpu_torch.utils.losses import global_count
+
+# the metrics that are global counts already; every other metric is the
+# rank's share of a global sum
+COUNTS = ("rpn_fg_sum", "rcnn_cls_fg", "rcnn_cls_bg", "rcnn_reg_fg")
 
 
 def get_rpn_loss(cfg, rpn_cls, rpn_reg, rpn_cls_label, rpn_reg_label):
@@ -27,7 +38,7 @@ def get_rpn_loss(cfg, rpn_cls, rpn_reg, rpn_cls_label, rpn_reg_label):
         target = (cls_label_flat > 0).to(cls_flat.dtype)
         pos = (cls_label_flat > 0).to(cls_flat.dtype)
         neg = (cls_label_flat == 0).to(cls_flat.dtype)
-        weights = (pos + neg) / torch.clamp(torch.sum(pos), min=1.0)
+        weights = (pos + neg) / torch.clamp(global_count(pos), min=1.0)
         per_elem = losses.sigmoid_focal_loss(
             cls_flat, target, weights, gamma=cfg.RPN.FOCAL_GAMMA, alpha=cfg.RPN.FOCAL_ALPHA[0])
         tb["rpn_loss_cls_pos"] = torch.sum(per_elem * pos)
@@ -54,7 +65,7 @@ def get_rpn_loss(cfg, rpn_cls, rpn_reg, rpn_cls_label, rpn_reg_label):
     loss_size = 3.0 * loss_size
     rpn_loss_reg = loss_loc + loss_angle + loss_size
     # no foreground: no reg loss (the reference skips it)
-    fg_sum = torch.sum(fg_mask)
+    fg_sum = global_count(fg_mask)
     rpn_loss_reg = torch.where(fg_sum > 0, rpn_loss_reg, 0.0)
 
     rpn_loss = rpn_loss_cls * cfg.RPN.LOSS_WEIGHT[0] + rpn_loss_reg * cfg.RPN.LOSS_WEIGHT[1]
@@ -84,14 +95,14 @@ def get_rcnn_loss(cfg, rcnn_cls, rcnn_reg, target: dict):
         tgt = (cls_label > 0).to(cls_flat.dtype)
         pos = (cls_label > 0).to(cls_flat.dtype)
         neg = (cls_label == 0).to(cls_flat.dtype)
-        weights = (pos + neg) / torch.clamp(torch.sum(pos), min=1.0)
+        weights = (pos + neg) / torch.clamp(global_count(pos), min=1.0)
         per_elem = losses.sigmoid_focal_loss(
             cls_flat, tgt, weights, gamma=cfg.RCNN.FOCAL_GAMMA, alpha=cfg.RCNN.FOCAL_ALPHA[0])
         rcnn_loss_cls = torch.sum(per_elem)
     elif cfg.RCNN.LOSS_CLS == "BinaryCrossEntropy":
         ce = losses.sigmoid_cross_entropy_with_logits(cls_flat, (cls_label > 0).to(cls_flat.dtype))
         valid = (cls_label >= 0).to(cls_flat.dtype)
-        rcnn_loss_cls = torch.sum(ce * valid) / torch.clamp(torch.sum(valid), min=1.0)
+        rcnn_loss_cls = torch.sum(ce * valid) / torch.clamp(global_count(valid), min=1.0)
     elif cfg.RCNN.LOSS_CLS == "CrossEntropy":
         # multi-class softmax CE with per-class weights
         logits = rcnn_cls.reshape(cls_label.shape[0], -1)
@@ -101,7 +112,7 @@ def get_rcnn_loss(cfg, rcnn_cls, rcnn_reg, target: dict):
         cls_w = torch.tensor(cfg.RCNN.CLS_WEIGHT, dtype=logp.dtype, device=logp.device)
         w = losses._select_bin(torch.broadcast_to(cls_w, logp.shape), tgt)
         valid = (cls_label >= 0).to(nll.dtype)
-        rcnn_loss_cls = torch.sum(nll * w * valid) / torch.clamp(torch.sum(valid), min=1.0)
+        rcnn_loss_cls = torch.sum(nll * w * valid) / torch.clamp(global_count(valid), min=1.0)
     else:
         raise NotImplementedError(cfg.RCNN.LOSS_CLS)
 
@@ -132,14 +143,14 @@ def get_rcnn_loss(cfg, rcnn_cls, rcnn_reg, target: dict):
     )
     loss_size = 3.0 * loss_size
     rcnn_loss_reg = loss_loc + loss_angle + loss_size
-    fg_sum = torch.sum(fg_mask)
+    fg_sum = global_count(fg_mask)
     rcnn_loss_reg = torch.where(fg_sum > 0, rcnn_loss_reg, 0.0)
 
     rcnn_loss = rcnn_loss_cls + rcnn_loss_reg
     tb.update(rcnn_loss_cls=rcnn_loss_cls, rcnn_loss_reg=rcnn_loss_reg, rcnn_loss=rcnn_loss,
               rcnn_loss_loc=loss_loc, rcnn_loss_angle=loss_angle, rcnn_loss_size=loss_size,
-              rcnn_cls_fg=torch.sum(cls_label > 0), rcnn_cls_bg=torch.sum(cls_label == 0),
-              rcnn_reg_fg=fg_sum)
+              rcnn_cls_fg=global_count(cls_label > 0),
+              rcnn_cls_bg=global_count(cls_label == 0), rcnn_reg_fg=fg_sum)
     return rcnn_loss, tb
 
 
@@ -148,7 +159,8 @@ def model_loss(cfg, outputs: dict, batch: dict):
     labels from the batch or made on the device from ``pts_input``,
     ``gt_boxes3d`` and ``gt_valid``; plus the RCNN loss, on the targets the
     forward sampled or, offline (``RCNN.ROI_SAMPLE_JIT`` False or no RPN),
-    the batch's."""
+    the batch's -> (the rank's share of the loss, to differentiate; the
+    metrics of the global batch, :func:`global_metrics`)."""
     head = outputs["rpn_cls"] if "rpn_cls" in outputs else outputs["rcnn_cls"]
     loss = torch.zeros((), dtype=torch.float32, device=head.device)
     tb = {}
@@ -168,4 +180,15 @@ def model_loss(cfg, outputs: dict, batch: dict):
         loss = loss + rcnn_loss
         tb.update(rcnn_tb)
     tb["loss"] = loss
-    return loss, tb
+    return loss, global_metrics(tb)
+
+
+def global_metrics(tb: dict) -> dict:
+    """The metrics of the global batch: every share summed across ranks in
+    one all-reduce, the counts as they are; detached.  ``tb`` itself in a
+    world of one."""
+    if mesh.world() == 1:
+        return tb
+    keys = [k for k in tb if k not in COUNTS]
+    summed = mesh.all_reduce_sum(torch.stack([tb[k].detach().to(torch.float32) for k in keys]))
+    return {**{k: v.detach() for k, v in tb.items()}, **dict(zip(keys, summed.unbind()))}

@@ -8,7 +8,14 @@ from (seed, step), the two streams JAX splits from ``fold_in(rng, step)``),
 on-device labels, loss, backward, clip, optimizer update.  A fixed RPN
 (``RPN.FIXED``) gets zero gradients, and the optimizer's weight decay still
 shrinks it, as in JAX.  The gradient
-norm is the clip's record.  Eager PyTorch: the step updates the state's
+norm is the clip's record.
+
+Under data parallel (:mod:`pointrcnn_tpu_torch.parallel.mesh`) a step
+takes the rank's slice of the global batch: the batch norms and the loss
+normalisers see the global batch, the generators draw for it (seeded alike
+on every rank), and the gradients are summed across ranks before the
+update, so the clip reads the global norm and every rank applies the same
+update.  Eager PyTorch: the step updates the state's
 model and optimizer state in place and returns the same state.
 """
 
@@ -20,6 +27,7 @@ import torch
 
 from pointrcnn_tpu_torch.models.layers import set_bn_momentum
 from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
+from pointrcnn_tpu_torch.parallel import mesh
 from pointrcnn_tpu_torch.train.loss import model_loss
 
 # the context around each phase of a train step ("forward", "loss + labels",
@@ -60,8 +68,11 @@ def target_generator(seed: int, step: int, device) -> torch.Generator:
 
 def loss_and_grads(model, cfg, batch: dict, generator=None, target_gen=None, targets=None):
     """Forward in training mode, loss and gradients of every parameter ->
-    (loss, metrics, {name: grad}); ``targets`` (the target layer's draws)
-    or ``target_gen`` feed the ``rcnn`` stage's target layer."""
+    (the rank's share of the loss, the global batch's metrics, {name: the
+    global batch's gradient}); ``targets`` (the target layer's draws for
+    the rank's frames) or ``target_gen`` feed the ``rcnn`` stage's target
+    layer.  Under data parallel ``batch`` is the rank's slice and the
+    gradients are summed across ranks."""
     model.train()
     params = dict(model.named_parameters())
     with phase("forward"):
@@ -70,6 +81,7 @@ def loss_and_grads(model, cfg, batch: dict, generator=None, target_gen=None, tar
         loss, tb = model_loss(cfg, out, batch)
     with phase("backward"):
         grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+        grads = mesh.all_reduce_grads(list(grads))
     return loss, tb, dict(zip(params, grads))
 
 
@@ -77,7 +89,8 @@ def make_train_step(cfg, tx, seed: int = 0):
     """The train step ``(state, batch, bn_momentum[, targets]) -> (state,
     metrics)``; ``batch`` holds device tensors ``pts_input`` and either the
     labels or ``gt_boxes3d`` + ``gt_valid`` (the ``rcnn`` stage needs the
-    boxes)."""
+    boxes); under data parallel the rank's slice, the metrics the global
+    batch's."""
 
     def step_fn(state: TrainState, batch: dict, bn_momentum: float, targets=None):
         """``targets``: the target layer's draws for this step, in place of

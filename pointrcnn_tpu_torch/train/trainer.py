@@ -6,6 +6,12 @@ checkpoints every ``ckpt_save_interval`` epochs, and loss-only validation
 every ``eval_frequency`` epochs.  ``history`` keeps each epoch's record for
 the caller: its steps, last loss, wall seconds, the wait for its first
 batch and, where it ran, the validation loss.
+
+Under data parallel (:mod:`pointrcnn_tpu_torch.parallel.mesh`) every rank
+iterates the same loader (a sample is drawn from (seed, epoch, index)
+alone, so every rank sees the same global batch) and steps on its slice;
+the losses are the global batch's, and rank 0 alone writes checkpoints,
+the other ranks waiting for the write.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from pointrcnn_tpu_torch.models.layers import set_bn_momentum
+from pointrcnn_tpu_torch.parallel import mesh
 from pointrcnn_tpu_torch.train.checkpoint import save_checkpoint
 from pointrcnn_tpu_torch.train.loss import model_loss
 from pointrcnn_tpu_torch.train.optimizer import bn_momentum_for_epoch
@@ -60,7 +67,8 @@ class Trainer:
             for batch in train_loader:
                 if n_batches == 0:
                     wait = time.time() - t0
-                state, tb = self.train_step(state, batch_to_device(batch, device), bn_momentum)
+                local = batch_to_device(mesh.shard_batch(batch), device)
+                state, tb = self.train_step(state, local, bn_momentum)
                 it += 1
                 n_batches += 1
             dt = time.time() - t0
@@ -82,7 +90,8 @@ class Trainer:
     def eval_epoch(self, state: TrainState, val_loader) -> float:
         """Loss-only validation: the training-mode forward (batch statistics,
         dropout and target draws from fixed streams) with BN momentum 0, so
-        the running statistics stay as they are."""
+        the running statistics stay as they are; the mean of the global
+        batches' losses."""
         model = state.model
         device = next(model.parameters()).device
         set_bn_momentum(model, 0.0)
@@ -90,9 +99,9 @@ class Trainer:
         total, count = 0.0, 0
         with torch.no_grad():
             for batch in val_loader:
-                batch = batch_to_device(batch, device)
+                batch = batch_to_device(mesh.shard_batch(batch), device)
                 out = model(batch, generator=dropout_generator(self.seed, 0, device),
                             target_generator=target_generator(self.seed, 0, device))
-                total += float(model_loss(self.cfg, out, batch)[0])
+                total += float(model_loss(self.cfg, out, batch)[1]["loss"])
                 count += 1
         return total / max(count, 1)

@@ -6,6 +6,10 @@ order.  Bin selections are one-hot compare-reduces (:func:`_select_bin`),
 not ``torch.gather``: a bin index equal to the bin count, which the coarse
 heading bin reaches at ry = 2 pi in f32 (ROADMAP C4), selects nothing and
 gives a zero row, where ``torch.gather`` would raise.
+
+Under data parallel every normaliser is the global batch's (a count summed
+across ranks by :func:`global_count`), so a rank's loss is its rows' share
+of the global loss; in a world of one nothing changes.
 """
 
 from __future__ import annotations
@@ -13,10 +17,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pointrcnn_tpu_torch.parallel import mesh
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+
+def global_count(mask: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``sum(mask)`` over the global batch (summed across data-parallel
+    ranks, :mod:`pointrcnn_tpu_torch.parallel.mesh`), in ``dtype``."""
+    return mesh.all_reduce_sum(torch.sum(mask if dtype is None else mask.to(dtype)))
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, count=None) -> torch.Tensor:
+    """The rank's share of the global batch's masked mean: its rows' sum over
+    the global ``count`` of the mask (computed here unless given)."""
     mask = mask.to(x.dtype)
-    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = global_count(mask) if count is None else count
+    return torch.sum(x * mask) / torch.clamp(count, min=1.0)
 
 
 def _select_bin(mat: torch.Tensor, bin_idx: torch.Tensor) -> torch.Tensor:
@@ -41,13 +56,15 @@ def sigmoid_cross_entropy_with_logits(logits, labels):
 
 
 def dice_loss(logits, target, ignore_target: float = -1.0):
-    """Soft-IoU loss over sigmoid scores."""
+    """Soft-IoU loss over sigmoid scores; under data parallel the rank's
+    share ``1 / world - inter / union`` of the global batch's, the union
+    summed across ranks."""
     p = torch.sigmoid(logits.reshape(-1))
     t = target.reshape(-1).to(p.dtype)
     mask = (t != ignore_target).to(p.dtype)
     inter = torch.sum(torch.minimum(p, t) * mask)
-    union = torch.clamp(torch.sum(torch.maximum(p, t) * mask), min=1.0)
-    return 1.0 - inter / union
+    union = torch.clamp(mesh.all_reduce_sum(torch.sum(torch.maximum(p, t) * mask)), min=1.0)
+    return 1.0 / mesh.world() - inter / union
 
 
 def sigmoid_focal_loss(logits, targets, weights, gamma: float = 2.0, alpha: float = 0.25):
@@ -72,10 +89,10 @@ def smooth_l1(pred, target, beta: float = 1.0):
     return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
 
 
-def _masked_softmax_ce(logits, label, mask):
+def _masked_softmax_ce(logits, label, mask, count=None):
     """Cross-entropy over integer labels, mean over masked rows."""
     logp = torch.log_softmax(logits, dim=-1)
-    return _masked_mean(-_select_bin(logp, label), mask)
+    return _masked_mean(-_select_bin(logp, label), mask, count)
 
 
 def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope: float, loc_bin_size: float,
@@ -93,6 +110,7 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope: float, loc_bin_size: f
     per_loc_bin_num = int(loc_scope / loc_bin_size) * 2
     loc_y_bin_num = int(loc_y_scope / loc_y_bin_size) * 2
     fg = fg_mask.to(pred_reg.dtype)
+    fg_count = global_count(fg)
     d = {}
 
     x_off, y_off, z_off = reg_label[:, 0], reg_label[:, 1], reg_label[:, 2]
@@ -105,8 +123,8 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope: float, loc_bin_size: f
     z_bin_l, z_bin_r = per_loc_bin_num, per_loc_bin_num * 2
     start = z_bin_r
 
-    loss_x_bin = _masked_softmax_ce(pred_reg[:, x_bin_l:x_bin_r], x_bin, fg)
-    loss_z_bin = _masked_softmax_ce(pred_reg[:, z_bin_l:z_bin_r], z_bin, fg)
+    loss_x_bin = _masked_softmax_ce(pred_reg[:, x_bin_l:x_bin_r], x_bin, fg, fg_count)
+    loss_z_bin = _masked_softmax_ce(pred_reg[:, z_bin_l:z_bin_r], z_bin, fg, fg_count)
     d["loss_x_bin"], d["loss_z_bin"] = loss_x_bin, loss_z_bin
     loc_loss = loss_x_bin + loss_z_bin
 
@@ -120,8 +138,8 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope: float, loc_bin_size: f
             / loc_bin_size
         x_res_pred = _select_bin(pred_reg[:, x_res_l:x_res_r], x_bin)
         z_res_pred = _select_bin(pred_reg[:, z_res_l:z_res_r], z_bin)
-        loss_x_res = _masked_mean(smooth_l1(x_res_pred, x_res_label), fg)
-        loss_z_res = _masked_mean(smooth_l1(z_res_pred, z_res_label), fg)
+        loss_x_res = _masked_mean(smooth_l1(x_res_pred, x_res_label), fg, fg_count)
+        loss_z_res = _masked_mean(smooth_l1(z_res_pred, z_res_label), fg, fg_count)
         d["loss_x_res"], d["loss_z_res"] = loss_x_res, loss_z_res
         loc_loss = loc_loss + loss_x_res + loss_z_res
 
@@ -134,12 +152,12 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope: float, loc_bin_size: f
         y_res_label = (y_shift - (y_bin.to(y_shift.dtype) * loc_y_bin_size
                                   + loc_y_bin_size / 2)) / loc_y_bin_size
         y_res_pred = _select_bin(pred_reg[:, y_res_l:y_res_r], y_bin)
-        loss_y_bin = _masked_softmax_ce(pred_reg[:, y_bin_l:y_bin_r], y_bin, fg)
-        loss_y_res = _masked_mean(smooth_l1(y_res_pred, y_res_label), fg)
+        loss_y_bin = _masked_softmax_ce(pred_reg[:, y_bin_l:y_bin_r], y_bin, fg, fg_count)
+        loss_y_res = _masked_mean(smooth_l1(y_res_pred, y_res_label), fg, fg_count)
         d["loss_y_bin"], d["loss_y_res"] = loss_y_bin, loss_y_res
         loc_loss = loc_loss + loss_y_bin + loss_y_res
     else:
-        loss_y_offset = _masked_mean(smooth_l1(pred_reg[:, start], y_off), fg)
+        loss_y_offset = _masked_mean(smooth_l1(pred_reg[:, start], y_off), fg, fg_count)
         start = start + 1
         d["loss_y_offset"] = loss_y_offset
         loc_loss = loc_loss + loss_y_offset
@@ -169,8 +187,8 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope: float, loc_bin_size: f
     ry_res_norm_label = ry_res_label / (angle_per_class / 2)
 
     ry_res_pred = _select_bin(pred_reg[:, ry_res_l:ry_res_r], ry_bin)
-    loss_ry_bin = _masked_softmax_ce(pred_reg[:, ry_bin_l:ry_bin_r], ry_bin, fg)
-    loss_ry_res = _masked_mean(smooth_l1(ry_res_pred, ry_res_norm_label), fg)
+    loss_ry_bin = _masked_softmax_ce(pred_reg[:, ry_bin_l:ry_bin_r], ry_bin, fg, fg_count)
+    loss_ry_res = _masked_mean(smooth_l1(ry_res_pred, ry_res_norm_label), fg, fg_count)
     d["loss_ry_bin"], d["loss_ry_res"] = loss_ry_bin, loss_ry_res
     angle_loss = loss_ry_bin + loss_ry_res
 
@@ -180,7 +198,8 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope: float, loc_bin_size: f
     anchor_size = torch.as_tensor(anchor_size, dtype=pred_reg.dtype, device=pred_reg.device)
     size_label = (reg_label[:, 3:6] - anchor_size) / anchor_size
     size_loss = _masked_mean(
-        torch.mean(smooth_l1(pred_reg[:, size_res_l:size_res_r], size_label), dim=1), fg)
+        torch.mean(smooth_l1(pred_reg[:, size_res_l:size_res_r], size_label), dim=1), fg,
+        fg_count)
 
     d["loss_loc"], d["loss_angle"], d["loss_size"] = loc_loss, angle_loss, size_loss
     return loc_loss, angle_loss, size_loss, d

@@ -244,8 +244,8 @@ def test_port_imports_nothing_of_jax():
     the profilers, the data pipeline, the evaluators and their CLIs, the
     train CLI, the data tools and the AP gate, the reference-checkpoint
     converter and the TPU record's eval, the host-op and geometry copies,
-    the snapshot and chip_smoke.py import neither jax nor the JAX
-    package."""
+    the snapshot, the data-parallel mesh and ``dryrun_multichip``, and
+    chip_smoke.py import neither jax nor the JAX package."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -266,6 +266,8 @@ def test_port_imports_nothing_of_jax():
         "import pointrcnn_tpu_torch.tools.generate_gt_database\n"
         "import pointrcnn_tpu_torch.tools.convert_torch_ckpt\n"
         "import pointrcnn_tpu_torch.tools.eval_tpu_record\n"
+        "import pointrcnn_tpu_torch.parallel.mesh\n"
+        "from pointrcnn_tpu_torch.entry import dryrun_multichip\n"
         "assert pointrcnn_tpu_torch.utils.native.get_lib() is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'optax', 'pointrcnn_tpu'))\n"
