@@ -42,10 +42,15 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    (``fps_group_banded``) captured in a CUDA graph and replayed on a cloud
    whose flag reads false;
 3b. the SA stages of every shipped config (``cfgs/default.yaml``,
-   ``people.yaml``, ``car_2x.yaml``) that the port routes to the fused MLP
-   kernels: each launches K2 (and, in the BN-free RCNN stacks' training
-   direction, K7) once at its real widths, K and batch, and a refusal fails
-   (ROADMAP C12);
+   ``people.yaml``, ``car_2x.yaml``), of default.yaml + ``WIDE_OVERRIDES``
+   and of car_2x.yaml + ``EXACT_OVERRIDES`` that the port routes to the
+   fused MLP kernels: each launches K2 (and, in the BN-free RCNN stacks'
+   training direction, K7) once at its real widths, K and batch, and a
+   refusal fails (ROADMAP C12); then every kernel at the shapes past its
+   first plans (``check_port_limits``): K1 over rows of 32768-140000
+   points (``torch.equal``), K4 and K8 at 3 + 1024 channels, K2 and K7 at
+   one layer, K 128, five layers up to 640, ``use_xyz`` False, each with
+   its bound, the global plan's bits against the first plan's;
 4. drive the main path (``pointrcnn_tpu_torch.entry``: the two-stage eval
    forward of ``cfgs/default.yaml`` as it stands) at batch 4 x 16384 points
    on seeded clouds, check shapes, finiteness and that every kernel
@@ -158,11 +163,15 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    step, and a batch-1 step against the CPU path with the card's proposals
    and target draws handed to it, on the joint scene and on one whose gt
    boxes all sit on proposals (few foreground points: held within 5 times
-   what the CPU's own step moves when its input moves by one ulp).
+   what the CPU's own step moves when its input moves by one ulp);
+15. path W (default.yaml + ``WIDE_OVERRIDES``): the eval forward at batch
+   4, the rpn step at 16 and the rcnn step at 4 from its checkpoint, and
+   path X (car_2x.yaml + ``EXACT_OVERRIDES``): the eval forward at batch 4,
+   each with the records of phase 13 and its launches.
 
 The second-to-last line is the kernel table as JSON (with the launches of
-phases 12-14), the last line ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX.
+phases 12-15 and each kernel's ``limit_shapes``), the last line
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1077,8 +1086,10 @@ def check_mlp_bwd():
 # ROADMAP C12: the shipped configs whose SA stacks the card must admit
 # each shipped config, and default.yaml without RPN features in the RCNN
 # (``RCNN.USE_RPN_FEATURES`` False: SA1 takes 3 + 130 channels)
+# (a name: that override list of pointrcnn_tpu_torch.entry)
 SHIPPED_CONFIGS = (("default.yaml", ()), ("people.yaml", ()), ("car_2x.yaml", ()),
-                   ("default.yaml", ("RCNN.USE_RPN_FEATURES", "False")))
+                   ("default.yaml", ("RCNN.USE_RPN_FEATURES", "False")),
+                   ("default.yaml", "WIDE_OVERRIDES"), ("car_2x.yaml", "EXACT_OVERRIDES"))
 
 
 def _sa_stages(model, cfg):
@@ -1110,13 +1121,16 @@ def check_shipped_stages():
     BN-free RCNN stacks in training) runs on the card at its real widths, K
     and batch: each launches its kernels once through the model's own
     module, and a refusal fails."""
+    from pointrcnn_tpu_torch import entry
     from pointrcnn_tpu_torch.config import load_config
     from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
     from pointrcnn_tpu_torch.ops import cuda_mlp
 
     for cfg_file, overrides in SHIPPED_CONFIGS:
+        named = isinstance(overrides, str)
+        cfg_name = f"{cfg_file} + {overrides}" if named else " ".join((cfg_file,) + overrides)
+        overrides = getattr(entry, overrides) if named else overrides
         cfg = load_config(os.path.join(REPO, "cfgs", cfg_file), list(overrides))
-        cfg_name = " ".join((cfg_file,) + overrides)
         model = PointRCNN(cfg, mode="TEST", generator=torch.Generator().manual_seed(0)).cuda()
         admitted = []
         for name, mlp, n, S, K, B, train in _sa_stages(model, cfg):
@@ -1159,6 +1173,295 @@ def check_shipped_stages():
                 f"{' and K7' if train else ''} launched")
         log(f"{cfg_name}: every fused stage admitted ({len(admitted)}: {', '.join(admitted)})")
         del model
+
+
+# The shapes past the kernels' first plans (ROADMAP C12), each held to its
+# plain version on the card.  K2 + K7 (name, B, N, C, S, K, widths, mode):
+# one-layer stacks (hilo; fold at K 128: WIDE_OVERRIDES' RCNN SA1), K 128 at
+# three layers (a resident plan of 128-row tiles), WIDE_OVERRIDES' RCNN SA2
+# (five layers up to 640 wide, K 128: the global plans, weights past shared
+# memory), a stack whose forward streams a layer while its backward takes the
+# global plan, and mode "none" (use_xyz False)
+LIMIT_MLP_SHAPES = (
+    ("one layer", 16, 128, 128, 32, 64, (128,), "hilo"),
+    ("W RCNN SA1, one layer", 4 * 64, 512, 128, 128, 128, (128,), "fold"),
+    ("K 128, three layers", 64, 512, 128, 128, 128, (128, 128, 128), "fold"),
+    ("streamed forward, global backward", 16, 256, 128, 64, 32, (128, 256, 256), "hilo"),
+    ("use_xyz False", 16, 256, 64, 64, 32, (64, 128), "none"),
+    ("RCNN SA2", 4 * 64, 128, 128, 32, 64, (128, 128, 256), "hilo"),
+    ("W RCNN SA2, five layers", 4 * 64, 128, 128, 32, 128, (128, 256, 256, 512, 640), "hilo"),
+)
+# the shapes whose K7 is held on exact data (_exact_mlp_case): on random data
+# the departure from the plain version compounds through the layers (five
+# layers at K 128, H100: db4 1.3e-3, dw4 3.4e-3 ... dtable 7.5e-3 of the norm,
+# smoothly from the last layer down; three layers at K 128: 2.6e-3, at K 64
+# 1.5e-3), past MLP_BWD_REL_TOL, calibrated on three-layer stacks.  It is
+# logged there, and K7 is held to the bound where both sides compute the
+# same activations
+LIMIT_EXACT_BWD = ("W RCNN SA2, five layers",)
+# the shapes whose first plans keep activations or weights in shared memory
+# (resident, 128-row centroids, a streamed forward layer, the default RCNN
+# SA2): the global plan must give the same forward and per-row gradients
+LIMIT_PLAN_EQUAL = ("K 128, three layers", "streamed forward, global backward", "RCNN SA2")
+# K1 (name, B, N, npoint): car_2x's RPN SA1 in the exact setting (a cluster
+# of 2 blocks a row), rows for clusters of 4 and 8, and a row past a
+# cluster's reach (the global-memory kernel)
+LIMIT_FPS_SHAPES = (("X RPN SA1", 4, 32768, 8192), ("cluster of 4", 2, 40000, 300),
+                    ("cluster of 8", 1, 100000, 200), ("global memory", 1, 140000, 200))
+# K4 + K8 (name, B, N, C, S, K): RPN SA4 of WIDE_OVERRIDES' rpn step, 3 + 1024
+# channels
+LIMIT_GATHER_SHAPES = (("W RPN SA4", TRAIN_BATCH, 256, 1024, 64, 16),
+                       ("W RPN SA4", TRAIN_BATCH, 256, 1024, 64, 32))
+
+
+def _check_exact_bwd(name, fold, xyz, idx, ops, ct):
+    """K2 and K7 on _exact_mlp_case's operands: the forward equal to the
+    plain version's, K7 deterministic, no dropped tie, each output within
+    MLP_BWD_REL_TOL of the plain version in norm."""
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+
+    table, cent, w0x, ws, bs = ops
+    N, K = table.shape[1], idx.shape[2]
+    idx_p = cuda_mlp.pad_idx(idx, N)
+    out = cuda_mlp._launch(fold, table, xyz, cent, w0x, ws, bs, idx_p, checked=True)
+    ref = cuda_mlp.fused_group_plain(fold, table, xyz, cent, w0x, ws, bs, idx)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"fused mlp {name} (exact data): {(out != ref).sum().item()} "
+                             f"maxima differ from the plain version")
+    bwd = lambda: cuda_mlp._launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx_p, K, out, ct)
+    got, again = bwd(), bwd()
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(_named(got), _named(again))):
+        raise AssertionError(f"mlp backward {name} (exact data): two launches differ")
+    torch.cuda.synchronize()
+    if cuda_mlp.nomatch_count():
+        raise AssertionError(f"mlp backward {name} (exact data): maxima found no match")
+    bref = cuda_mlp.fused_group_backward_plain(fold, table, xyz, cent, w0x, ws, bs, idx, ref, ct)
+    rels = {what: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for (what, a), (_, b) in zip(_named(got), _named(bref))}
+    log(f"mlp backward {name} (exact data): forward equal to the plain version, deterministic, "
+        f"no dropped tie; each output's departure in norm: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()))
+    for what, rel in rels.items():
+        if not rel <= MLP_BWD_REL_TOL:
+            raise AssertionError(f"mlp backward {name} (exact data): {what} off the plain version "
+                                 f"by {rel:.3e} of its norm")
+
+
+def _limit_mlp_case(B, N, C, S, K, widths, mode, seed):
+    from pointrcnn_tpu_torch.models.layers import xavier_normal
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+
+    g = torch.Generator().manual_seed(seed)
+    xyz = _roi_cloud(B, N, seed)
+    feats = torch.relu(torch.randn((B, N, C), generator=g)).cuda()
+    new_xyz = xyz[:, :S].contiguous()
+    idx = torch.randint(0, N, (B, S, K), generator=g, dtype=torch.int32)
+    idx[:, : S // 4, K // 2:] = idx[:, : S // 4, :1]  # the ball query's backfill
+    idx = idx.cuda()
+    ws, bs, cin = [], [], (3 if mode != "none" else 0) + C
+    for f in widths:
+        ws.append(xavier_normal(cin, f, g).cuda())
+        bs.append((torch.randn(f, generator=g) * 0.1).cuda())
+        cin = f
+    fold = mode != "hilo"
+    ops = cuda_mlp.prepare_operands(fold, xyz, feats, new_xyz, ws, bs, mode != "none")
+    ct = torch.randn((B, S, ops[3][-1].shape[1] if len(ws) > 1 else ops[0].shape[2]),
+                     generator=g).cuda()
+    return fold, xyz, idx, ops, ct
+
+
+def check_port_limits():
+    """K2 and K7, K1, K4 and K8 at the shapes their first plans refused
+    (ROADMAP C12), each against its plain version on the card, each timed
+    with its bound -> {kernel: [per-shape rows]}."""
+    rows = {"fused_group_mlp_max": [], "fused_group_mlp_backward": [], "fps": [],
+            "group_gather": [], "gather_backward": []}
+    check_limit_fps(rows)
+    check_limit_gather(rows)
+    check_limit_mlp(rows)
+    return rows
+
+
+def _exact_mlp_case(B, N, C, S, K, widths, mode, seed):
+    """Operands on which every forward sum is exact in f32 whatever its
+    order: small integer features, coordinates and cotangents, weights in
+    {-1, 0, 1} (nine in ten 0) and integer biases, so the kernel and the
+    plain version compute the same activations, take the same maxima and
+    ties (many: integer activations tie often) and apply the same ReLU
+    masks; only the backward's own bf16 products then sum in another order."""
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+
+    g = torch.Generator().manual_seed(seed)
+    ints = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=g).float()
+    xyz = ints(-8, 9, (B, N, 3)).cuda()
+    feats = ints(0, 4, (B, N, C)).cuda()
+    new_xyz = xyz[:, :S].contiguous()
+    idx = torch.randint(0, N, (B, S, K), generator=g, dtype=torch.int32)
+    idx[:, : S // 4, K // 2:] = idx[:, : S // 4, :1]
+    idx = idx.cuda()
+    ws, bs, cin = [], [], (3 if mode != "none" else 0) + C
+    for f in widths:
+        w = ints(-1, 2, (cin, f)) * (torch.rand((cin, f), generator=g) < 0.1)
+        ws.append(w.cuda())
+        bs.append(ints(-2, 3, (f,)).cuda())
+        cin = f
+    fold = mode != "hilo"
+    ops = cuda_mlp.prepare_operands(fold, xyz, feats, new_xyz, ws, bs, mode != "none")
+    ct = ints(-4, 5, (B, S, ops[3][-1].shape[1] if len(ws) > 1 else ops[0].shape[2])).cuda()
+    return fold, xyz, idx, ops, ct
+
+
+def check_limit_mlp(rows):
+    """K2 within MLP_REL_TOL of the output's scale, K7 deterministic with no
+    dropped tie and each output within MLP_BWD_REL_TOL of the plain version
+    in norm; the global plan's bits equal to the first plan's where both
+    exist."""
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+
+    cuda_mlp.reset_nomatch()
+    for name, B, N, C, S, K, widths, mode in LIMIT_MLP_SHAPES:
+        fold, xyz, idx, ops, ct = _limit_mlp_case(B, N, C, S, K, widths, mode, N + K + B)
+        if name in LIMIT_EXACT_BWD:
+            _check_exact_bwd(name, *_exact_mlp_case(B, N, C, S, K, widths, mode, N + K))
+        table, cent, w0x, ws, bs = ops
+        idx_p = cuda_mlp.pad_idx(idx, N)
+        fwd = lambda: cuda_mlp._launch(fold, table, xyz, cent, w0x, ws, bs, idx_p, checked=True)
+        out = fwd()
+        ref = cuda_mlp.fused_group_plain(fold, table, xyz, cent, w0x, ws, bs, idx)
+        scale, e = ref.abs().max().item(), (out - ref).abs().max().item()
+        if not (torch.isfinite(out).all() and e <= MLP_REL_TOL * scale):
+            raise AssertionError(f"fused mlp {name}: max err {e} vs scale {scale}")
+        k = cuda_ms(fwd, 5)
+        p = cuda_ms(lambda: cuda_mlp.fused_group_plain(fold, table, xyz, cent, w0x, ws, bs, idx),
+                    1)
+        f0p = table.shape[2]
+        pw = [f0p] + [w.shape[1] for w in ws]
+        macs = (0 if fold else 3 * f0p) + sum(a * b for a, b in zip(pw, pw[1:]))
+        ops_n = 2.0 * B * S * K * macs
+        nb = nbytes(table, None if fold else xyz, cent, w0x, *ws, *bs, idx, out)
+        b_ms, term = bound(nb, ops_n, PEAK_BF16_PER_MS)
+        rows["fused_group_mlp_max"].append(
+            {"shape": name, "b": B, "n": N, "c": C, "s": S, "k": K, "widths": list(widths),
+             "mode": mode, "max_abs_err": e, "ms": k, "plain_ms": p, "bound_ms": b_ms,
+             "bound_by": term})
+        log(f"fused mlp {name} B={B} N={N} C={C} S={S} K={K} {widths} {mode}: max err {e:.3e} "
+            f"(scale {scale:.3e}); kernel {k:.4f} ms, plain {p:.4f} ms, bound {b_ms:.4f} ms; "
+            f"{_rate(ops_n, k, b_ms)}")
+        bwd = lambda: cuda_mlp._launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx_p, K, out, ct)
+        got, again = bwd(), bwd()
+        if not all(torch.equal(a, b) for (_, a), (_, b) in zip(_named(got), _named(again))):
+            raise AssertionError(f"mlp backward {name}: two launches differ")
+        torch.cuda.synchronize()
+        nomatch = cuda_mlp.nomatch_count()
+        if nomatch:
+            raise AssertionError(f"mlp backward {name}: {nomatch} maxima found no match")
+        plain_out = cuda_mlp.fused_group_plain(fold, table, xyz, cent, w0x, ws, bs, idx)
+        bref = cuda_mlp.fused_group_backward_plain(fold, table, xyz, cent, w0x, ws, bs, idx,
+                                                   plain_out, ct)
+        worst = err = 0.0
+        rels = {}
+        for (what, a), (_, b) in zip(_named(got), _named(bref)):
+            rels[what] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            worst, err = max(worst, rels[what]), max(err, (a - b).abs().max().item())
+        log(f"mlp backward {name}: each output's departure from the plain version in norm: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+            + (" (random data; held on exact data above)" if name in LIMIT_EXACT_BWD else ""))
+        for (what, a), _ in zip(_named(got), _named(bref)):
+            if not torch.isfinite(a).all() or (name not in LIMIT_EXACT_BWD
+                                               and rels[what] > MLP_BWD_REL_TOL):
+                raise AssertionError(f"mlp backward {name}: {what} off the plain version by "
+                                     f"{rels[what]:.3e} of its norm")
+        if name in LIMIT_PLAN_EQUAL:
+            # the forward and every per-row output (the table, xyz and
+            # centroid gradients) bit for bit; the parameter gradients sum
+            # the blocks' partials, whose tiles follow the grid, which the
+            # plans' shared memory sets: equal up to that order
+            with cuda_mlp.global_plan():
+                g_out = fwd()
+                g_got = bwd()
+            if not torch.equal(g_out, out):
+                raise AssertionError(f"fused mlp {name}: the global plan's forward differs")
+            for (what, a), (_, b) in zip(_named(g_got), _named(got)):
+                if what in ("dtable", "dxyz", "dcent"):
+                    ok = torch.equal(a, b)
+                else:
+                    ok = ((a - b).norm() <= 1e-5 * b.norm()).item()
+                if not ok:
+                    raise AssertionError(f"fused mlp {name}: the global plan's {what} differs")
+            log(f"fused mlp {name}: the global plan gives the same bits forward and in the "
+                f"per-row gradients, the parameter gradients within 1e-5 in norm")
+            del g_out, g_got
+        kb = cuda_ms(bwd, 3)
+        pb = cuda_ms(lambda: cuda_mlp.fused_group_backward_plain(
+            fold, table, xyz, cent, w0x, ws, bs, idx, plain_out, ct), 1)
+        del bref, plain_out
+        ops_b = 2.0 * B * S * K * 3 * sum(a * b for a, b in zip(pw, pw[1:]))
+        nb_b = nbytes(table, None if fold else xyz, cent, w0x, *ws, *bs, idx, out, ct,
+                      *(t for _, t in _named(got)))
+        bb_ms, bterm = bound(nb_b, ops_b, PEAK_BF16_PER_MS)
+        rows["fused_group_mlp_backward"].append(
+            {"shape": name, "b": B, "n": N, "c": C, "s": S, "k": K, "widths": list(widths),
+             "mode": mode, "worst_norm_rel": worst, "max_abs_err": err, "ms": kb,
+             "plain_ms": pb, "bound_ms": bb_ms, "bound_by": bterm})
+        log(f"mlp backward {name}: deterministic, no dropped tie, worst {worst:.3e} of the plain "
+            f"version's norm (tol {MLP_BWD_REL_TOL}); kernel {kb:.4f} ms, plain {pb:.4f} ms, "
+            f"bound {bb_ms:.4f} ms")
+        del got, again, out
+
+
+def check_limit_fps(rows):
+    """K1 torch.equal to its plain version over rows past 16384 points."""
+    from pointrcnn_tpu_torch.ops import cuda_fps
+
+    t_step = fps_step_ms()
+    for name, B, N, npoint in LIMIT_FPS_SHAPES:
+        xyz = _rpn_cloud(B, N, N)
+        got = cuda_fps._launch(xyz, npoint)
+        ref = cuda_fps.furthest_point_sample_plain(xyz, npoint)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"fps {name} {B}x{N}->{npoint}: {(got != ref).sum().item()} "
+                                 f"picks differ")
+        k = cuda_ms(lambda: cuda_fps._launch(xyz, npoint), 2)
+        p = cuda_ms(lambda: cuda_fps.furthest_point_sample_plain(xyz, npoint), 1)
+        b_ms, term = bound(nbytes(xyz, got), 10.0 * B * (npoint - 1) * N, PEAK_F32_PER_MS,
+                           (npoint - 1) * t_step)
+        rows["fps"].append({"shape": name, "b": B, "n": N, "npoint": npoint, "ms": k,
+                            "plain_ms": p, "bound_ms": b_ms, "term": term,
+                            "step_us": 1000 * k / (npoint - 1)})
+        log(f"fps {name} {B}x{N}->{npoint}: equal to the plain version; kernel {k:.4f} ms "
+            f"({1000 * k / (npoint - 1):.3f} us a step), plain {p:.4f} ms, bound {b_ms:.4f} ms "
+            f"({term}; probe step {1000 * t_step:.4f} us)")
+
+
+def check_limit_gather(rows):
+    """K4 torch.equal to its plain version at 3 + 1024 channels, K8
+    deterministic and equal to the CPU plain version."""
+    from pointrcnn_tpu_torch.ops import cuda_gather
+
+    for name, B, N, C, S, K in LIMIT_GATHER_SHAPES:
+        xyz, feats, cent, idx, ct_cpu = _gather_case(B, N, C, S, K, 11 * N + K)
+        fwd = _gather_equal(f"{name} 3 + {C} channels K={K}", xyz, feats, cent, idx)
+        kf = cuda_ms(lambda: cuda_gather._launch(xyz, feats, cent, idx), 10)
+        pf = cuda_ms(lambda: cuda_gather.group_points_plain(xyz, feats, cent, idx), 3)
+        nbf = nbytes(xyz, feats, cent, idx, fwd)
+        rows["group_gather"].append({"shape": name, "b": B, "n": N, "c": C, "s": S, "k": K,
+                                     "ms": kf, "plain_ms": pf,
+                                     "bound_ms": nbf / PEAK_BYTES_PER_MS, "bound_by": "bytes"})
+        got, ct = _check_bwd_case(f"{name} 3 + {C} channels K={K}", idx, ct_cpu, N)
+        run = lambda: cuda_gather._launch_bwd(idx, ct, N)
+        kb = cuda_ms(run, 10)
+        pb = cuda_ms(lambda: cuda_gather.group_points_backward_plain(idx, ct, N), 3)
+        rws = (idx.long() + torch.arange(B, device="cuda")[:, None, None] * N).reshape(-1)
+        src, acc = ct.reshape(-1, 3 + C).float(), torch.zeros((B * N, 3 + C), device="cuda")
+        lib = cuda_ms(lambda: acc.index_add_(0, rws, src), 10)
+        b_ms, term = bound(nbytes(idx, ct, *got), float(ct.numel()), PEAK_F32_PER_MS)
+        rows["gather_backward"].append({"shape": name, "b": B, "n": N, "c": C, "s": S, "k": K,
+                                        "ms": kb, "plain_ms": pb, "library_ms": lib,
+                                        "bound_ms": b_ms, "bound_by": term})
+        log(f"gather {name} B={B} N={N} 3 + {C} channels S={S} K={K}: K4 equal to the plain "
+            f"version, {kf:.4f} ms (plain {pf:.4f}); K8 deterministic, equal to the CPU plain "
+            f"version, {kb:.4f} ms, plain {pb:.4f} ms, index_add_ {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms")
 
 
 def _bq_ops(cand: float, S_total: int, W: int) -> float:
@@ -2743,6 +3046,92 @@ def phase_car_2x(card):
     return out
 
 
+WIDE_WORK_DIR = os.path.join(REPO, "pointrcnn_tpu_torch", "_build", "smoke_wide")
+
+
+def _forward_path(what, cfg, kernels, card):
+    """The eval forward of ``cfg`` at batch 4 on two clouds: its launches
+    (every kernel of ``kernels`` at least once, no other), finite outputs of
+    the right shapes, peak memory, frames/s, and a batch-1 forward against
+    the CPU path -> the launches over the two forwards."""
+    from pointrcnn_tpu_torch.entry import entry, synthetic_cloud
+
+    fwd, (model, _) = entry(batch=BATCH, device="cuda", seed=0, cfg=cfg)
+    clouds = [torch.from_numpy(synthetic_cloud(BATCH, cfg.RPN.NUM_POINTS, s)).cuda()
+              for s in CLOUD_SEEDS[:2]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{what} forward x{len(clouds)} launches: {counts}; peak memory {peak / 2 ** 30:.3f} GiB")
+    for s, o in zip(CLOUD_SEEDS, outs):
+        _check_outputs(o, cfg.TEST.RPN_POST_NMS_TOP_N, f"{what}, cloud {s}")
+    for name in ALL_KERNELS:
+        if (counts[name] > 0) != (name in kernels):
+            raise AssertionError(f"{what} forward: {name} launched {counts[name]} times")
+    ms = _frames_per_s(fwd, model, clouds[0], f"{card}: {what}")
+    log(f"{what} forward: {ms:.3f} ms a batch of {BATCH} x {cfg.RPN.NUM_POINTS} points")
+    check_against_cpu(model, synthetic_cloud(1, cfg.RPN.NUM_POINTS, 5), what)
+    del fwd, model, outs, clouds
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_wide(card):
+    """Path W: cfgs/default.yaml + WIDE_OVERRIDES (K 128 at RCNN SA1 and
+    SA2, a one-layer SA1, a five-layer SA2 up to 640 wide, RPN SA4's table
+    3 + 1024 channels) through the entry points: the eval forward at batch
+    4, the rpn step at batch 16 and the rcnn step at batch 4 from the rpn
+    step's state, each timed with its peak memory and launches and each
+    against the CPU path at batch 1 -> the launches (eval: over the two
+    forwards; steps: over the timed steps)."""
+    from pointrcnn_tpu_torch.entry import WIDE_OVERRIDES, default_config, shipped_config, \
+        train_entry
+    from pointrcnn_tpu_torch.train import checkpoint
+
+    out = {"eval": _forward_path("W", default_config(WIDE_OVERRIDES), EVAL_KERNELS, card)}
+    try:
+        rpn_cfg = shipped_config("default", "rpn", WIDE_OVERRIDES)
+        step, (state, batch) = train_entry(batch=TRAIN_BATCH, device="cuda", seed=0,
+                                           cfg=rpn_cfg)
+        state, out["rpn_step"] = _timed_steps("W rpn step", step, state, batch,
+                                              RPN_STEP_LAUNCHES, TRAIN_KERNELS, card)
+        ckpt = checkpoint.save_checkpoint(WIDE_WORK_DIR, state, epoch=1, it=state.step)
+        del step, state, batch
+        torch.cuda.empty_cache()
+        _train_against_cpu(shipped_config("default", "rpn",
+                                          WIDE_OVERRIDES + ["RPN.DP_RATIO", "0.0"]), 1,
+                           "W rpn step")
+        rcnn_cfg = shipped_config("default", "rcnn", WIDE_OVERRIDES)
+        step, (state, batch) = train_entry(batch=RCNN_BATCH, device="cuda", seed=0,
+                                           cfg=rcnn_cfg, stage="rcnn", rpn_ckpt=ckpt)
+        state, out["rcnn_step"] = _timed_steps("W rcnn step", step, state, batch,
+                                               RCNN_STEP_LAUNCHES, RCNN_TRAIN_KERNELS, card)
+        del step, state, batch
+        torch.cuda.empty_cache()
+        _rcnn_against_cpu(ckpt, rcnn_cfg, "W rcnn step")
+    finally:
+        shutil.rmtree(WIDE_WORK_DIR, ignore_errors=True)
+    return out
+
+
+def phase_car_2x_exact(card):
+    """Path X: cfgs/car_2x.yaml + EXACT_OVERRIDES (exact FPS over rows of
+    32768 points at RPN SA1, 8192 picks) through the eval forward at batch
+    4, with its launches, peak memory, frames/s and a batch-1 forward
+    against the CPU path -> the launches over the two forwards."""
+    from pointrcnn_tpu_torch.entry import EXACT_OVERRIDES, shipped_config
+
+    # the exact ball query scans the table (no K5/K6); car_2x's RPN SA2
+    # table (8192 points) is past K4's predicate, as in phase_car_2x
+    kernels = ("fps", "three_nn", "fused_group_mlp_max")
+    return {"eval": _forward_path("X", shipped_config("car_2x", None, EXACT_OVERRIDES),
+                                  kernels, card)}
+
+
 # the joint step's second scene: every gt box moved onto a proposal, as the
 # rcnn stage's scene, which leaves the RPN few foreground points (11 in
 # people.yaml's), and its gradients hang on those points' neighbourhoods.
@@ -3067,6 +3456,8 @@ def main() -> int:
                "fused_group_mlp_backward": check_mlp_bwd()}
     tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
     check_shipped_stages()
+    for name, shape_rows in check_port_limits().items():
+        tallies[name].notes["limit_shapes"] = shape_rows
     launches, train_launches, rcnn_launches = {}, {}, {}
     fwd_ms = phase_default(launches)
     phase_exact()
@@ -3090,6 +3481,8 @@ def main() -> int:
     finally:
         shutil.rmtree(CAR_2X_WORK_DIR, ignore_errors=True)
     people_launches = phase_people_joint(card)
+    wide_launches = phase_wide(card)
+    car_2x_exact_launches = phase_car_2x_exact(card)
     # launches: the count of the eval forward's run, or for a kernel that
     # only a training stage runs, of that stage's run (the rpn stage's for
     # the gather backward, the rcnn stage's for the MLP backward);
@@ -3103,7 +3496,10 @@ def main() -> int:
     # forwards at batch 4; rpn_step, rcnn_step: their timed steps);
     # people_joint_launches: people.yaml's joint step's timed steps';
     # data_parallel_launches: dryrun_multichip's rank 0 (three steps, a resumed
-    # step and the eval), the rpn step's world 1 and each world-2 rank (its steps)
+    # step and the eval), the rpn step's world 1 and each world-2 rank (its steps);
+    # wide_launches: path W's (WIDE_OVERRIDES) runs' (eval: two forwards at
+    # batch 4; rpn_step, rcnn_step: their timed steps); car_2x_exact_launches:
+    # path X's two forwards at batch 4
     rows = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name] if name in EVAL_KERNELS else
              (train_launches[name] if name in TRAIN_KERNELS else rcnn_launches[name]),
@@ -3114,6 +3510,8 @@ def main() -> int:
              "car_2x_launches": {run: c[name] for run, c in car_2x_launches.items()},
              "people_joint_launches": people_launches[name],
              "data_parallel_launches": {run: c[name] for run, c in dp_launches.items()},
+             "wide_launches": {run: c[name] for run, c in wide_launches.items()},
+             "car_2x_exact_launches": car_2x_exact_launches["eval"][name],
              **tallies[name].row()}
             for name, source, replaces in KERNELS]
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")

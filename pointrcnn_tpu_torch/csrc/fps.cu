@@ -44,8 +44,24 @@
 //   memory each step (at 16 points a thread, coordinates and minima would
 //   not fit 64 registers).
 //
+// - 16384 < N <= 131072 (car_2x's 32768-point rows in the exact setting):
+//   the row's xyz (384 KB at 32768 points) no longer fits one block's
+//   shared memory, so fps_cluster_kernel splits the row over a thread-block
+//   cluster of 2, 4 or 8 blocks of 1024 threads, each holding its share
+//   (at most 16384 points) in shared memory and its minima in registers.
+//   A step is the single-block step on each share (a lane's argmax a scan
+//   in ascending index with strict >, then the 32 warps' winners behind one
+//   block barrier), then each block publishes its winner (key, index and
+//   coordinates) in its own shared memory, one cluster barrier, and every
+//   warp reads the blocks' winners through distributed shared memory and
+//   takes the largest key, the lowest index on ties.
+// - N > 131072: fps_wide_kernel, one block of 1024 threads a row, the first
+//   16384 points' coordinates in shared memory, the rest read from global
+//   memory (L2) each step, the running minima in a global scratch row.
+//
 // Compiled with --fmad=false so the distance is not contracted into FMAs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <climits>
 
@@ -175,6 +191,167 @@ __global__ void __launch_bounds__(MAXT)
   }
 }
 
+// points of a wide row whose coordinates stay in shared memory (a cluster
+// block's share at most)
+constexpr int kWideSmemPoints = 16384;
+
+// a cluster block's winner of a step: (key << 32 | ~index) and coordinates
+struct alignas(32) Winner {
+  unsigned long long kv;
+  float x, y, z;
+};
+
+// One row a cluster of CS blocks of 1024 threads; block r holds points
+// [r m, r m + m) of the row, m = (n / CS rounded up to 4) <= 16384; thread
+// t takes the block's points t + 1024 j, j < 16.
+template <int CS>
+__global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(1024)
+    fps_cluster_kernel(const float* __restrict__ xyz, int n, int m, int npoint,
+                       int* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float smem[];  // 3 m floats, then the warp slots, then the winners
+  constexpr int PPL = kWideSmemPoints / 1024;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row = blockIdx.x / CS;
+  const int p0 = rank * m;
+  const int cnt = max(0, min(m, n - p0));
+  unsigned long long* slot = reinterpret_cast<unsigned long long*>(smem + 3 * m);
+  Winner* win = reinterpret_cast<Winner*>(slot + 2 * 32);
+  const float* src = xyz + (size_t)row * n * 3;
+  const float* share = src + 3 * (size_t)p0;
+  if ((reinterpret_cast<size_t>(share) & 15) == 0 && (cnt & 3) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(share);
+    float4* d4 = reinterpret_cast<float4*>(smem);
+    for (int t = tid; t < 3 * cnt / 4; t += 1024) d4[t] = s4[t];
+  } else {
+    for (int t = tid; t < 3 * cnt; t += 1024) smem[t] = share[t];
+  }
+  float dist[PPL];
+#pragma unroll
+  for (int j = 0; j < PPL; ++j) dist[j] = tid + 1024 * j < cnt ? 1e10f : -1.f;
+  float lx = src[0], ly = src[1], lz = src[2];  // the first pick, point 0
+  int* o = out + (size_t)row * npoint;
+  if (rank == 0 && tid == 0) o[0] = 0;
+  __syncthreads();
+  for (int step = 1; step < npoint; ++step) {
+    float best = -1.f;
+    int bi = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < PPL; ++j) {
+      const int i = tid + 1024 * j;
+      if (i < cnt) {
+        const float dx = smem[3 * i] - lx, dy = smem[3 * i + 1] - ly, dz = smem[3 * i + 2] - lz;
+        dist[j] = fminf(dist[j], dx * dx + dy * dy + dz * dz);
+        if (dist[j] > best) {  // ascending i: strict > keeps the lowest index on ties
+          best = dist[j];
+          bi = p0 + i;
+        }
+      }
+    }
+    unsigned key = best < 0.f ? 0u : __float_as_uint(best);
+    int idx = bi;
+    warp_argmax(key, idx);
+    unsigned long long* sl = slot + (step & 1) * 32;
+    if (lane == 0) sl[warp] = (static_cast<unsigned long long>(key) << 32) | static_cast<unsigned>(~idx);
+    __syncthreads();
+    unsigned long long e = sl[lane];
+    key = static_cast<unsigned>(e >> 32);
+    idx = ~static_cast<int>(static_cast<unsigned>(e));
+    warp_argmax(key, idx);
+    // this block's winner, published for the cluster (double-buffered by
+    // step: a buffer is rewritten only after every block has passed the
+    // next step's cluster barrier, so after every read of it)
+    if (tid == 0) {
+      Winner w;
+      w.kv = (static_cast<unsigned long long>(key) << 32) | static_cast<unsigned>(~idx);
+      const bool real = idx >= p0 && idx < p0 + cnt;
+      w.x = real ? smem[3 * (idx - p0)] : 0.f;
+      w.y = real ? smem[3 * (idx - p0) + 1] : 0.f;
+      w.z = real ? smem[3 * (idx - p0) + 2] : 0.f;
+      win[step & 1] = w;
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    // every warp: lane l < CS reads block l's winner, the largest key (the
+    // lowest index on ties) wins; its lane hands out the coordinates
+    Winner w{};
+    if (lane < CS) w = *cluster.map_shared_rank(win + (step & 1), lane);
+    key = lane < CS ? static_cast<unsigned>(w.kv >> 32) : 0u;
+    idx = lane < CS ? ~static_cast<int>(static_cast<unsigned>(w.kv)) : INT_MAX;
+    const unsigned mine = key;
+    const int my_idx = idx;
+    warp_argmax(key, idx);
+    const int from = __ffs(__ballot_sync(0xffffffffu, mine == key && my_idx == idx)) - 1;
+    lx = __shfl_sync(0xffffffffu, w.x, from);
+    ly = __shfl_sync(0xffffffffu, w.y, from);
+    lz = __shfl_sync(0xffffffffu, w.z, from);
+    if (rank == 0 && tid == 0) o[step] = idx;
+  }
+  // no block leaves while another may still read its winners
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One row a block of 1024 threads, n > kWideSmemPoints; thread t takes
+// points t + 1024 j, their minima in mind (rows, n) f32.
+__global__ void __launch_bounds__(1024)
+    fps_wide_kernel(const float* __restrict__ xyz, int n, int npoint, int* __restrict__ out,
+                    float* __restrict__ mind) {
+  extern __shared__ float smem[];  // 3 * kWideSmemPoints floats, then the slots
+  unsigned long long* slot = reinterpret_cast<unsigned long long*>(smem + 3 * kWideSmemPoints);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row = blockIdx.x;
+  const float* src = xyz + (size_t)row * n * 3;
+  int* o = out + (size_t)row * npoint;
+  float* md = mind + (size_t)row * n;
+  if ((reinterpret_cast<size_t>(src) & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(smem);
+    for (int t = tid; t < 3 * kWideSmemPoints / 4; t += 1024) d4[t] = s4[t];
+  } else {
+    for (int t = tid; t < 3 * kWideSmemPoints; t += 1024) smem[t] = src[t];
+  }
+  for (int i = tid; i < n; i += 1024) md[i] = 1e10f;
+  __syncthreads();
+  if (tid == 0) o[0] = 0;
+  int last = 0;
+  for (int step = 1; step < npoint; ++step) {
+    const float* lp = last < kWideSmemPoints ? smem + 3 * last : src + 3 * (size_t)last;
+    const float lx = lp[0], ly = lp[1], lz = lp[2];
+    float best = -1.f;
+    int bi = INT_MAX;
+    auto visit = [&](int i, float& dj) {
+      const float* p = i < kWideSmemPoints ? smem + 3 * i : src + 3 * (size_t)i;
+      const float dx = p[0] - lx, dy = p[1] - ly, dz = p[2] - lz;
+      dj = fminf(dj, dx * dx + dy * dy + dz * dz);
+      if (dj > best) {  // ascending i: strict > keeps the lowest index on ties
+        best = dj;
+        bi = i;
+      }
+    };
+    for (int i = tid; i < n; i += 1024) {
+      float dj = md[i];
+      visit(i, dj);
+      md[i] = dj;
+    }
+    unsigned key = best < 0.f ? 0u : __float_as_uint(best);
+    int idx = bi;
+    warp_argmax(key, idx);
+    // the warps' winners as (key << 32 | ~index), double-buffered by step
+    unsigned long long* sl = slot + (step & 1) * 32;
+    if (lane == 0) sl[warp] = (static_cast<unsigned long long>(key) << 32) | static_cast<unsigned>(~idx);
+    __syncthreads();
+    const unsigned long long e = sl[lane];
+    key = static_cast<unsigned>(e >> 32);
+    idx = ~static_cast<int>(static_cast<unsigned>(e));
+    warp_argmax(key, idx);
+    last = idx;
+    if (tid == 0) o[step] = last;
+  }
+}
+
 template <int PPL, bool REG_XYZ, bool MULTI, int MAXT>
 cudaError_t launch(const float* xyz, int rows, int n, int npoint, int* out, int wpr, int rpb,
                    cudaStream_t s) {
@@ -213,6 +390,28 @@ __global__ void fps_step_probe_kernel(const float* __restrict__ xyz, int steps,
   if (lane == 0) out[0] = last;
 }
 
+template <int CS>
+cudaError_t launch_cluster(const float* xyz, int rows, int n, int npoint, int* out,
+                           cudaStream_t s) {
+  const int m = ((n + CS - 1) / CS + 3) / 4 * 4;
+  const int smem = 3 * m * (int)sizeof(float) + 2 * 32 * 8 + 2 * (int)sizeof(Winner);
+  auto kernel = fps_cluster_kernel<CS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<rows * CS, 1024, smem, s>>>(xyz, n, m, npoint, out);
+  return cudaGetLastError();
+}
+
+// The cluster size for rows of n > 16384 points: the least of 2, 4, 8
+// whose shares hold at most 16384 points; 0 past 131072 (the global-memory
+// kernel).
+int cluster_size(int n) {
+  for (int cs = 2; cs <= 8; cs *= 2) {
+    if (((n + cs - 1) / cs + 3) / 4 * 4 <= kWideSmemPoints) return cs;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // xyz (rows, n, 3) f32 -> out (rows, npoint) int32.  (wpr warps a row, rpb
@@ -248,6 +447,27 @@ extern "C" int fps_launch(const float* xyz, int rows, int n, int npoint, int* ou
     return (int)launch<32, true, false, 256>(xyz, rows, n, npoint, out, 1, 2, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// xyz (rows, n, 3) f32 with n > 16384 -> out (rows, npoint) int32: a
+// cluster of blocks a row up to 131072 points, else a block of 1024 threads
+// a row with its minima in mind, a (rows, n) f32 scratch.
+extern "C" int fps_wide_launch(const float* xyz, int rows, int n, int npoint, int* out,
+                               float* mind, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cs = cluster_size(n);
+  if (rows < 1 || n <= kWideSmemPoints || npoint < 1 || npoint > n || !mind) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (cs == 2) return (int)launch_cluster<2>(xyz, rows, n, npoint, out, s);
+  if (cs == 4) return (int)launch_cluster<4>(xyz, rows, n, npoint, out, s);
+  if (cs == 8) return (int)launch_cluster<8>(xyz, rows, n, npoint, out, s);
+  const int smem = 3 * kWideSmemPoints * (int)sizeof(float) + 2 * 32 * 8;
+  auto kernel = fps_wide_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<rows, 1024, smem, s>>>(xyz, n, npoint, out, mind);
+  return (int)cudaGetLastError();
 }
 
 // The latency probe: one warp over xyz (32, 3) f32, `steps` steps; out[0]

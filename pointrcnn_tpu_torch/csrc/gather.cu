@@ -50,12 +50,13 @@
 //      A warp ranks each step of 32 positions among same-bucket peers with
 //      __match_any_sync and advances a (bucket, warp) cursor that starts
 //      after earlier chunks' and warps' entries;
-//   3. accumulate: a block per (bucket, b) walks its bucket's list, which is
-//      in ascending p: it stages the listed cotangent rows in shared memory
-//      (the next sub-stage's pieces in flight while this one is added), and
-//      thread c adds channel c into the tile's f32 sum of the row, in list
-//      order (no two threads touch one sum); it copies each row's first
-//      three channels to a small side buffer;
+//   3. accumulate: a block per (bucket, b, channel chunk of at most 1024)
+//      walks its bucket's list, which is in ascending p: it stages the
+//      chunk of the listed cotangent rows in shared memory (the next
+//      sub-stage's pieces in flight while this one is added), and thread c
+//      adds channel c of the chunk into the tile's f32 sum of the row, in
+//      list order (no two threads touch one sum); the first chunk's blocks
+//      copy each row's first three channels to a small side buffer;
 //   4. dcent: a thread per (b, s, coordinate) sums that buffer, k ascending.
 //
 // Compiled with --fmad=false like the other geometry kernels.
@@ -338,21 +339,24 @@ __global__ void __launch_bounds__(kChunkThreads)
     if (bucket[e] >= 0) blist[cell[bucket[e] * kChunkWarps + w] + rank[e]] = packed[e];
 }
 
-// 3. accumulate: grid (nb, B), a thread per channel.  The block walks its
+// 3. accumulate: grid (nb, B, channel chunks), a thread per channel of the
+// chunk, channels [c0, c0 + cw) with c0 = 1024 z.  The block walks its
 // bucket's list, which is in ascending p, a sub-stage of `sub` entries at a
-// time: the entries' cotangent rows are copied into shared memory in
-// 16-byte pieces (the next sub-stage's pieces are loaded into registers
-// while this one is added), then thread c adds channel c of each staged
-// row, in list order, onto its tile row's sum (acc[tile_rows][cout] f32 in
-// shared memory; a run of entries on one row adds in a register).  The
-// first three channels of every cotangent row are copied to rel (B, sk, 3)
-// bf16 on the way, for dcent.  Every tile row of dtable is written once, a
-// row with no entries as zeros.
+// time: the chunk of the entries' cotangent rows is copied into shared
+// memory in 16-byte pieces (the next sub-stage's pieces are loaded into
+// registers while this one is added), then thread c adds channel c of each
+// staged row, in list order, onto its tile row's sum (acc[tile_rows][cw]
+// f32 in shared memory; a run of entries on one row adds in a register).
+// The first chunk's blocks copy the first three channels of every
+// cotangent row to rel (B, sk, 3) bf16 on the way, for dcent.  Every tile
+// row of dtable is written once, a row with no entries as zeros.
 __global__ void __launch_bounds__(1024)
     gather_bwd_accumulate_kernel(const int* __restrict__ list, const int* __restrict__ bstart,
                                  const __nv_bfloat16* __restrict__ ct, int n, int sk, int cout,
                                  int tile_rows, int shift, int sub, float* __restrict__ dtable,
                                  __nv_bfloat16* __restrict__ rel) {
+  const int c0 = blockIdx.z * 1024;
+  const int cw = min(1024, cout - c0);
   extern __shared__ uint4 dyn[];
   __shared__ int ent[kStage];     // the stage's list entries
   __shared__ int soff[kMaxSub];   // byte offset of a staged row's channel 0
@@ -361,10 +365,10 @@ __global__ void __launch_bounds__(1024)
   const int t = blockIdx.x, b = blockIdx.y;
   const int r0 = t * tile_rows;
   const int rows = min(tile_rows, n - r0);
-  const int cps = (2 * cout + 15) / 16 + 1;  // 16-byte pieces a staged row
+  const int cps = (2 * cw + 15) / 16 + 1;  // 16-byte pieces a staged row
   uint4* staging = dyn;
   float* acc = reinterpret_cast<float*>(staging + sub * cps);
-  for (int i = tid; i < rows * cout; i += nthr) acc[i] = 0.0f;
+  for (int i = tid; i < rows * cw; i += nthr) acc[i] = 0.0f;
 
   const int m0 = bstart[b * (kMaxBuckets + 1) + t], m1 = bstart[b * (kMaxBuckets + 1) + t + 1];
   const int* blist = list + (long long)b * sk;
@@ -388,9 +392,9 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
       for (int i = 0; i < kPrefetch; ++i) {
         if (e < ne) {
-          const char* row = bct + (long long)(ent[lo + e] >> shift) * cout * 2;
+          const char* row = bct + ((long long)(ent[lo + e] >> shift) * cout + c0) * 2;
           const uintptr_t first = reinterpret_cast<uintptr_t>(row) & ~(uintptr_t)15;
-          const uintptr_t last = reinterpret_cast<uintptr_t>(row + 2 * cout - 1) & ~(uintptr_t)15;
+          const uintptr_t last = reinterpret_cast<uintptr_t>(row + 2 * cw - 1) & ~(uintptr_t)15;
           if (first + 16 * j <= last) x[i] = __ldg(reinterpret_cast<const uint4*>(first + 16 * j));
         }
         e += de;
@@ -410,19 +414,19 @@ __global__ void __launch_bounds__(1024)
         if (tid + nthr * i < ne * cps) staging[tid + nthr * i] = x[i];
       if (tid < ne) {
         const int v = ent[lo + tid];
-        const char* row = bct + (long long)(v >> shift) * cout * 2;
+        const char* row = bct + ((long long)(v >> shift) * cout + c0) * 2;
         soff[tid] = tid * cps * 16 + (int)(reinterpret_cast<uintptr_t>(row) & 15);
         srow[tid] = v & mask;
       }
       __syncthreads();
       if (lo + sub < len) prefetch(lo + sub);  // in flight while this one adds
       const char* stg = reinterpret_cast<const char*>(staging);
-      for (int i = tid; i < 3 * ne; i += nthr) {
+      for (int i = tid; c0 == 0 && i < 3 * ne; i += nthr) {
         const int e = i / 3, j = i - 3 * e;
         brel[(long long)(ent[lo + e] >> shift) * 3 + j] =
             *reinterpret_cast<const __nv_bfloat16*>(stg + soff[e] + 2 * j);
       }
-      if (tid < cout) {
+      if (tid < cw) {
         int cur = -1;  // the tile row whose running sum `val` holds
         float val = 0.0f;
         for (int e = 0; e < ne; ++e) {
@@ -430,19 +434,23 @@ __global__ void __launch_bounds__(1024)
               *reinterpret_cast<const __nv_bfloat16*>(stg + soff[e] + 2 * tid));
           const int r = srow[e];
           if (r != cur) {
-            if (cur >= 0) acc[cur * cout + tid] = val;
-            val = acc[r * cout + tid];
+            if (cur >= 0) acc[cur * cw + tid] = val;
+            val = acc[r * cw + tid];
             cur = r;
           }
           val += y;
         }
-        if (cur >= 0) acc[cur * cout + tid] = val;
+        if (cur >= 0) acc[cur * cw + tid] = val;
       }
     }
   }
   __syncthreads();
-  float* out = dtable + ((long long)b * n + r0) * cout;
-  for (int i = tid; i < rows * cout; i += nthr) out[i] = acc[i];
+  float* out = dtable + ((long long)b * n + r0) * cout + c0;
+  if (cw == cout) {
+    for (int i = tid; i < rows * cout; i += nthr) out[i] = acc[i];
+  } else {
+    for (int i = tid; i < rows * cw; i += nthr) out[(long long)(i / cw) * cout + i % cw] = acc[i];
+  }
 }
 
 // 4. dcent[b, s, j] = -sum_k rel[b, s, k, j], j < 3, k ascending: a thread
@@ -473,7 +481,7 @@ struct BwdPlan {
 
 BwdPlan bwd_plan(int batch, int n, long long sk, int cout) {
   BwdPlan p;
-  int tile = kTileBytes / (cout * 4);
+  int tile = kTileBytes / ((cout < 1024 ? cout : 1024) * 4);  // a channel chunk's sums
   const int min_rows = (n + kMaxBuckets - 1) / kMaxBuckets;
   tile = tile < min_rows ? min_rows : tile;
   tile = tile < 1 ? 1 : (tile > n ? n : tile);
@@ -538,12 +546,12 @@ extern "C" long long group_gather_bwd_workspace_ints(int batch, int n, int s, in
 
 // ct: (batch, s, k, cout) bf16; idx: (batch, s, k) int32 in [0, n) (the
 // forward checked them); dtable: (batch, n, cout) f32; dcent: (batch, s, 3)
-// f32; work: group_gather_bwd_workspace_ints() int32.  cout <= 1024.
+// f32; work: group_gather_bwd_workspace_ints() int32.
 extern "C" int group_gather_bwd_launch(const int* idx, const void* ct, int batch, int n, int s,
                                        int k, int cout, int* work, float* dtable, float* dcent,
                                        void* stream) {
   const long long sk = (long long)s * k;
-  if (batch <= 0 || n <= 0 || cout <= 0 || cout > 1024 || sk >= (1LL << 31))
+  if (batch <= 0 || n <= 0 || cout <= 0 || sk >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const BwdPlan pl = bwd_plan(batch, n, sk, cout);
   if (sk > 0 && ((sk - 1) << pl.shift) >= (1LL << 31))
@@ -566,16 +574,19 @@ extern "C" int group_gather_bwd_launch(const int* idx, const void* ct, int batch
     err = cudaMemsetAsync(bstart, 0, pl.bstart * sizeof(int), st);
     if (err != cudaSuccess) return (int)err;
   }
-  const int threads = (cout + 31) / 32 * 32;
-  const int cps = (2 * cout + 15) / 16 + 1;
+  // channel chunks of at most 1024 (a thread each); the chunk's width sizes
+  // the block, its staging and its sums
+  const int cw = cout < 1024 ? cout : 1024;
+  const int threads = (cw + 31) / 32 * 32;
+  const int cps = (2 * cw + 15) / 16 + 1;
   int sub = threads * kPrefetch / cps;
   sub = sub < kStageBytes / 16 / cps ? sub : kStageBytes / 16 / cps;
   sub = sub < kMaxSub ? sub : kMaxSub;
-  const size_t smem = (size_t)sub * cps * 16 + (size_t)pl.tile_rows * cout * sizeof(float);
+  const size_t smem = (size_t)sub * cps * 16 + (size_t)pl.tile_rows * cw * sizeof(float);
   err = cudaFuncSetAttribute(gather_bwd_accumulate_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gather_bwd_accumulate_kernel<<<dim3(pl.nb, batch), threads, smem, st>>>(
+  gather_bwd_accumulate_kernel<<<dim3(pl.nb, batch, (cout + 1023) / 1024), threads, smem, st>>>(
       list, bstart, ctb, n, (int)sk, cout, pl.tile_rows, pl.shift, sub, dtable, rel);
   const long long bs_total = (long long)batch * s;
   if (bs_total > 0) {

@@ -82,11 +82,39 @@
 // (about 0.4 MB a 64-row tile at RCNN SA2) and the same scalar work as the
 // forward.
 
+//
+// Shapes past these plans (a one-layer stack, 128 neighbours, weights or
+// activations too large for shared memory), as the TPU kernels take them:
+// - One layer: layer 0 is the last layer.  The forward maxes its f32
+//   activations over each centroid's rows (eight rows in shuffles, then a
+//   shared-memory atomicMax on the bits: relu values are >= 0) and the
+//   backward's tie split (tie_split0) recomputes them with the same
+//   layer0_chunk.  Padded lanes are maxed and trimmed by the caller, as
+//   JAX's _trim_padded_lanes does.
+// - 128 neighbours: a tile of 128 rows holds one centroid, its two 64-row
+//   blocks in the two warpgroups (which take the same pieces in step).  The
+//   forward maxes each block into a zeroed output with atomicMax; the tie
+//   split and the fold dcent meet both warpgroups at a named barrier.
+// - The global plan, where no plan above fits (RCNN SA2 of
+//   entry.WIDE_OVERRIDES: five layers up to 640, K 128): the activations of
+//   the block's tile live in a global scratch (L2) in the same core-matrix
+//   layout, and every product, forward, recompute, dW and dz, copies its
+//   operands 64 deep at a time into per-warpgroup slots (staged()).  The
+//   backward streams the weights of every use, not only the transposed one
+//   in dz: at that stack a 64-row tile's activations alone (1792 columns,
+//   229 KB) exceed shared memory, so weights streamed beside resident
+//   activations could not fit.  The 16-deep steps keep one resident
+//   product's order, so the global plan gives the same bits as the others
+//   (chip_smoke.py holds it to them), and a forward on one plan and its
+//   recompute on another agree.  It is compiled as its own instantiation
+//   (GLOB), so the first plans keep their code.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 #include <mutex>
 #include <vector>
 
@@ -99,9 +127,10 @@ using bf16 = __nv_bfloat16;
 using hop::cm_off;
 
 constexpr int kThreads = 256;  // a block whose two warpgroups share tiles
-constexpr int kMaxLayers = 4;
-constexpr int kMaxWidth = 512;
+constexpr int kMaxLayers = 16;
 constexpr int kMaxSmem = 232448;
+constexpr int kStageK = 64;     // depth of a staged operand chunk (global plans)
+constexpr int kBothBar = 7;     // named barrier of both warpgroups (128-row centroids)
 constexpr int kCap = 64;        // widest N piece of a forward-layer product
 constexpr int kStreamCap = 32;  // ... of a streamed layer (a pass holds two)
 constexpr int kSlack = 1024;    // bytes after an activation buffer: dW's M overhang
@@ -120,12 +149,19 @@ struct Plan {
   int tm;                  // rows per tile: 64 or 128 (whole centroids)
   int streamed;            // bit j: layer j's weights stream through the ring
   int slot;                // bytes of one of the ring's two slots
+  int glob;                // 1: activations in the block's global scratch, every
+                           // product's operands staged in kStageK-deep chunks
   int w[kMaxLayers];       // resident weights of layer j >= 1
   int act[kMaxLayers];     // activations of layer j < L - 1; act[L-1]: bwd dz_L
+                           // (glob: offsets into the block's scratch)
   int ring, stage, rid, xyz, cent, bias, w0x, red, gsc, dbacc, dw0x, geo, drel, wsum;
+  int sa, sb;              // glob: each warpgroup's staged A and B chunks
+  int mx;                  // one-layer stacks: the tile's maxima (fwd) or tie counts (bwd)
+  int gs;                  // one-layer backward: each (centroid, column)'s share
   int wg_bytes;            // > 0: each warpgroup walks its own tiles, its tile
                            // buffers (stage .. geo) wg_bytes apart
   int bytes;
+  int scratch;             // glob: bytes of global scratch a block
 };
 
 // Offsets (in floats) of the backward's parameter gradients in one partial
@@ -163,6 +199,7 @@ struct Args {
   const float* cent;   // (B, S, F0P) fold, (B, S, 3) hilo
   const bf16* w0x;     // (3, F0P), hilo
   const int* idx;      // (B, S, kp)
+  unsigned char* scratch;  // glob plans: (grid, Plan::scratch) bytes
   int n, s, kp, kps, k_real;  // kps = log2(kp)
   int tiles_per_b, total;
   float* out;          // forward: (B, S, Cout)
@@ -212,6 +249,17 @@ __device__ __forceinline__ const float* bias_of(unsigned char* sm, const Plan& P
   return at<float>(sm, P.bias) + off;
 }
 
+// layer j's activation buffer: in shared memory (tsm: the tile group's
+// buffers) or, in a global plan (GLOB: the kernels are compiled once for
+// each, so the first plans keep their code), in the block's scratch
+template <bool GLOB>
+__device__ __forceinline__ bf16* act_of(const Args& A, const Plan& P, unsigned char* tsm, int j) {
+  if constexpr (GLOB) {
+    return reinterpret_cast<bf16*>(A.scratch + (size_t)blockIdx.x * P.scratch + P.act[j]);
+  }
+  return at<bf16>(tsm, P.act[j]);
+}
+
 __device__ __forceinline__ float bf(const bf16 v) { return __bfloat162float(v); }
 
 // ---------------------------------------------------------------------------
@@ -250,6 +298,74 @@ __device__ __forceinline__ void product(float* acc, int n, const bf16* a, int ca
   issue<TA, TB, NMAX>(acc, n, a, ca, b, cb, ksteps);
   hop::wg_wait();
   hop::fence_regs(acc, NMAX / 2);
+}
+
+// Global plans: products whose operands stay in global memory (the
+// activations in the block's scratch in the core-matrix layout, the weights
+// row-major as the caller passed them), copied kStageK deep at a time into
+// the warpgroup's two staging slots and multiplied there.  The 16-deep steps
+// run in the order one resident product runs them, so every accumulator
+// rounds as issue() rounds it.
+//
+// rows [r0, r0 + rows) x columns [c0, c0 + cols) of a matrix `ld` columns
+// wide (core layout, or row-major) -> dst, a core layout `cols` wide;
+// columns at or past `lim` are not read (their products are dropped)
+__device__ __forceinline__ void stage_block(bf16* dst, const bf16* src, int ld, bool row_major,
+                                            int r0, int rows, int c0, int cols, int lim,
+                                            int tid) {
+  const int cpr = cols >> 3;
+  for (int q = tid; q < rows * cpr; q += 128) {
+    const int core = q >> 3, rr = core / cpr, cc = core - rr * cpr;
+    const int r = r0 + 8 * rr + (q & 7), c = c0 + 8 * cc;
+    if (c >= lim) continue;
+    hop::cp_async16(dst + 8 * q, row_major ? src + (size_t)r * ld + c : src + cm_off(r, c, ld));
+  }
+}
+
+// acc (64 x n) = A B over `depth`: TA 0: A is rows [am0, am0 + 64) of a (ca
+// columns = the depth); TA 1: columns [am0, am0 + 64) of a (depth rows, ca
+// columns); TB 1: columns [bn0, bn0 + n) of b (depth rows, cb columns); TB 0:
+// rows [bn0, bn0 + n) of b (cb columns = the depth); b row-major if BROW
+template <int TA, int TB, int NMAX, bool BROW>
+__device__ __forceinline__ void staged(float* acc, int n, const bf16* a, int ca, int am0,
+                                       const bf16* b, int cb, int bn0, int depth, bf16* sa,
+                                       bf16* sb, int wg, int t) {
+  hop::fence_regs(acc, NMAX / 2);
+  for (int k0 = 0; k0 < depth; k0 += kStageK) {
+    const int kc = min(kStageK, depth - k0);
+    if (TA) {
+      stage_block(sa, a, ca, false, k0, kc, am0, 64, ca, t);
+    } else {
+      stage_block(sa, a, ca, false, am0, 64, k0, kc, ca, t);
+    }
+    if (TB) {
+      stage_block(sb, b, cb, BROW, k0, kc, bn0, n, cb, t);
+    } else {
+      stage_block(sb, b, cb, BROW, bn0, n, k0, kc, cb, t);
+    }
+    hop::cp_async_commit();
+    hop::cp_async_wait_all();
+    hop::fence_async_smem();
+    hop::bar_sync(1 + wg, 128);
+    const uint64_t da = desc<TA>(sa, TA ? 64 : kc), db = desc<TB>(sb, TB ? n : kc);
+    const uint32_t a_step = TA ? 2 * 64 : 16, b_step = TB ? 2 * n : 16;
+    hop::wg_fence();
+    for (int kk = 0; kk < kc >> 4; ++kk) {
+      hop::mma<TA, TB, NMAX>(n, acc, da + kk * a_step, db + kk * b_step, k0 > 0 || kk > 0);
+    }
+    hop::wg_commit();
+    hop::wg_wait();
+    hop::fence_regs(acc, NMAX / 2);
+    hop::bar_sync(1 + wg, 128);  // the slots are refilled by the next chunk
+  }
+}
+
+// this warpgroup's staging slots of a global plan
+__device__ __forceinline__ bf16* slot_a(unsigned char* sm, const Plan& P, int wg) {
+  return at<bf16>(sm, P.sa) + wg * 64 * kStageK;
+}
+__device__ __forceinline__ bf16* slot_b(unsigned char* sm, const Plan& P, int wg) {
+  return at<bf16>(sm, P.sb) + wg * kStageK * 128;
 }
 
 // Items first, first + step, ... < items of one warpgroup: start(it, acc)
@@ -410,68 +526,112 @@ __device__ __forceinline__ void row_geo(const float* xyzb, const float* centb, i
   }
 }
 
-// layer 0: gathered table row, geometry term, bias, ReLU -> bf16 act (F0P
-// columns; act may be stage itself: each thread rewrites its own 16 bytes);
-// b0s, w0xs: the bias and (hilo) the bf16 w0x rows as f32; geo: (hilo) the
-// rows' relative geometry, filled here
+// layer 0 on the q-th 16 bytes of the gathered rows (row r, columns c0 ..
+// c0 + 7, centroid cl of the tile): the gathered table row, the geometry
+// term, the bias and the ReLU -> v, f32
+__device__ __forceinline__ void layer0_chunk(const Args& A, int f0p, const bf16* stage,
+                                             const float* centb, const float* b0s,
+                                             const float* w0xs, const float* geo, int q, int r,
+                                             int c0, int cl, float* v) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(stage + 8 * q);
+  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+  float t[8];  // bf16 -> f32 is exact: the bits shifted up
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    t[2 * e] = __uint_as_float(words[e] << 16);
+    t[2 * e + 1] = __uint_as_float(words[e] & 0xFFFF0000u);
+  }
+  float x[8];
+  if (A.fold) {
+    float cc[8];
+    load8(centb + cl * f0p + c0, cc);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = t[e] - cc[e];
+  } else {
+    float g[6], wx[8], wy[8], wz[8];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) g[c] = geo[6 * r + c];
+    load8(w0xs + c0, wx);
+    load8(w0xs + f0p + c0, wy);
+    load8(w0xs + 2 * f0p + c0, wz);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      // the six products in order; each is of two bf16 values, exact in
+      // f32, so fma(a, b, s) rounds as s + a * b does
+      float acc = g[0] * wx[e];
+      acc = __fmaf_rn(g[1], wy[e], acc);
+      acc = __fmaf_rn(g[2], wz[e], acc);
+      acc = __fmaf_rn(g[3], wx[e], acc);
+      acc = __fmaf_rn(g[4], wy[e], acc);
+      acc = __fmaf_rn(g[5], wz[e], acc);
+      x[e] = t[e] + acc;
+    }
+  }
+  float bb[8];
+  load8(b0s + c0, bb);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = fmaxf(x[e] + bb[e], 0.f);
+}
+
+// hilo: every row's relative geometry -> geo
+__device__ __forceinline__ void tile_geo(const Args& A, const Plan& P, const Group& G,
+                                         const float* xyzb, const float* centb, float* geo) {
+  if (A.fold) return;
+  for (int r = G.tid; r < P.tm; r += G.nthr) row_geo(xyzb, centb, r, r >> A.kps, geo + 6 * r);
+  G.sync();
+}
+
+// layer 0 -> bf16 act (F0P columns; act may be stage itself: each thread
+// rewrites its own 16 bytes); b0s, w0xs: the bias and (hilo) the bf16 w0x
+// rows as f32; geo: (hilo) the rows' relative geometry, filled here.  A
+// one-layer stack (mx != nullptr) writes nothing to act: the f32 maxima of
+// each centroid's rows go into mx (cpt x F0P, zero on entry) instead.
 __device__ __forceinline__ void layer0(const Args& A, const Plan& P, const Group& G, int f0p,
                                        const bf16* stage, const float* xyzb, const float* centb,
-                                       const float* b0s, const float* w0xs, float* geo, bf16* act) {
+                                       const float* b0s, const float* w0xs, float* geo, bf16* act,
+                                       unsigned* mx = nullptr) {
   const int cpr = f0p >> 3;
-  if (!A.fold) {
-    for (int r = G.tid; r < P.tm; r += G.nthr) row_geo(xyzb, centb, r, r >> A.kps, geo + 6 * r);
-    G.sync();
-  }
+  tile_geo(A, P, G, xyzb, centb, geo);
   for (int q = G.tid; q < P.tm * cpr; q += G.nthr) {
     const Chunk ch = chunk_of(q, cpr);
     const int r = ch.r, c0 = ch.c8 * 8;
     const int cl = r >> A.kps;
-    const uint4 raw = *reinterpret_cast<const uint4*>(stage + 8 * q);
-    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-    float t[8];  // bf16 -> f32 is exact: the bits shifted up
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      t[2 * e] = __uint_as_float(words[e] << 16);
-      t[2 * e + 1] = __uint_as_float(words[e] & 0xFFFF0000u);
-    }
-    float x[8];
-    if (A.fold) {
-      float cc[8];
-      load8(centb + cl * f0p + c0, cc);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = t[e] - cc[e];
-    } else {
-      float g[6], wx[8], wy[8], wz[8];
-#pragma unroll
-      for (int c = 0; c < 6; ++c) g[c] = geo[6 * r + c];
-      load8(w0xs + c0, wx);
-      load8(w0xs + f0p + c0, wy);
-      load8(w0xs + 2 * f0p + c0, wz);
+    float v[8];
+    layer0_chunk(A, f0p, stage, centb, b0s, w0xs, geo, q, r, c0, cl, v);
+    if (mx) {
+      // lanes 8i .. 8i + 7 hold the eight rows of one core (one centroid):
+      // their maximum, then one shared-memory max a column.  relu values are
+      // >= 0, so their bits (-0.0 taken as +0.0) order as the floats do
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        // the six products in order; each is of two bf16 values, exact in
-        // f32, so fma(a, b, s) rounds as s + a * b does
-        float acc = g[0] * wx[e];
-        acc = __fmaf_rn(g[1], wy[e], acc);
-        acc = __fmaf_rn(g[2], wz[e], acc);
-        acc = __fmaf_rn(g[3], wx[e], acc);
-        acc = __fmaf_rn(g[4], wy[e], acc);
-        acc = __fmaf_rn(g[5], wz[e], acc);
-        x[e] = t[e] + acc;
+        unsigned u = __float_as_uint(v[e]) & 0x7FFFFFFFu;
+        u = max(u, __shfl_xor_sync(0xffffffffu, u, 1));
+        u = max(u, __shfl_xor_sync(0xffffffffu, u, 2));
+        u = max(u, __shfl_xor_sync(0xffffffffu, u, 4));
+        if ((q & 7) == 0) atomicMax(mx + cl * f0p + c0 + e, u);
       }
+      continue;
     }
-    float bb[8];
-    load8(b0s + c0, bb);
     uint32_t o[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const uint32_t lo =
-          __bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(x[2 * e] + bb[2 * e], 0.f)));
-      const uint32_t hi =
-          __bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(x[2 * e + 1] + bb[2 * e + 1], 0.f)));
+      const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * e]));
+      const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * e + 1]));
       o[e] = lo | (hi << 16);
     }
     *reinterpret_cast<uint4*>(act + 8 * q) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// a one-layer stack's maxima (mx, after a sync) -> out; mx zeroed again
+__device__ __forceinline__ void store_max0(const Args& A, const Plan& P, const Group& G, int f0p,
+                                           Tile T, unsigned* mx) {
+  const int cpt = P.tm >> A.kps;
+  for (int e = G.tid; e < cpt * f0p; e += G.nthr) {
+    const int cl = e / f0p, c = e - cl * f0p;
+    const int sc = T.s0 + cl;
+    if (sc < A.s) A.out[((size_t)T.b * A.s + sc) * f0p + c] = __uint_as_float(mx[e]);
+    mx[e] = 0u;
   }
 }
 
@@ -519,6 +679,20 @@ __device__ __forceinline__ void max_epilogue(const Args& A, const Frag& F, const
     }
   }
   hop::bar_sync(1 + F.wg, 128);
+  if (A.kp > 64) {
+    // a 128-row centroid spans both 64-row blocks of its tile: each adds its
+    // block's maximum into the output, zeroed before the launch (relu values
+    // are >= 0, so their bits, -0.0 taken as +0.0, order as the floats do)
+    for (int c = F.t; c < n; c += 128) {
+      float m = red[c];
+      for (int u = 1; u < 4; ++u) m = fmaxf(m, red[u * kRedCols + c]);
+      if (T.s0 < A.s) {
+        atomicMax(reinterpret_cast<unsigned*>(A.out) + ((size_t)T.b * A.s + T.s0) * cout + n0 + c,
+                  __float_as_uint(m) & 0x7FFFFFFFu);
+      }
+    }
+    return;
+  }
   const int wpc = A.kp >> 4;  // warps per centroid
   const int ncent = 4 / wpc;
   for (int e = F.t; e < ncent * n; e += 128) {
@@ -548,6 +722,7 @@ __device__ __forceinline__ void load_pass(const bf16* __restrict__ W, int cin, i
 // its max over K.  The backward's recompute calls this too, so the pieces
 // and the order of the 16-deep steps are the forward's.  A warpgroup with
 // a tile of its own takes every item (first 0, step 1).
+template <bool GLOB>
 __device__ __forceinline__ void layer_product(const Args& A, const Layers& L, const Plan& P,
                                               unsigned char* sm, int j, const bf16* in, bf16* out,
                                               Tile T, int first, int step) {
@@ -555,16 +730,21 @@ __device__ __forceinline__ void layer_product(const Args& A, const Layers& L, co
   const int cin = L.width[j - 1], cout = L.width[j];
   float acc[kCap / 2];
   float* red = at<float>(sm, P.red) + F.wg * 8 * kRedCols;
-  if (!((P.streamed >> j) & 1)) {
+  if (GLOB || !((P.streamed >> j) & 1)) {
     const int np = n_pieces(cout, kCap);
-    const bf16* W = at<bf16>(sm, P.w[j]);
+    const bf16* W = GLOB ? nullptr : at<bf16>(sm, P.w[j]);
     const int mt = P.tm >> 6;
     const int items = mt * np;
     auto start = [&](int it, float* d) {
       int n0;
       const int n = piece(cout, kCap, it / mt, &n0);
-      issue<0, 1, kCap>(d, n, in + cm_off(64 * (it % mt), 0, cin), cin, W + cm_off(0, n0, cout),
-                        cout, cin >> 4);
+      if constexpr (GLOB) {
+        staged<0, 1, kCap, true>(d, n, in, cin, 64 * (it % mt), L.w[j], cout, n0, cin,
+                                 slot_a(sm, P, F.wg), slot_b(sm, P, F.wg), F.wg, F.t);
+      } else {
+        issue<0, 1, kCap>(d, n, in + cm_off(64 * (it % mt), 0, cin), cin,
+                          W + cm_off(0, n0, cout), cout, cin >> 4);
+      }
     };
     auto finish = [&](int it, const float* d) {
       int n0;
@@ -628,7 +808,7 @@ __device__ __forceinline__ void layer_product(const Args& A, const Layers& L, co
 __device__ __forceinline__ void load_constants(const Args& A, const Layers& L, const Plan& P,
                                                unsigned char* sm) {
   for (int j = 1; j < L.n_layers; ++j) {
-    if ((P.streamed >> j) & 1) continue;
+    if (P.glob || ((P.streamed >> j) & 1)) continue;
     load_pass(L.w[j], L.width[j - 1], L.width[j], 0, L.width[j], at<bf16>(sm, P.w[j]));
   }
   const int f0p = L.width[0];
@@ -692,6 +872,7 @@ struct Pipe {
   }
 };
 
+template <bool GLOB>
 __global__ void __launch_bounds__(2 * kThreads, 1)
 fused_group_mlp_kernel(Args A, Layers L, Plan P) {
   extern __shared__ __align__(128) unsigned char sm[];
@@ -706,6 +887,11 @@ fused_group_mlp_kernel(Args A, Layers L, Plan P) {
   const int step = own ? gridDim.x * nwg : gridDim.x;
   int t = own ? blockIdx.x * nwg + wg : blockIdx.x;
   load_constants(A, L, P, sm);
+  // a one-layer stack's maxima start at +0.0, the least relu value
+  unsigned* mx = nl == 1 ? at<unsigned>(tsm, P.mx) : nullptr;
+  if (mx) {
+    for (int e = G.tid; e < (P.tm >> A.kps) * f0p; e += G.nthr) mx[e] = 0u;
+  }
   hop::cp_async_wait_all();
   hop::fence_async_smem();
   __syncthreads();
@@ -716,13 +902,17 @@ fused_group_mlp_kernel(Args A, Layers L, Plan P) {
     const int p = it & 1;
     const Tile T = tile_of(A, P, t);
     layer0(A, P, G, f0p, pipe.stage, pipe.xyz[p], pipe.cent[p], at<float>(sm, P.bias),
-           at<float>(sm, P.w0x), at<float>(tsm, P.geo), at<bf16>(tsm, P.act[0]));
+           at<float>(sm, P.w0x), at<float>(tsm, P.geo), act_of<GLOB>(A, P, tsm, 0), mx);
     hop::fence_async_smem();
     G.sync();
+    if (mx) {
+      store_max0(A, P, G, f0p, T, mx);
+      pipe.prefetch(A, P, G, f0p, t, p);
+    }
     for (int j = 1; j < nl; ++j) {
-      layer_product(A, L, P, sm, j, at<bf16>(tsm, P.act[j - 1]),
-                    j < nl - 1 ? at<bf16>(tsm, P.act[j]) : nullptr, T, own ? 0 : wg,
-                    own ? 1 : 2);
+      layer_product<GLOB>(A, L, P, sm, j, act_of<GLOB>(A, P, tsm, j - 1),
+                          j < nl - 1 ? act_of<GLOB>(A, P, tsm, j) : nullptr, T, own ? 0 : wg,
+                          own ? 1 : 2);
       // the last layer writes nothing a product reads: finish() syncs
       if (j < nl - 1 || nl == 2) {
         hop::fence_async_smem();
@@ -761,23 +951,40 @@ __device__ __forceinline__ void add_column_sums(const Frag& F, const float* red,
 // The last layer, recomputed with the forward's product, and the tie split:
 // dz_L = ct / (number of neighbours equal to the forward's max) where the
 // activation equals it and is > 0 -> bf16 into the dz buffer; db_L.
+template <bool GLOB>
 __device__ __forceinline__ void tie_split(const Args& A, const Layers& L, const Plan& P,
                                           unsigned char* sm, const bf16* in, Tile T, float* db) {
   const Frag F;
   const int j = L.n_layers - 1;
   const int cin = L.width[j - 1], cout = L.width[j];
   const int np = n_pieces(cout, kCap), mt = P.tm >> 6;
-  const bf16* W = at<bf16>(sm, P.w[j]);
-  bf16* dz = at<bf16>(sm, P.act[j]);
+  const bf16* W = GLOB ? nullptr : at<bf16>(sm, P.w[j]);
+  bf16* dz = act_of<GLOB>(A, P, sm, j);
   float* red = at<float>(sm, P.red) + F.wg * 8 * kRedCols;
   float* gsc = at<float>(sm, P.gsc) + F.wg * 4 * kRedCols;
   const float* bias = bias_of(sm, P, L, j);
-  const int wpc = A.kp >> 4, ncent = 4 / wpc;
+  // a 128-row centroid spans both warpgroups' 64-row blocks (they take the
+  // same pieces in step): its ties are counted over both, and one of them
+  // adds db and the no-match count
+  const bool both = A.kp > 64;
+  const int wpc = both ? 4 : A.kp >> 4, ncent = both ? 1 : 4 / wpc;
+  auto sync = [&]() {
+    if (both) {
+      hop::bar_sync(kBothBar, 2 * 128);
+    } else {
+      hop::bar_sync(1 + F.wg, 128);
+    }
+  };
   auto start = [&](int it, float* d) {
     int n0;
     const int n = piece(cout, kCap, it / mt, &n0);
-    issue<0, 1, kCap>(d, n, in + cm_off(64 * (it % mt), 0, cin), cin, W + cm_off(0, n0, cout),
-                      cout, cin >> 4);
+    if constexpr (GLOB) {
+      staged<0, 1, kCap, true>(d, n, in, cin, 64 * (it % mt), L.w[j], cout, n0, cin,
+                               slot_a(sm, P, F.wg), slot_b(sm, P, F.wg), F.wg, F.t);
+    } else {
+      issue<0, 1, kCap>(d, n, in + cm_off(64 * (it % mt), 0, cin), cin,
+                        W + cm_off(0, n0, cout), cout, cin >> 4);
+    }
   };
   auto finish = [&](int it, const float* acc) {
     const int m = it % mt;
@@ -786,7 +993,7 @@ __device__ __forceinline__ void tie_split(const Args& A, const Layers& L, const 
     // this thread's two rows belong to one centroid
     const int lr = F.row(0);
     const int sc = T.s0 + ((64 * m + lr) >> A.kps);
-    const int k0 = (lr & (A.kp - 1));
+    const int k0 = (64 * m + lr) & (A.kp - 1);
     const bool valid = sc < A.s;
     const bool live0 = valid && k0 < A.k_real, live1 = valid && k0 + 8 < A.k_real;
     const float* orow = A.fwd_out + ((size_t)T.b * A.s + (valid ? sc : 0)) * cout + n0;
@@ -819,27 +1026,33 @@ __device__ __forceinline__ void tie_split(const Args& A, const Layers& L, const 
         put_warp_sums(F, red, c, cnt[0], cnt[1]);
       }
     }
-    hop::bar_sync(1 + F.wg, 128);
+    sync();
     // 2. per column: each centroid's share g of the cotangent, and db_L:
     //    the rows that take g are the ties, where the maximum is > 0
+    const bool adds = !both || F.wg == 0;
+    const float* red0 = at<float>(sm, P.red);  // both: warpgroup 0's, then 1's
     for (int c = F.t; c < n; c += 128) {
       float dbc = 0.f;
       for (int cl = 0; cl < ncent; ++cl) {
         float cnt = 0.f;
-        for (int u = 0; u < wpc; ++u) cnt += red[(cl * wpc + u) * kRedCols + c];
+        if (both) {
+          for (int u = 0; u < 8; ++u) cnt += red0[((u >> 2) * 8 + (u & 3)) * kRedCols + c];
+        } else {
+          for (int u = 0; u < wpc; ++u) cnt += red[(cl * wpc + u) * kRedCols + c];
+        }
         const int s2 = T.s0 + ((64 * m) >> A.kps) + cl;
         float g = 0.f;
         if (s2 < A.s) {
-          if (cnt == 0.f) atomicAdd(A.nomatch, 1);
+          if (cnt == 0.f && adds) atomicAdd(A.nomatch, 1);
           const size_t at2 = ((size_t)T.b * A.s + s2) * cout + n0 + c;
           g = A.ct[at2] / (cnt > 0.f ? cnt : 1.f);
           if (A.fwd_out[at2] > 0.f) dbc += g * cnt;
         }
         gsc[cl * kRedCols + c] = g;
       }
-      db[n0 + c] += dbc;
+      if (adds) db[n0 + c] += dbc;
     }
-    hop::bar_sync(1 + F.wg, 128);
+    sync();
     // 3. dz_L (red and gsc are rewritten only after the next item's first
     //    barrier, which every thread reaches after this loop)
     const float* g = gsc + (lr >> A.kps) * kRedCols;
@@ -869,11 +1082,99 @@ __device__ __forceinline__ void tie_split(const Args& A, const Layers& L, const 
   for_items<kCap / 2>(F.wg, 2, mt * np, start, finish);
 }
 
+// A one-layer stack's tie split: layer 0 is the last layer.  Its f32
+// activations, recomputed by layer0_chunk as the forward formed them, are
+// held against the forward's maxima; the ties of each (centroid, column)
+// are counted in cnt (cpt x F0P, zero on entry and on return), the
+// cotangent is split among them, db_0 and (fold) dcent = -sum_K dz_0 are
+// formed, and bf16(dz_0) goes to dz (the F0P-wide rows, core layout).
+__device__ __forceinline__ void tie_split0(const Args& A, const Plan& P, unsigned char* sm,
+                                           int f0p, const bf16* stage, const float* xyzb,
+                                           const float* centb, Tile T, float* db, bf16* dz) {
+  const Group blk{(int)threadIdx.x, kThreads, 0};
+  const int cpr = f0p >> 3, cpt = P.tm >> A.kps;
+  const float* b0s = at<float>(sm, P.bias);
+  const float* w0xs = at<float>(sm, P.w0x);
+  float* geo = at<float>(sm, P.geo);
+  int* cnt = at<int>(sm, P.mx);
+  float* gs = at<float>(sm, P.gs);
+  tile_geo(A, P, blk, xyzb, centb, geo);
+  // the row's activations, the forward's maxima of its centroid and whether
+  // the row is a real neighbour of a real centroid
+  auto row_vals = [&](int q, int* r, int* c0, int* cl, float* v, float* o) {
+    const Chunk ch = chunk_of(q, cpr);
+    *r = ch.r;
+    *c0 = ch.c8 * 8;
+    *cl = *r >> A.kps;
+    layer0_chunk(A, f0p, stage, centb, b0s, w0xs, geo, q, *r, *c0, *cl, v);
+    const int sc = T.s0 + *cl;
+    const bool live = sc < A.s && (*r & (A.kp - 1)) < A.k_real;
+    const float* orow = A.fwd_out + ((size_t)T.b * A.s + (live ? sc : 0)) * f0p + *c0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = live ? orow[e] : -1.f;  // -1: never equal
+  };
+  // 1. ties: the eight rows of a core (lanes 8i .. 8i + 7) summed, then one
+  //    shared-memory add a column (integers: any order gives the same sum)
+  for (int q = threadIdx.x; q < P.tm * cpr; q += kThreads) {
+    int r, c0, cl;
+    float v[8], o[8];
+    row_vals(q, &r, &c0, &cl, v, o);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      int k = v[e] == o[e];
+      k += __shfl_xor_sync(0xffffffffu, k, 1);
+      k += __shfl_xor_sync(0xffffffffu, k, 2);
+      k += __shfl_xor_sync(0xffffffffu, k, 4);
+      if ((q & 7) == 0 && k) atomicAdd(cnt + cl * f0p + c0 + e, k);
+    }
+  }
+  __syncthreads();
+  // 2. per column: each centroid's share g, db_0 and (fold) dcent; a
+  //    thread takes a column's centroids in order
+  for (int c = threadIdx.x; c < f0p; c += kThreads) {
+    float dbc = 0.f;
+    for (int cl = 0; cl < cpt; ++cl) {
+      const int sc = T.s0 + cl;
+      const float k = (float)cnt[cl * f0p + c];
+      cnt[cl * f0p + c] = 0;
+      float g = 0.f;
+      if (sc < A.s) {
+        if (k == 0.f) atomicAdd(A.nomatch, 1);
+        const size_t at2 = ((size_t)T.b * A.s + sc) * f0p + c;
+        g = A.ct[at2] / (k > 0.f ? k : 1.f);
+        const float d = A.fwd_out[at2] > 0.f ? g * k : 0.f;
+        dbc += d;
+        if (A.fold) A.dcent[at2] = -d;
+      }
+      gs[cl * f0p + c] = g;
+    }
+    db[c] += dbc;
+  }
+  __syncthreads();
+  // 3. dz_0 = g where the row ties the maximum and the maximum is > 0
+  for (int q = threadIdx.x; q < P.tm * cpr; q += kThreads) {
+    int r, c0, cl;
+    float v[8], o[8];
+    row_vals(q, &r, &c0, &cl, v, o);
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d0 = v[2 * e] == o[2 * e] && v[2 * e] > 0.f ? gs[cl * f0p + c0 + 2 * e] : 0.f;
+      const float d1 =
+          v[2 * e + 1] == o[2 * e + 1] && v[2 * e + 1] > 0.f ? gs[cl * f0p + c0 + 2 * e + 1] : 0.f;
+      w[e] = __bfloat16_as_ushort(__float2bfloat16_rn(d0)) |
+             ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(d1)) << 16);
+    }
+    *reinterpret_cast<uint4*>(dz + 8 * q) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // dW_i += bf16(a_{i-1})^T bf16(dz_i) over the tile's rows, into the block's
 // partial: M = cin in 64-row blocks (the last one's overhang is computed
 // and dropped), both operands read MN-major
-__device__ __forceinline__ void dw_product(const Layers& L, const Plan& P, int i,
-                                           const bf16* aprev, const bf16* dz, float* dW) {
+template <bool GLOB>
+__device__ __forceinline__ void dw_product(const Layers& L, const Plan& P, unsigned char* sm,
+                                           int i, const bf16* aprev, const bf16* dz, float* dW) {
   const Frag F;
   const int cin = L.width[i - 1], cout = L.width[i];
   const int mt = (cin + 63) >> 6;
@@ -882,8 +1183,13 @@ __device__ __forceinline__ void dw_product(const Layers& L, const Plan& P, int i
   auto start = [&](int it, float* d) {
     int n0;
     const int n = piece(cout, cap, it / mt, &n0);
-    issue<1, 1, 128>(d, n, aprev + cm_off(0, 64 * (it % mt), cin), cin,
-                     dz + cm_off(0, n0, cout), cout, P.tm >> 4);
+    if constexpr (GLOB) {
+      staged<1, 1, 128, false>(d, n, aprev, cin, 64 * (it % mt), dz, cout, n0, P.tm,
+                               slot_a(sm, P, F.wg), slot_b(sm, P, F.wg), F.wg, F.t);
+    } else {
+      issue<1, 1, 128>(d, n, aprev + cm_off(0, 64 * (it % mt), cin), cin,
+                       dz + cm_off(0, n0, cout), cout, P.tm >> 4);
+    }
   };
   auto finish = [&](int it, const float* acc) {
     const int m = it % mt;
@@ -924,6 +1230,7 @@ __device__ __forceinline__ void dw_product(const Layers& L, const Plan& P, int i
 
 // dz_{i-1} = (bf16(dz_i) bf16(W_i)^T) * [a_{i-1} > 0], written as bf16 over
 // a_{i-1} in place; db_{i-1}; for i = 1 in fold mode dcent = -sum_K dz_0
+template <bool GLOB>
 __device__ __forceinline__ void dz_product(const Args& A, const Layers& L, const Plan& P,
                                            unsigned char* sm, int i, const bf16* dz, bf16* aprev,
                                            Tile T, float* db) {
@@ -932,16 +1239,31 @@ __device__ __forceinline__ void dz_product(const Args& A, const Layers& L, const
   const int mt = P.tm >> 6;
   const int cap = mt * ((cin + 127) >> 7) >= 2 ? 128 : 64;
   const int np = n_pieces(cin, cap);
-  const bf16* W = at<bf16>(sm, P.w[i]);
+  const bf16* W = GLOB ? nullptr : at<bf16>(sm, P.w[i]);
   float* red = at<float>(sm, P.red) + F.wg * 8 * kRedCols;
   float* cred = at<float>(sm, P.gsc) + F.wg * 4 * kRedCols;
   const bool dcent = i == 1 && A.fold;
-  const int wpc = A.kp >> 4, ncent = 4 / wpc;
+  // dcent of a 128-row centroid sums both warpgroups' blocks (same pieces in
+  // step); warpgroup 0 writes it
+  const bool both = dcent && A.kp > 64;
+  const int wpc = A.kp >> 4, ncent = both ? 1 : 4 / wpc;
+  auto sync = [&]() {
+    if (both) {
+      hop::bar_sync(kBothBar, 2 * 128);
+    } else {
+      hop::bar_sync(1 + F.wg, 128);
+    }
+  };
   auto start = [&](int it, float* d) {
     int n0;
     const int n = piece(cin, cap, it / mt, &n0);
-    issue<0, 0, 128>(d, n, dz + cm_off(64 * (it % mt), 0, cout), cout,
-                     W + cm_off(n0, 0, cout), cout, cout >> 4);
+    if constexpr (GLOB) {
+      staged<0, 0, 128, true>(d, n, dz, cout, 64 * (it % mt), L.w[i], cout, n0, cout,
+                              slot_a(sm, P, F.wg), slot_b(sm, P, F.wg), F.wg, F.t);
+    } else {
+      issue<0, 0, 128>(d, n, dz + cm_off(64 * (it % mt), 0, cout), cout,
+                       W + cm_off(n0, 0, cout), cout, cout >> 4);
+    }
   };
   auto finish = [&](int it, const float* acc) {
     const int m = it % mt;
@@ -949,7 +1271,7 @@ __device__ __forceinline__ void dz_product(const Args& A, const Layers& L, const
     const int n = piece(cin, cap, it / mt, &n0);
     const int lr = F.row(0);
     const int sc = T.s0 + ((64 * m + lr) >> A.kps);
-    const int k0 = (lr & (A.kp - 1));
+    const int k0 = (64 * m + lr) & (A.kp - 1);
     const bool live0 = sc < A.s && k0 < A.k_real, live1 = sc < A.s && k0 + 8 < A.k_real;
     bf16* ab = aprev + cm_off(64 * m + F.row(0), n0 + F.col(0), cin);
 #pragma unroll
@@ -972,9 +1294,16 @@ __device__ __forceinline__ void dz_product(const Args& A, const Layers& L, const
         }
       }
     }
-    hop::bar_sync(1 + F.wg, 128);
+    sync();
     add_column_sums(F, red, n, db + n0);
-    if (dcent) {
+    if (both) {
+      const float* cred0 = at<float>(sm, P.gsc);  // warpgroup 0's, then 1's
+      for (int c = F.t; F.wg == 0 && c < n; c += 128) {
+        float sum = 0.f;
+        for (int u = 0; u < 8; ++u) sum += cred0[((u >> 2) * 4 + (u & 3)) * kRedCols + c];
+        if (T.s0 < A.s) A.dcent[((size_t)T.b * A.s + T.s0) * cin + n0 + c] = -sum;
+      }
+    } else if (dcent) {
       for (int e = F.t; e < ncent * n; e += 128) {
         const int cl = e / n, c = e - cl * n;
         float sum = 0.f;
@@ -983,7 +1312,7 @@ __device__ __forceinline__ void dz_product(const Args& A, const Layers& L, const
         if (s2 < A.s) A.dcent[((size_t)T.b * A.s + s2) * cin + n0 + c] = -sum;
       }
     }
-    hop::bar_sync(1 + F.wg, 128);
+    sync();
   };
   for_items<64>(F.wg, 2, mt * np, start, finish);
 }
@@ -1072,6 +1401,9 @@ __device__ __forceinline__ void layer0_bwd(const Args& A, const Plan& P, unsigne
   }
 }
 
+// ONE: a one-layer stack (compiled apart: the branch beside the deeper
+// stacks' loop cost their backward 4-25% on the card)
+template <bool GLOB, bool ONE>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_group_mlp_bwd_kernel(Args A, Layers L, Plan P) {
   extern __shared__ __align__(128) unsigned char sm[];
@@ -1092,12 +1424,24 @@ fused_group_mlp_bwd_kernel(Args A, Layers L, Plan P) {
   float* db_wg = db + F.wg * sumw - G.db[0];  // indexed by grad-layout offsets
   const Group blk{(int)threadIdx.x, kThreads, 0};
   load_constants(A, L, P, sm);
+  if constexpr (ONE) {
+    int* cnt = at<int>(sm, P.mx);
+    for (int e = threadIdx.x; e < (P.tm >> A.kps) * f0p; e += kThreads) cnt[e] = 0;
+  }
   Pipe pipe(A, P, sm, f0p, gridDim.x);
   pipe.start(A, P, blk, f0p, t);
   for (int it = 0; t < A.total; t += gridDim.x, ++it) {
     const int p = it & 1;
     const Tile T = tile_of(A, P, t);
-    bf16* a0 = at<bf16>(sm, P.act[0]);
+    bf16* a0 = act_of<GLOB>(A, P, sm, 0);
+    if constexpr (ONE) {
+      tie_split0(A, P, sm, f0p, pipe.stage, pipe.xyz[p], pipe.cent[p], T, db_wg + G.db[0], a0);
+      __syncthreads();
+      pipe.prefetch(A, P, blk, f0p, t, p);
+      layer0_bwd(A, P, sm, f0p, a0, T);
+      pipe.finish(blk);
+      continue;
+    }
     layer0(A, P, blk, f0p, pipe.stage, pipe.xyz[p], pipe.cent[p], at<float>(sm, P.bias),
            at<float>(sm, P.w0x), at<float>(sm, P.geo), a0);
     hop::fence_async_smem();
@@ -1105,21 +1449,21 @@ fused_group_mlp_bwd_kernel(Args A, Layers L, Plan P) {
     pipe.prefetch(A, P, blk, f0p, t, p);
     // ---- recompute, bit-identical to the forward kernel ----
     for (int j = 1; j < nl - 1; ++j) {
-      layer_product(A, L, P, sm, j, at<bf16>(sm, P.act[j - 1]), at<bf16>(sm, P.act[j]), T, F.wg,
-                    2);
+      layer_product<GLOB>(A, L, P, sm, j, act_of<GLOB>(A, P, sm, j - 1),
+                          act_of<GLOB>(A, P, sm, j), T, F.wg, 2);
       hop::fence_async_smem();
       __syncthreads();
     }
-    tie_split(A, L, P, sm, at<bf16>(sm, P.act[nl - 2]), T, db_wg + G.db[nl - 1]);
+    tie_split<GLOB>(A, L, P, sm, act_of<GLOB>(A, P, sm, nl - 2), T, db_wg + G.db[nl - 1]);
     hop::fence_async_smem();
     __syncthreads();
     // ---- back through the layers; dz_i lives in act[i] ----
     for (int i = nl - 1; i >= 1; --i) {
-      const bf16* dz = at<bf16>(sm, P.act[i]);
-      bf16* aprev = at<bf16>(sm, P.act[i - 1]);
-      dw_product(L, P, i, aprev, dz, slot + G.dw[i]);
+      const bf16* dz = act_of<GLOB>(A, P, sm, i);
+      bf16* aprev = act_of<GLOB>(A, P, sm, i - 1);
+      dw_product<GLOB>(L, P, sm, i, aprev, dz, slot + G.dw[i]);
       __syncthreads();
-      dz_product(A, L, P, sm, i, dz, aprev, T, db_wg + G.db[i - 1]);
+      dz_product<GLOB>(A, L, P, sm, i, dz, aprev, T, db_wg + G.db[i - 1]);
       hop::fence_async_smem();
       __syncthreads();
     }
@@ -1149,14 +1493,15 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int slots, i
 // Layers from the C arguments; false on a shape the kernels do not take.
 bool make_layers(int n_layers, int kp, const void* const* ws, const float* const* bs,
                  const int* widths, Layers* L) {
-  if (n_layers < 2 || n_layers > kMaxLayers || (kp != 16 && kp != 32 && kp != 64)) return false;
+  if (n_layers < 1 || n_layers > kMaxLayers ||
+      (kp != 16 && kp != 32 && kp != 64 && kp != 128)) {
+    return false;
+  }
   for (int j = 0; j < kMaxLayers; ++j) {
     L->w[j] = j < n_layers && ws ? static_cast<const bf16*>(ws[j]) : nullptr;
     L->b[j] = j < n_layers && bs ? bs[j] : nullptr;
     L->width[j] = j < n_layers ? widths[j] : 0;
-    if (j < n_layers && (widths[j] % 16 != 0 || widths[j] <= 0 || widths[j] > kMaxWidth)) {
-      return false;
-    }
+    if (j < n_layers && (widths[j] % 16 != 0 || widths[j] <= 0)) return false;
   }
   L->n_layers = n_layers;
   return true;
@@ -1165,8 +1510,10 @@ bool make_layers(int n_layers, int kp, const void* const* ws, const float* const
 // the shared-memory layout of one block for tile rows tm, the layers in
 // `streamed` streamed (forward only), forward or backward buffers; own > 0:
 // that many warpgroups each with tile buffers of their own, after the
-// block's shared regions
-Plan layout(const Layers& L, int kp, int fold, int tm, int streamed, bool bwd, int own = 0) {
+// block's shared regions; glob: the activations in the block's global
+// scratch (P.act[] offsets there), every product staged
+Plan layout(const Layers& L, int kp, int fold, int tm, int streamed, bool bwd, int own = 0,
+            bool glob = false) {
   Plan P;
   int off = 0;
   auto take = [&](long long bytes) {
@@ -1174,14 +1521,21 @@ Plan layout(const Layers& L, int kp, int fold, int tm, int streamed, bool bwd, i
     off += (int)((bytes + 127) / 128 * 128);
     return o;
   };
+  long long scratch = 0;
+  auto take_global = [&](long long bytes) {
+    const int o = (int)scratch;
+    scratch += (bytes + 127) / 128 * 128;
+    return o;
+  };
   const int nl = L.n_layers, f0p = L.width[0], cpt = tm / kp;
   const int groups = own ? own : 2;  // warpgroups with reduction scratch
   P.tm = tm;
   P.streamed = streamed;
+  P.glob = glob;
   P.slot = 0;
   for (int j = 0; j < kMaxLayers; ++j) P.w[j] = P.act[j] = -1;
   // the block's own regions
-  for (int j = 1; j < nl; ++j) {
+  for (int j = 1; j < nl && !glob; ++j) {
     if ((streamed >> j) & 1) {
       P.slot = std::max(P.slot, L.width[j - 1] * 2 * kStreamCap * 2);
     } else {
@@ -1189,13 +1543,15 @@ Plan layout(const Layers& L, int kp, int fold, int tm, int streamed, bool bwd, i
     }
   }
   P.ring = P.slot ? take(2LL * P.slot) : -1;
+  P.sa = glob ? take(2LL * 64 * kStageK * 2) : -1;
+  P.sb = glob ? take(2LL * kStageK * 128 * 2) : -1;
   int sumw = 0;
   for (int j = 0; j < nl; ++j) sumw += L.width[j];
   P.bias = take((long long)sumw * 4);
   P.w0x = fold ? -1 : take(3LL * f0p * 4);
   P.red = take((long long)groups * 8 * kRedCols * 4);  // two halves a warpgroup
   P.gsc = bwd ? take(2LL * 4 * kRedCols * 4) : -1;
-  P.dbacc = P.dw0x = P.geo = P.drel = P.wsum = -1;
+  P.dbacc = P.dw0x = P.geo = P.drel = P.wsum = P.mx = P.gs = -1;
   if (bwd) {
     P.dbacc = take(2LL * sumw * 4);
     if (!fold) {
@@ -1203,13 +1559,20 @@ Plan layout(const Layers& L, int kp, int fold, int tm, int streamed, bool bwd, i
       P.drel = take((long long)tm * 3 * 4);
       P.wsum = take(6LL * std::max(kThreads, f0p) * 4);
     }
+    if (nl == 1) {  // the tie counts and shares of a one-layer stack
+      P.mx = take((long long)cpt * f0p * 4);
+      P.gs = take((long long)cpt * f0p * 4);
+    }
   }
   // the tile's regions (repeated for each warpgroup that owns its tiles)
   const int tile0 = off;
   P.stage = take((long long)tm * f0p * 2);
   if (bwd) {
     // every layer's activations stay for the backward pass; act[L-1]: dz_L
-    for (int j = 0; j < nl; ++j) P.act[j] = take((long long)tm * L.width[j] * 2 + kSlack);
+    for (int j = 0; j < nl; ++j) {
+      const long long bytes = (long long)tm * L.width[j] * 2;
+      P.act[j] = glob ? take_global(bytes) : take(bytes + kSlack);
+    }
   } else {
     // layer 0 rewrites the gathered rows in place (the next tile's rows land
     // there once layer 1 has read them); deeper layers alternate between two
@@ -1219,10 +1582,14 @@ Plan layout(const Layers& L, int kp, int fold, int tm, int streamed, bool bwd, i
       int& w = j & 1 ? odd : even;
       w = std::max(w, L.width[j]);
     }
-    const int b = odd ? take((long long)tm * odd * 2) : -1;
-    const int c = even ? take((long long)tm * even * 2) : -1;
-    P.act[0] = P.stage;
+    auto buf = [&](int w) {
+      if (!w) return -1;
+      return glob ? take_global((long long)tm * w * 2) : take((long long)tm * w * 2);
+    };
+    const int b = buf(odd), c = buf(even);
+    P.act[0] = glob ? take_global((long long)tm * f0p * 2) : P.stage;
     for (int j = 1; j < nl - 1; ++j) P.act[j] = (j & 1) ? b : c;
+    if (nl == 1) P.mx = take((long long)cpt * f0p * 4);  // the tile's maxima
   }
   P.rid = take(2LL * tm * 4);
   P.xyz = fold ? -1 : take(2LL * tm * 3 * 4);
@@ -1230,6 +1597,8 @@ Plan layout(const Layers& L, int kp, int fold, int tm, int streamed, bool bwd, i
   P.geo = fold ? -1 : take((long long)tm * 6 * 4);
   P.wg_bytes = own ? off - tile0 : 0;
   P.bytes = off + (own ? (own - 1) * P.wg_bytes : 0);
+  P.scratch = scratch > INT_MAX ? INT_MAX : (int)scratch;
+  if (scratch > INT_MAX) P.bytes = INT_MAX;  // refused
   return P;
 }
 
@@ -1259,15 +1628,23 @@ int blocks_per_sm(const void* kernel, int smem, int threads = kThreads) {
   return nb;
 }
 
+// 1: every launch takes the global plan (to hold it against the others)
+int force_global = 0;
+
 // The forward's plan.  With every weight resident, as many warpgroups (up
 // to four) as fit each walk 64-row tiles of their own, so one's epilogue
 // overlaps another's products; where fewer than two fit, the block's two
 // warpgroups share 64- or 128-row tiles (the size that keeps the most rows
 // in flight), and where no tile fits, 64-row tiles with the largest layers
-// streamed.  -> blocks per SM (0: no plan fits) and the block's threads.
+// streamed.  A tile holds whole centroids, so 128 neighbours take 128-row
+// tiles only.  Where none of these fits (activations or a streamed layer
+// too wide, or 128 neighbours past the resident plans), the global plan:
+// activations in the block's global scratch, every product staged.
+// -> blocks per SM (0: no plan fits) and the block's threads.
 int plan_forward(const Layers& L, int kp, int fold, Plan* out, int* threads) {
-  const void* kernel = reinterpret_cast<const void*>(fused_group_mlp_kernel);
-  for (int own = 4; own >= 2; --own) {
+  const void* kernel = reinterpret_cast<const void*>(fused_group_mlp_kernel<false>);
+  *threads = kThreads;
+  for (int own = 4; own >= 2 && kp <= 64 && !force_global; --own) {
     const Plan P = layout(L, kp, fold, 64, 0, false, own);
     if (P.bytes > kMaxSmem) continue;
     const int nb = blocks_per_sm(kernel, P.bytes, own * 128);
@@ -1277,9 +1654,8 @@ int plan_forward(const Layers& L, int kp, int fold, Plan* out, int* threads) {
       return nb;
     }
   }
-  *threads = kThreads;
   int best = 0, best_nb = 0;
-  for (int tm = 128; tm >= 64; tm -= 64) {
+  for (int tm = 128; tm >= 64 && tm >= kp && !force_global; tm -= 64) {
     const Plan P = layout(L, kp, fold, tm, 0, false);
     if (P.bytes > kMaxSmem) continue;
     const int nb = blocks_per_sm(kernel, P.bytes);
@@ -1290,8 +1666,7 @@ int plan_forward(const Layers& L, int kp, int fold, Plan* out, int* threads) {
     }
   }
   if (best_nb) return best_nb;
-  int streamed = 0;
-  for (;;) {
+  for (int streamed = 0; kp <= 64 && !force_global;) {
     const Plan P = layout(L, kp, fold, 64, streamed, false);
     if (P.bytes <= kMaxSmem) {
       *out = P;
@@ -1306,20 +1681,38 @@ int plan_forward(const Layers& L, int kp, int fold, Plan* out, int* threads) {
         jmax = j;
       }
     }
-    if (!jmax) return 0;
+    if (!jmax) break;
     streamed |= 1 << jmax;
   }
+  const Plan P = layout(L, kp, fold, kp > 64 ? 128 : 64, 0, false, 0, true);
+  if (P.bytes > kMaxSmem) return 0;
+  *out = P;
+  return blocks_per_sm(reinterpret_cast<const void*>(fused_group_mlp_kernel<true>), P.bytes);
+}
+
+// the backward's instantiation for a plan
+using BwdKernel = void (*)(Args, Layers, Plan);
+BwdKernel bwd_kernel(bool glob, bool one) {
+  if (one) {
+    return glob ? fused_group_mlp_bwd_kernel<true, true> : fused_group_mlp_bwd_kernel<false, true>;
+  }
+  return glob ? fused_group_mlp_bwd_kernel<true, false> : fused_group_mlp_bwd_kernel<false, false>;
 }
 
 // The backward's plan: resident weights, 128-row tiles where they fit (half
-// the dW partial traffic per row), else 64.  -> blocks per SM, 0: none fits.
+// the dW partial traffic per row), else 64 (never for 128 neighbours); where
+// neither fits, the global plan (activations in the block's scratch, every
+// product staged), 128-row tiles where they fit.  -> blocks per SM, 0: none
+// fits.
 int plan_backward(const Layers& L, int kp, int fold, Plan* out) {
-  const void* kernel = reinterpret_cast<const void*>(fused_group_mlp_bwd_kernel);
-  for (int tm = 128; tm >= 64; tm -= 64) {
-    const Plan P = layout(L, kp, fold, tm, 0, true);
-    if (P.bytes > kMaxSmem) continue;
-    *out = P;
-    return blocks_per_sm(kernel, P.bytes);
+  for (int glob = force_global; glob <= 1; ++glob) {
+    const void* kernel = reinterpret_cast<const void*>(bwd_kernel(glob, L.n_layers == 1));
+    for (int tm = 128; tm >= 64 && tm >= kp; tm -= 64) {
+      const Plan P = layout(L, kp, fold, tm, 0, true, 0, glob);
+      if (P.bytes > kMaxSmem) continue;
+      *out = P;
+      return blocks_per_sm(kernel, P.bytes);
+    }
   }
   return 0;
 }
@@ -1339,14 +1732,34 @@ void set_tiles(const Plan& P, int batch, Args* A) {
 
 }  // namespace
 
+// The forward's global scratch in bytes (0: its plan keeps the activations
+// in shared memory; -1: no plan takes the shape).
+extern "C" long long fused_group_mlp_scratch(int fold, int batch, int s, int kp, int n_layers,
+                                             const int* widths) {
+  Layers L;
+  Plan P;
+  int threads;
+  if (!make_layers(n_layers, kp, nullptr, nullptr, widths, &L)) return -1;
+  const int nb = plan_forward(L, kp, fold, &P, &threads);
+  if (nb <= 0) return -1;
+  if (!P.glob) return 0;
+  Args A = {};
+  A.s = s;
+  A.kp = kp;
+  set_tiles(P, batch, &A);
+  return (long long)std::min(A.total, nb * sm_count()) * P.scratch;
+}
+
 // The forward.  table (batch, n, f0p) bf16; xyz (batch, n, 3) f32 (hilo);
 // cent (batch, s, f0p) fold | (batch, s, 3) hilo; w0x (3, f0p) bf16 (hilo);
-// idx (batch, s, kp) int32; out (batch, s, cout) f32.
+// idx (batch, s, kp) int32; out (batch, s, cout) f32, zeroed where kp is 128;
+// scratch: fused_group_mlp_scratch() bytes.
 extern "C" int fused_group_mlp_launch(int fold, const void* table, const float* xyz,
                                       const float* cent, const void* w0x, const int* idx,
                                       int batch, int n, int s, int kp, int n_layers,
                                       const void* const* ws, const float* const* bs,
-                                      const int* widths, float* out, void* stream) {
+                                      const int* widths, float* out, void* scratch,
+                                      long long scratch_bytes, void* stream) {
   Layers L;
   Plan P;
   int threads;
@@ -1360,6 +1773,7 @@ extern "C" int fused_group_mlp_launch(int fold, const void* table, const float* 
   A.cent = cent;
   A.w0x = static_cast<const bf16*>(w0x);
   A.idx = idx;
+  A.scratch = static_cast<unsigned char*>(scratch);
   A.n = n;
   A.s = s;
   A.kp = kp;
@@ -1370,9 +1784,15 @@ extern "C" int fused_group_mlp_launch(int fold, const void* table, const float* 
   if (A.total == 0) return 0;
   const int per_block = P.wg_bytes > 0 ? threads / 128 : 1;  // tiles a block takes at once
   const int grid = std::min((A.total + per_block - 1) / per_block, nb * sm_count());
-  fused_group_mlp_kernel<<<grid, threads, P.bytes, static_cast<cudaStream_t>(stream)>>>(A, L, P);
+  if (P.glob && scratch_bytes < (long long)grid * P.scratch) return (int)cudaErrorInvalidValue;
+  auto kernel = P.glob ? fused_group_mlp_kernel<true> : fused_group_mlp_kernel<false>;
+  kernel<<<grid, threads, P.bytes, static_cast<cudaStream_t>(stream)>>>(A, L, P);
   return (int)cudaGetLastError();
 }
+
+// on != 0: every later launch takes the global plan, whatever else fits (a
+// check that the plans compute the same bits); 0: the plans as chosen.
+extern "C" void fused_group_mlp_force_global(int on) { force_global = on; }
 
 // The size in floats of one partial slot (and of `grads`) for these widths.
 extern "C" int fused_group_mlp_grad_size(int n_layers, const int* widths) {
@@ -1380,9 +1800,10 @@ extern "C" int fused_group_mlp_grad_size(int n_layers, const int* widths) {
 }
 
 // The backward's grid (its number of partial slots); <= 0 if the shape does
-// not fit.
+// not fit.  *scratch: its global scratch in bytes (0 for a plan that keeps
+// the activations in shared memory).
 extern "C" int fused_group_mlp_bwd_grid(int fold, int batch, int s, int kp, int n_layers,
-                                        const int* widths) {
+                                        const int* widths, long long* scratch) {
   Layers L;
   Plan P;
   if (!make_layers(n_layers, kp, nullptr, nullptr, widths, &L)) return -1;
@@ -1393,13 +1814,16 @@ extern "C" int fused_group_mlp_bwd_grid(int fold, int batch, int s, int kp, int 
   A.kp = kp;
   A.kps = __builtin_ctz(kp);
   set_tiles(P, batch, &A);
-  return std::min(A.total, nb * sm_count());
+  const int grid = std::min(A.total, nb * sm_count());
+  *scratch = P.glob ? (long long)grid * P.scratch : 0;
+  return grid;
 }
 
 // The backward.  idx: (batch, s, kp) int32 in [0, n), padded as the forward
 // took it, k_real <= kp real neighbours; fwd_out, ct: (batch, s, cout) f32.
 // Scratch: dz0 (batch, s, kp, f0p) and (hilo) drel (batch, s, kp, 3) bf16;
-// part (grid, grad size) f32 zeroed, grid from fused_group_mlp_bwd_grid.
+// part (grid, grad size) f32 zeroed, grid and the global scratch's bytes
+// from fused_group_mlp_bwd_grid.
 // Outputs, all written: dtable (batch, n, f0p), dxyz (batch, n, 3, hilo),
 // dcent (batch, s, f0p | 3), grads (grad size); nomatch incremented.
 extern "C" int fused_group_mlp_bwd_launch(
@@ -1407,7 +1831,8 @@ extern "C" int fused_group_mlp_bwd_launch(
     const int* idx, int batch, int n, int s, int kp, int k_real, int n_layers,
     const void* const* ws, const float* const* bs, const int* widths, const float* fwd_out,
     const float* ct, void* dz0, void* drel, float* dtable, float* dxyz, float* dcent,
-    float* part, int grid, float* grads, int* nomatch, void* stream) {
+    float* part, int grid, float* grads, int* nomatch, void* scratch, long long scratch_bytes,
+    void* stream) {
   Layers L;
   Plan P;
   if (!make_layers(n_layers, kp, ws, bs, widths, &L) || k_real < 1 || k_real > kp ||
@@ -1423,6 +1848,7 @@ extern "C" int fused_group_mlp_bwd_launch(
   A.cent = cent;
   A.w0x = static_cast<const bf16*>(w0x);
   A.idx = idx;
+  A.scratch = static_cast<unsigned char*>(scratch);
   A.n = n;
   A.s = s;
   A.kp = kp;
@@ -1437,9 +1863,10 @@ extern "C" int fused_group_mlp_bwd_launch(
   A.nomatch = nomatch;
   set_tiles(P, batch, &A);
   if (grid != std::min(A.total, nb * sm_count())) return (int)cudaErrorInvalidValue;
+  if (P.glob && scratch_bytes < (long long)grid * P.scratch) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (grid > 0) {
-    fused_group_mlp_bwd_kernel<<<grid, kThreads, P.bytes, st>>>(A, L, P);
+    bwd_kernel(P.glob, L.n_layers == 1)<<<grid, kThreads, P.bytes, st>>>(A, L, P);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -28,7 +28,8 @@ constexpr int kTileBytes = 32 * 1024;
 
 // dtable[b, n, :] = sum over the positions p = s * kp + k with k < k_real and
 // idx[b, p] == n of f32(ct[b, p, :]), in ascending p.
-// grid (tiles, B); blockDim = cout rounded up to a warp multiple.
+// grid (tiles, B); blockDim = cout rounded up to a warp multiple, at most
+// 1024 (a thread then takes every 1024th channel).
 // shared memory: acc[tile_rows][cout] f32, then the chunk's compacted list
 // (positions, tile rows), then one int per warp for the scan.
 __global__ void scatter_rows_kernel(const int* __restrict__ idx,
@@ -97,20 +98,21 @@ __global__ void scatter_rows_kernel(const int* __restrict__ idx,
       }
     }
     __syncthreads();
-    // 3. thread tid adds channel tid of each listed cotangent row, in order
-    if (tid < cout) {
+    // 3. thread tid adds channels tid, tid + nthr, ... of each listed
+    // cotangent row, in order
+    for (int ch = tid; ch < cout; ch += nthr) {
       int m = 0;
       for (; m + kAhead <= total; m += kAhead) {
         float v[kAhead];
 #pragma unroll
         for (int u = 0; u < kAhead; ++u)
-          v[u] = __bfloat162float(bct[(long long)list_pos[m + u] * cout + tid]);
+          v[u] = __bfloat162float(bct[(long long)list_pos[m + u] * cout + ch]);
 #pragma unroll
-        for (int u = 0; u < kAhead; ++u) acc[list_row[m + u] * cout + tid] += v[u];
+        for (int u = 0; u < kAhead; ++u) acc[list_row[m + u] * cout + ch] += v[u];
       }
       for (; m < total; ++m)
-        acc[list_row[m] * cout + tid] +=
-            __bfloat162float(bct[(long long)list_pos[m] * cout + tid]);
+        acc[list_row[m] * cout + ch] +=
+            __bfloat162float(bct[(long long)list_pos[m] * cout + ch]);
     }
     __syncthreads();  // the list and warp_sum are rewritten by the next chunk
   }
@@ -119,12 +121,12 @@ __global__ void scatter_rows_kernel(const int* __restrict__ idx,
 }
 
 // dtable (batch, n, cout) f32, written; ct (batch, s * kp, cout) bf16; idx
-// (batch, s * kp) int32 in [0, n); cout <= 1024.
+// (batch, s * kp) int32 in [0, n).
 inline cudaError_t scatter_rows(const int* idx, const __nv_bfloat16* ct, int batch, int n,
                                 int sk, int kp, int k_real, int cout, float* dtable,
                                 cudaStream_t st) {
-  const int threads = (cout + 31) / 32 * 32;
-  if (threads > 1024 || n <= 0 || batch <= 0) return cudaErrorInvalidValue;
+  const int threads = cout > 1024 ? 1024 : (cout + 31) / 32 * 32;
+  if (n <= 0 || batch <= 0) return cudaErrorInvalidValue;
   int tile = kTileBytes / (cout * 4);
   tile = tile < 1 ? 1 : (tile > n ? n : tile);
   const size_t smem = (size_t)tile * cout * 4 +

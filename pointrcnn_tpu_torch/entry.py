@@ -14,6 +14,8 @@ stride-class ball query, ``auto`` roipool), as ``bench.py`` runs it.
 :data:`EXACT_OVERRIDES` turns it into the reference-parity setting (exact
 FPS, exact ball query, exact roipool); every other value, 16384 points,
 all widths, bf16 compute and TEST 9000/100 @ 0.8, stays.
+:data:`WIDE_OVERRIDES` widens and deepens default.yaml's SA stacks to the
+shapes the fused kernels' wider plans exist for.
 """
 
 from __future__ import annotations
@@ -48,6 +50,17 @@ EXACT_OVERRIDES = [
     "RCNN.ROIPOOL_METHOD", "exact",
 ]
 
+# the widest and deepest SA stacks the fused kernels take, on cfgs/default.yaml:
+# K = 128 at RCNN SA1 and SA2 (PointNet++'s largest nsample), a one-layer
+# RCNN SA1, a five-layer RCNN SA2 up to 640 wide (its weights past shared
+# memory), and an RPN SA3 of 2 x 512 channels, so RPN SA4's table holds 1024
+# feature channels (3 + 1024 in the gather and its backward)
+WIDE_OVERRIDES = [
+    "RCNN.SA_CONFIG.NSAMPLE", "[128, 128, 128]",
+    "RCNN.SA_CONFIG.MLPS", "[[128], [128, 256, 256, 512, 640], [256, 256, 512]]",
+    "RPN.SA_CONFIG.MLPS", "[[[16, 16, 32], [32, 32, 64]], [[64, 64, 128], [64, 96, 128]], "
+    "[[128, 196, 512], [128, 196, 512]], [[256, 256, 512], [256, 384, 512]]]",
+]
 
 # tools/train.py's --train_mode switches, and the joint step of a config as
 # shipped (the RPN and the RCNN trained together)

@@ -5,6 +5,16 @@ Contract of both: (B, N, 3) f32 -> (B, npoint) int32; the first pick is
 index 0, then each step folds the squared distance to the last pick,
 ``(dx*dx + dy*dy) + dz*dz``, into a running minimum that starts at 1e10 and
 picks its argmax, the lowest index on ties.
+
+What the kernel takes: any row length (the TPU's gate, ``MAX_CELLS`` =
+2^20 cells of B x N with N % 128 == 0, and its XLA loop beyond, take any
+too).  Rows of up to 16384 points keep their coordinates in one block's
+shared memory (``plans``); longer rows take ``fps_wide_launch``: up to
+131072 points a cluster of 2, 4 or 8 blocks a row, each block's share in
+its shared memory and the step's winners exchanged through distributed
+shared memory; past that a block a row, the first 16384 points in shared
+memory, the rest read from L2 each step and the running minima in a
+global scratch row.
 """
 
 from __future__ import annotations
@@ -16,8 +26,8 @@ import torch
 
 from pointrcnn_tpu_torch.ops.common import sm_count
 
-# most points per row the kernel takes (one block of 1024 threads, 16
-# points a thread, the row's xyz in shared memory)
+# most points per row whose xyz stays in one block's shared memory (1024
+# threads, 16 points a thread); longer rows take the wide kernels
 MAX_N = 16384
 
 launches = 0
@@ -25,7 +35,8 @@ launches = 0
 
 def plans(n: int) -> tuple[tuple[int, int], ...]:
     """The (warps a row, rows a block) that ``csrc/fps.cu`` launches for
-    rows of ``n`` points; it refuses any other."""
+    rows of ``n`` points (past ``MAX_N``: the wide kernel, 32 warps, a row a
+    block); it refuses any other."""
     return ((32, 1),) if n > 1024 else ((1, 2), (4, 1))
 
 
@@ -74,6 +85,18 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_kernel():
+    """``fps_wide_launch`` (rows of more than ``MAX_N`` points)."""
+    from pointrcnn_tpu_torch import _build
+
+    fn = _build.load("fps", _build.NO_FMAD).fps_wide_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(xyz: torch.Tensor, npoint: int,
             shape_plan: tuple[int, int] | None = None) -> torch.Tensor:
     """The kernel on a CUDA tensor; ``shape_plan`` overrides :func:`plan`
@@ -84,12 +107,19 @@ def _launch(xyz: torch.Tensor, npoint: int,
     if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[2] != 3:
         raise ValueError(f"fps: need (B, N, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")
     B, N, _ = xyz.shape
-    if not 1 <= npoint <= N or N > MAX_N:
-        raise ValueError(f"fps: need 1 <= npoint <= N <= {MAX_N}, got npoint={npoint} N={N}")
+    if not 1 <= npoint <= N:
+        raise ValueError(f"fps: need 1 <= npoint <= N, got npoint={npoint} N={N}")
     xyz = xyz.contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    wpr, rpb = plan(B, N, sm_count(xyz.device)) if shape_plan is None else shape_plan
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    if N > MAX_N:
+        # the running minima of a row past a cluster's reach
+        mind = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+        _build.check(_wide_kernel()(xyz.data_ptr(), B, N, npoint, out.data_ptr(),
+                                    mind.data_ptr(), stream), "fps_wide_launch")
+        launches += 1
+        return out
+    wpr, rpb = plan(B, N, sm_count(xyz.device)) if shape_plan is None else shape_plan
     _build.check(_kernel()(xyz.data_ptr(), B, N, npoint, out.data_ptr(), wpr, rpb, stream),
                  "fps_launch")
     launches += 1

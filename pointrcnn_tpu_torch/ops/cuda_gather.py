@@ -16,6 +16,11 @@ cast has zero derivative), ``dfeatures`` the rest, each cast to its primal's
 dtype.  Both versions sum in ascending (s, k) order, so on the CPU they
 agree bit for bit; the kernel is deterministic.
 
+What the kernels take: K4 any shape (a run of output rows falls to 8 rows
+for wide ones); K8 any channel count (channel chunks of at most 1024 a
+block).  The TPU predicate (:func:`group_points_supported`, no channel cap)
+admits nothing the kernels refuse.
+
 K4 checks its indices on the device: an index outside [0, N) makes it
 print the index and its position and trap, so the fault surfaces as a CUDA
 error at the next synchronising call (the CUDA context is lost), not as a
@@ -156,8 +161,6 @@ def _launch_bwd(idx, ct, N: int):
                          f"for a cotangent {tuple(ct.shape)}")
     if not (ct.is_cuda and idx.device == ct.device):
         raise ValueError("group_points backward: idx and ct must be on one CUDA device")
-    if cout > 1024:
-        raise ValueError(f"group_points backward: {cout} channels > 1024")
     ctb = ct.to(torch.bfloat16).contiguous()
     dtable = torch.empty((B, N, cout), dtype=torch.float32, device=ct.device)
     dcent = torch.empty((B, S, 3), dtype=torch.float32, device=ct.device)

@@ -11,13 +11,32 @@ The operands follow ``_prepare_operands`` of the JAX module:
   ``bf16(hi - c) @ w0x + lo @ w0x`` from the bitmask hi/lo split of xyz;
 - mode ``"fold"`` (canonical-frame inputs, the RCNN stages with
   N >= ``_FOLD_MIN_N``): the table is ``bf16(P + xyz @ w0x)`` and the
-  kernel subtracts ``c @ w0x`` (f32) after the gather.
+  kernel subtracts ``c @ w0x`` (f32) after the gather;
+- mode ``"none"`` (``use_xyz`` False: ``weights[0]`` has no xyz rows): the
+  table is ``bf16(P)`` and the kernels run it as the fold route with a zero
+  centroid term (``x - 0.0`` is ``x``, bit for bit, so the rounding points
+  are JAX's); the backward returns zero xyz and centroid gradients.
 
 Widths are zero-padded to multiples of 16 (the depth of one wgmma step and
 the narrowest N piece the kernels cut a layer into); padded lanes carry zero
 weights and biases and stay zero through the ReLUs.  The kernels take the
 weights as they are (row-major bf16) and lay them out for wgmma in shared
 memory themselves; nothing is packed on the host.
+
+A one-layer stack maxes over layer 0's f32 activations (padded lanes
+included, then trimmed, as ``_trim_padded_lanes`` does); its backward splits
+the cotangent among layer 0's ties.
+
+What the kernels take: 1 to 16 layers, widths padded to 16 (any width the
+plans of ``csrc/mlp.cu`` fit: a global plan keeps the activations in global
+memory, so only the gathered rows of layer 0, 64 or 128 rows of F0P bf16,
+must fit shared memory), K up to 128 (padded to 16, 32, 64 or 128; a
+128-row centroid fills a tile).  What they refuse that the TPU predicates
+``fused_group_mlp_max_supported`` / ``fused_group_bwd_supported`` admit:
+K from 129 to 1024 (forward) or 256 (backward), more than 16 layers, and a
+layer 0 too wide for the gathered tile (past about 500 padded columns at
+K = 128, about 1000 below); no config reaches them.  The refusal is a
+``ValueError``.
 
 The backward (``_pallas_bwd``) works on the same operands: it recomputes the
 forward, splits each output cotangent evenly among the tied maxima, and
@@ -31,7 +50,9 @@ tensors, the plain versions on CPU tensors.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -49,9 +70,10 @@ _MAX_N = 2048
 _MAX_OH_CELLS = 1 << 22
 _FOLD_MIN_N = 256
 
-# the kernels take up to 64 neighbours (one block's rows) and 2-4 layers
-_MAX_K = 64
-_MAX_LAYERS = 4
+# the kernels take up to 128 neighbours (a centroid's rows in one tile) and
+# 1-16 layers
+_MAX_K = 128
+_MAX_LAYERS = 16
 
 # the backward's count of (b, s, channel) whose recomputed activations held
 # no value equal to the forward's maximum (a cotangent dropped): one int32
@@ -114,22 +136,29 @@ def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _bf16(a) @ _bf16(b)
 
 
-def prepare_operands(fold: bool, xyz, features, new_xyz, weights, biases):
+def prepare_operands(fold: bool, xyz, features, new_xyz, weights, biases,
+                     use_xyz: bool = True):
     """-> (table bf16 (B, N, F0P), cent f32, w0x bf16 (3, F0P) or None,
-    ws bf16 padded for layers 1.., bs f32 padded for layers 0..)."""
+    ws bf16 padded for layers 1.., bs f32 padded for layers 0..).  Without
+    ``use_xyz`` the operands of the fold route with a zero centroid term."""
     w0 = weights[0]
     f0p = _ceil16(w0.shape[1])
-    w0x3, w0f = w0[:3].to(torch.float32), w0[3:]
-    P = _bf16_matmul(features, w0f)
-    if fold:
-        G = xyz.to(torch.float32) @ w0x3
-        table = (P + G).to(torch.bfloat16)
-        cent = _pad(new_xyz.to(torch.float32) @ w0x3, (*new_xyz.shape[:2], f0p))
+    if not use_xyz:
+        table = _bf16_matmul(features, w0).to(torch.bfloat16)
+        cent = torch.zeros((*new_xyz.shape[:2], f0p), dtype=torch.float32, device=table.device)
         w0x = None
     else:
-        table = P.to(torch.bfloat16)
-        cent = new_xyz.to(torch.float32)
-        w0x = _pad(w0x3, (3, f0p)).to(torch.bfloat16)
+        w0x3, w0f = w0[:3].to(torch.float32), w0[3:]
+        P = _bf16_matmul(features, w0f)
+        if fold:
+            G = xyz.to(torch.float32) @ w0x3
+            table = (P + G).to(torch.bfloat16)
+            cent = _pad(new_xyz.to(torch.float32) @ w0x3, (*new_xyz.shape[:2], f0p))
+            w0x = None
+        else:
+            table = P.to(torch.bfloat16)
+            cent = new_xyz.to(torch.float32)
+            w0x = _pad(w0x3, (3, f0p)).to(torch.bfloat16)
     table = _pad(table, (*table.shape[:2], f0p))
     ws, bs = [], [_pad(biases[0].to(torch.float32), (f0p,))]
     cin = f0p
@@ -224,8 +253,8 @@ def _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx):
     B, N, f0p = table.shape
     S, K = idx.shape[1], idx.shape[2]
     n_layers = 1 + len(ws)
-    if not 2 <= n_layers <= _MAX_LAYERS:
-        raise ValueError(f"fused_group_mlp: {n_layers} layers, kernel takes 2..{_MAX_LAYERS}")
+    if not 1 <= n_layers <= _MAX_LAYERS:
+        raise ValueError(f"fused_group_mlp: {n_layers} layers, kernel takes 1..{_MAX_LAYERS}")
     if K > _MAX_K or idx.shape[0] != B:
         raise ValueError(f"fused_group_mlp: idx {tuple(idx.shape)} (K <= {_MAX_K})")
     tensors = [table, cent, idx, *ws, *bs] + ([] if fold else [xyz, w0x])
@@ -250,13 +279,15 @@ def pad_idx(idx, N: int):
     """Check the indices against [0, N) (a host sync) and pad K to the
     kernels' 16-row tile by repeating each row's first neighbour (a
     duplicate cannot change the max; the backward gives it no cotangent)
-    -> contiguous int32 (B, S, 16 | 32 | 64)."""
+    -> contiguous int32 (B, S, 16 | 32 | 64 | 128)."""
     B, S, K = idx.shape
     if idx.numel():
         lo, hi = (int(v) for v in torch.aminmax(idx))
         if lo < 0 or hi >= N:
             raise ValueError(f"fused_group_mlp: indices outside [0, {N})")
-    kp = 16 if K <= 16 else (32 if K <= 32 else 64)
+    kp = 16
+    while kp < K:
+        kp *= 2
     idx = idx.to(torch.int32)
     if kp != K:
         idx = torch.cat([idx, idx[..., :1].expand(B, S, kp - K)], dim=-1)
@@ -278,6 +309,20 @@ def _layer_args(table, ws, bs):
     return n_layers, widths, w_ptrs, b_ptrs, (ctypes.c_int * n_layers)(*widths)
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(fold: int, B: int, S: int, kp: int, widths: tuple, device: int) -> int:
+    """The forward's global scratch at a shape (0: its plan keeps the
+    activations in shared memory; -1: no plan fits), on ``device``'s SM
+    count; remembered, since a launch's host time counts."""
+    from pointrcnn_tpu_torch import _build
+
+    fn = _build.load("mlp", _build.NO_FMAD).fused_group_mlp_scratch
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_longlong
+    with torch.cuda.device(device):
+        return fn(fold, B, S, kp, len(widths), (ctypes.c_int * len(widths))(*widths))
+
+
 def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
     """The forward kernel on CUDA tensors; ``checked`` idx comes from
     :func:`pad_idx` already."""
@@ -291,11 +336,10 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
     ws = [w.contiguous() for w in ws]
     bs = [b.contiguous() for b in bs]
     n_layers, widths, w_ptrs, b_ptrs, c_widths = _layer_args(table, ws, bs)
-    out = torch.empty((B, S, widths[-1]), dtype=torch.float32, device=table.device)
     lib = _build.load("mlp", _build.NO_FMAD)
     fn = lib.fused_group_mlp_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 5)
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     xyz_c = xyz.contiguous() if not fold else None
     w0x_c = w0x.contiguous() if not fold else None
@@ -305,13 +349,40 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
     # the launch follows it at once
     if not checked:
         idx = pad_idx(idx, N)
+    kp = idx.shape[2]
+    # a 128-row centroid's two 64-row blocks max into a zeroed output
+    out = (torch.zeros if kp > 64 else torch.empty)((B, S, widths[-1]), dtype=torch.float32,
+                                                    device=table.device)
+    scratch_bytes = _scratch_bytes(int(fold), B, S, kp, tuple(widths), table.device.index)
+    if scratch_bytes < 0:
+        raise ValueError(f"fused_group_mlp: widths {widths} at K={kp} fit no plan of the kernel")
+    scratch = (torch.empty((scratch_bytes,), dtype=torch.uint8, device=table.device)
+               if scratch_bytes else None)
     err = fn(int(fold), table.data_ptr(), 0 if fold else xyz_c.data_ptr(),
              cent.data_ptr(), 0 if fold else w0x_c.data_ptr(),
-             idx.data_ptr(), B, N, S, idx.shape[2], n_layers, w_ptrs, b_ptrs, c_widths,
-             out.data_ptr(), stream)
+             idx.data_ptr(), B, N, S, kp, n_layers, w_ptrs, b_ptrs, c_widths,
+             out.data_ptr(), scratch.data_ptr() if scratch_bytes else 0, scratch_bytes, stream)
     _build.check(err, "fused_group_mlp_launch")
     launches += 1
     return out
+
+
+@contextlib.contextmanager
+def global_plan():
+    """Every launch inside takes the kernels' global plan (activations in
+    global memory, every product staged), whatever else fits: the plans must
+    compute the same bits (needs a card)."""
+    from pointrcnn_tpu_torch import _build
+
+    fn = _build.load("mlp", _build.NO_FMAD).fused_group_mlp_force_global
+    fn.argtypes, fn.restype = [ctypes.c_int], None
+    fn(1)
+    _scratch_bytes.cache_clear()
+    try:
+        yield
+    finally:
+        fn(0)
+        _scratch_bytes.cache_clear()
 
 
 def _nomatch_counter(device) -> torch.Tensor:
@@ -342,7 +413,7 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx)
     B, N, f0p = table.shape
     S, kp = idx.shape[1], idx.shape[2]
-    if idx.dtype != torch.int32 or not idx.is_contiguous() or kp not in (16, 32, 64) or not \
+    if idx.dtype != torch.int32 or not idx.is_contiguous() or kp not in (16, 32, 64, 128) or not \
             1 <= K <= kp:
         raise ValueError(f"fused_group_mlp backward: idx {tuple(idx.shape)} {idx.dtype} "
                          f"with K={K} is not the forward's padded index")
@@ -363,9 +434,10 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     size_fn.restype = ctypes.c_int
     size = size_fn(n_layers, c_widths)
     grid_fn = lib.fused_group_mlp_bwd_grid
-    grid_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    grid_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     grid_fn.restype = ctypes.c_int
-    grid = grid_fn(int(fold), B, S, kp, n_layers, c_widths)
+    scratch_bytes = ctypes.c_longlong(0)
+    grid = grid_fn(int(fold), B, S, kp, n_layers, c_widths, ctypes.byref(scratch_bytes))
     if grid < 0:
         raise ValueError(f"fused_group_mlp backward: widths {widths} at K={kp} do not fit "
                          f"the kernel's shared memory")
@@ -380,8 +452,11 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     part = torch.zeros((grid, size), dtype=torch.float32, device=dev)
     grads = torch.empty((size,), dtype=torch.float32, device=dev)
     fn = lib.fused_group_mlp_bwd_launch
+    scratch = (torch.empty((scratch_bytes.value,), dtype=torch.uint8, device=dev)
+               if scratch_bytes.value else None)
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(int(fold), table.data_ptr(), 0 if fold else xyz.contiguous().data_ptr(),
@@ -389,7 +464,8 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
              B, N, S, kp, K, n_layers, w_ptrs, b_ptrs, c_widths, out.data_ptr(),
              ct.data_ptr(), dz0.data_ptr(), 0 if fold else drel.data_ptr(), dtable.data_ptr(),
              0 if fold else dxyz.data_ptr(), dcent.data_ptr(), part.data_ptr(), grid,
-             grads.data_ptr(), _nomatch_counter(dev).data_ptr(), stream)
+             grads.data_ptr(), _nomatch_counter(dev).data_ptr(),
+             scratch.data_ptr() if scratch is not None else 0, scratch_bytes.value, stream)
     _build.check(err, "fused_group_mlp_bwd_launch")
     bwd_launches += 1
     # the partial layout of csrc/mlp.cu (grad_layout)
@@ -424,19 +500,25 @@ def fused_group_backward(fold, table, xyz, cent, w0x, ws, bs, idx, K, out, ct):
     raise ValueError(f"fused_group_mlp backward: unsupported device {table.device}")
 
 
-def _assemble(fold, xyz, features, new_xyz, weights, grads, need_geometry=(True, True)):
+def _assemble(fold, xyz, features, new_xyz, weights, grads, need_geometry=(True, True),
+              use_xyz: bool = True):
     """The padded operands' gradients -> (dxyz, dfeatures, dnew_xyz,
     [dweights], [dbiases]) in parameter space (``_pallas_bwd``'s assembly
     after the kernel; ``need_geometry`` skips dxyz / dnew_xyz)."""
     dtable, dxyz_k, dcent, dw0x, dws, dbs = grads
     w0 = weights[0].to(torch.float32)
     f0 = w0.shape[1]
-    w0x3, w0f = w0[:3], w0[3:]
+    w0x3, w0f = (w0[:3], w0[3:]) if use_xyz else (None, w0)
     dP = dtable[..., :f0]
     dfeatures = _bf16(dP) @ _bf16(w0f).t()
     dw0f = torch.einsum("bnc,bnf->cf", _bf16(features), _bf16(dP))
     dxyz = dnew_xyz = None
-    if fold:
+    if not use_xyz:
+        # no geometry term: xyz and new_xyz get zero gradients, as in JAX
+        dxyz = torch.zeros_like(xyz, dtype=torch.float32) if need_geometry[0] else None
+        dnew_xyz = torch.zeros_like(new_xyz, dtype=torch.float32) if need_geometry[1] else None
+        dweights = [dw0f]
+    elif fold:
         dcent_f = dcent[..., :f0]
         if need_geometry[0]:
             dxyz = dP @ w0x3.t()
@@ -450,7 +532,8 @@ def _assemble(fold, xyz, features, new_xyz, weights, grads, need_geometry=(True,
         # w0x are the same parameter
         dxyz, dnew_xyz = dxyz_k, dcent[..., :3]
         dw0x3 = dw0x[0:3, :f0] + dw0x[3:6, :f0]
-    dweights = [torch.cat([dw0x3, dw0f], 0)]
+    if use_xyz:
+        dweights = [torch.cat([dw0x3, dw0f], 0)]
     for w, dw in zip(weights[1:], dws):
         dweights.append(dw[: w.shape[0], : w.shape[1]])
     dbiases = [db[: w.shape[1]] for db, w in zip(dbs, weights)]
@@ -464,15 +547,17 @@ class FusedGroupMLP(torch.autograd.Function):
     output from the context; it does not check the indices again."""
 
     @staticmethod
-    def forward(ctx, fold, xyz, features, new_xyz, idx, n_layers, *params):
+    def forward(ctx, mode, xyz, features, new_xyz, idx, n_layers, *params):
         weights, biases = params[:n_layers], params[n_layers:]
-        ops = prepare_operands(fold, xyz, features, new_xyz, weights, biases)
+        use_xyz = mode != "none"
+        fold = mode != "hilo"  # "none" runs the fold route with a zero centroid term
+        ops = prepare_operands(fold, xyz, features, new_xyz, weights, biases, use_xyz)
         ctx.K = idx.shape[2]
         if ops[0].is_cuda:
             idx = pad_idx(idx, features.shape[1])
         out = fused_group(fold, ops[0], xyz, *ops[1:], idx, checked=True)
         table, cent, w0x, ws, bs = ops
-        ctx.fold, ctx.n_ws = fold, len(ws)
+        ctx.fold, ctx.use_xyz, ctx.n_ws = fold, use_xyz, len(ws)
         ctx.save_for_backward(xyz, features, new_xyz, idx, out, table, cent,
                               w0x if w0x is not None else table.new_empty(0),
                               *ws, *bs, *weights)
@@ -488,7 +573,8 @@ class FusedGroupMLP(torch.autograd.Function):
                                      ws, bs, idx, ctx.K, out, ct)
         need = ctx.needs_input_grad
         dxyz, dfeat, dnew, dws, dbs = _assemble(ctx.fold, xyz, features, new_xyz, weights,
-                                                grads, need_geometry=(need[1], need[3]))
+                                                grads, need_geometry=(need[1], need[3]),
+                                                use_xyz=ctx.use_xyz)
         cast = lambda g, like, i: g.to(like.dtype) if need[i] and g is not None else None
         return (None, cast(dxyz, xyz, 1), cast(dfeat, features, 2), cast(dnew, new_xyz, 3),
                 None, None, *dws, *dbs)
@@ -502,13 +588,12 @@ def fused_group_mlp_max(xyz, features, new_xyz, idx, weights, biases,
     :param xyz: (B, N, 3) f32; features: (B, N, C); new_xyz: (B, S, 3)
     :param idx: (B, S, K) neighbourhood indices
     :param weights: list of (Ci, Ci+1), ``weights[0]`` with Cin = 3 + C
+        (``use_xyz``) or C
+    :param fold_geometry: the fold route (ignored without ``use_xyz``)
     :return: (B, S, Cout) f32
     """
-    if not use_xyz:
-        raise NotImplementedError("fused_group_mlp_max: use_xyz=False is not ported")
-    if len(weights) < 2:
-        raise NotImplementedError("fused_group_mlp_max: single-layer stacks are not ported")
-    return FusedGroupMLP.apply(bool(fold_geometry), xyz, features, new_xyz, idx, len(weights),
+    mode = ("fold" if fold_geometry else "hilo") if use_xyz else "none"
+    return FusedGroupMLP.apply(mode, xyz, features, new_xyz, idx, len(weights),
                                *weights, *biases)
 
 

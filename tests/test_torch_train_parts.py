@@ -291,11 +291,11 @@ def test_shared_mlp_train_equals_jax(monkeypatch, dtype):
                                    err_msg=k)
 
 
-def test_bn_free_grouped_training_raises():
+def test_bn_free_grouped_training_raises(monkeypatch):
     """A BN-free grouped stack trains: in f32 on the generic route (its
     output the max over K of relu(grouped @ w + b)); in bf16 the fused
-    route takes it, and a single-layer stack, which the fused kernels do
-    not take, raises."""
+    route takes it, a single-layer stack included, in both directions (its
+    output the same max from bf16 operands)."""
     x = torch.rand(1, 300, 3, generator=torch.Generator().manual_seed(0))
     feats = torch.rand(1, 300, 2, generator=torch.Generator().manual_seed(1))
     idx = torch.randint(0, 300, (1, 8, 4), dtype=torch.int32,
@@ -305,8 +305,15 @@ def test_bn_free_grouped_training_raises():
     g = torch.cat([x[0, idx[0].long()] - x[0, :8, None], feats[0, idx[0].long()]], -1)
     torch.testing.assert_close(out[0], torch.relu(g @ m.w0 + m.b0).amax(1))
     m16 = tlayers.SharedMLP(5, (4,), bn=False, dtype=torch.bfloat16).train()
-    with pytest.raises(NotImplementedError, match="single-layer"):
-        m16(None, group_args=(x, feats, x[:, :8], idx, True))
+    fused, routed = tlayers.fused_group_mlp_max, []
+    monkeypatch.setattr(tlayers, "fused_group_mlp_max",
+                        lambda *a, **kw: routed.append(1) or fused(*a, **kw))
+    feats16 = feats.clone().requires_grad_(True)
+    out16 = m16(None, group_args=(x, feats16, x[:, :8], idx, True))
+    out16.sum().backward()
+    assert routed and feats16.grad is not None and m16.w0.grad is not None
+    want = torch.relu(g @ m16.w0.detach() + m16.b0.detach()).amax(1)
+    torch.testing.assert_close(out16[0].detach(), want, rtol=0, atol=2.0 ** -7 * want.abs().max())
 
 
 # -------------------------------------------------------------- optimizer
