@@ -1089,7 +1089,8 @@ def check_mlp_bwd():
 # (a name: that override list of pointrcnn_tpu_torch.entry)
 SHIPPED_CONFIGS = (("default.yaml", ()), ("people.yaml", ()), ("car_2x.yaml", ()),
                    ("default.yaml", ("RCNN.USE_RPN_FEATURES", "False")),
-                   ("default.yaml", "WIDE_OVERRIDES"), ("car_2x.yaml", "EXACT_OVERRIDES"))
+                   ("default.yaml", "WIDE_OVERRIDES"), ("car_2x.yaml", "EXACT_OVERRIDES"),
+                   ("default.yaml", "DEEP_K_OVERRIDES"))
 
 
 def _sa_stages(model, cfg):
@@ -1181,7 +1182,12 @@ def check_shipped_stages():
 # three layers (a resident plan of 128-row tiles), WIDE_OVERRIDES' RCNN SA2
 # (five layers up to 640 wide, K 128: the global plans, weights past shared
 # memory), a stack whose forward streams a layer while its backward takes the
-# global plan, and mode "none" (use_xyz False)
+# global plan, and mode "none" (use_xyz False); then the shapes of path K
+# (entry.DEEP_K_OVERRIDES: a centroid over 2, 4 or 8 tiles of 128 rows; K7
+# at 256 only, the TPU backward predicate's reach, the forward alone past
+# it), one layer at K 256, 17 and 40 layers (the layer table), and layer 0
+# past shared memory (1536 wide at K 64, 768 at K 128: the global plan's
+# gathered rows in its scratch)
 LIMIT_MLP_SHAPES = (
     ("one layer", 16, 128, 128, 32, 64, (128,), "hilo"),
     ("W RCNN SA1, one layer", 4 * 64, 512, 128, 128, 128, (128,), "fold"),
@@ -1190,6 +1196,19 @@ LIMIT_MLP_SHAPES = (
     ("use_xyz False", 16, 256, 64, 64, 32, (64, 128), "none"),
     ("RCNN SA2", 4 * 64, 128, 128, 32, 64, (128, 128, 256), "hilo"),
     ("W RCNN SA2, five layers", 4 * 64, 128, 128, 32, 128, (128, 256, 256, 512, 640), "hilo"),
+    ("K RCNN SA1", 4 * 64, 512, 128, 128, 256, (128, 128, 128), "fold"),
+    ("K 256 hilo", 64, 512, 128, 128, 256, (128, 128, 256), "hilo"),
+    ("K 256, one layer", 64, 512, 128, 128, 256, (128,), "fold"),
+    ("K 200, one layer", 64, 512, 128, 128, 200, (64,), "hilo"),
+    ("K RCNN SA2", 4 * 100, 128, 128, 32, 512, (128, 128, 256), "hilo"),
+    ("K 512 fold", 64, 256, 128, 32, 512, (128, 128, 128), "fold"),
+    ("K 1024 fold", 32, 512, 128, 32, 1024, (128, 128, 128), "fold"),
+    ("K 1024 hilo", 32, 512, 128, 32, 1024, (128, 128, 256), "hilo"),
+    ("17 layers", 16, 256, 32, 64, 32, (32,) * 16 + (64,), "hilo"),
+    ("40 layers", 8, 256, 16, 64, 16, (32,) * 40, "fold"),
+    ("wide layer 0", 16, 256, 64, 64, 64, (1536, 128), "hilo"),
+    ("wide layer 0, one layer", 16, 256, 64, 64, 64, (1536,), "fold"),
+    ("wide layer 0, K 128", 16, 256, 64, 32, 128, (768, 64), "fold"),
 )
 # the shapes whose K7 is held on exact data (_exact_mlp_case): on random data
 # the departure from the plain version compounds through the layers (five
@@ -1198,11 +1217,13 @@ LIMIT_MLP_SHAPES = (
 # 1.5e-3), past MLP_BWD_REL_TOL, calibrated on three-layer stacks.  It is
 # logged there, and K7 is held to the bound where both sides compute the
 # same activations
-LIMIT_EXACT_BWD = ("W RCNN SA2, five layers",)
+LIMIT_EXACT_BWD = ("W RCNN SA2, five layers", "K RCNN SA1", "K 256, one layer", "17 layers",
+                   "40 layers")
 # the shapes whose first plans keep activations or weights in shared memory
 # (resident, 128-row centroids, a streamed forward layer, the default RCNN
 # SA2): the global plan must give the same forward and per-row gradients
-LIMIT_PLAN_EQUAL = ("K 128, three layers", "streamed forward, global backward", "RCNN SA2")
+LIMIT_PLAN_EQUAL = ("K 128, three layers", "streamed forward, global backward", "RCNN SA2",
+                    "K RCNN SA1", "K 256, one layer", "K RCNN SA2", "K 1024 hilo", "17 layers")
 # K1 (name, B, N, npoint): car_2x's RPN SA1 in the exact setting (a cluster
 # of 2 blocks a row), rows for clusters of 4 and 8, and a row past a
 # cluster's reach (the global-memory kernel)
@@ -1279,6 +1300,7 @@ def check_port_limits():
     check_limit_fps(rows)
     check_limit_gather(rows)
     check_limit_mlp(rows)
+    check_limit_grid()
     return rows
 
 
@@ -1347,6 +1369,17 @@ def check_limit_mlp(rows):
         log(f"fused mlp {name} B={B} N={N} C={C} S={S} K={K} {widths} {mode}: max err {e:.3e} "
             f"(scale {scale:.3e}); kernel {k:.4f} ms, plain {p:.4f} ms, bound {b_ms:.4f} ms; "
             f"{_rate(ops_n, k, b_ms)}")
+        if cuda_mlp.padded_k(K) > cuda_mlp._MAX_KP_BWD:
+            # the TPU backward predicate refuses K past 256: the forward alone
+            if name in LIMIT_PLAN_EQUAL:
+                with cuda_mlp.global_plan():
+                    g_out = fwd()
+                if not torch.equal(g_out, out):
+                    raise AssertionError(f"fused mlp {name}: the global plan's forward differs")
+                log(f"fused mlp {name}: the global plan gives the same bits forward")
+                del g_out
+            del out
+            continue
         bwd = lambda: cuda_mlp._launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx_p, K, out, ct)
         got, again = bwd(), bwd()
         if not all(torch.equal(a, b) for (_, a), (_, b) in zip(_named(got), _named(again))):
@@ -1407,6 +1440,65 @@ def check_limit_mlp(rows):
             f"version's norm (tol {MLP_BWD_REL_TOL}); kernel {kb:.4f} ms, plain {pb:.4f} ms, "
             f"bound {bb_ms:.4f} ms")
         del got, again, out
+
+
+# the grid over which K2 and K7 must take every shape the TPU predicates
+# admit: K (padded to 16 .. 1024; 200 pads to 256), depth (layers of 32 after
+# layer 0) and layer 0's width, hilo and fold in turn, at B 2, N 64, S 8
+LIMIT_GRID_K = (16, 32, 64, 128, 200, 256, 512, 1024)
+LIMIT_GRID_DEPTH = (1, 2, 17, 40)
+LIMIT_GRID_F0 = (16, 144, 768, 1536)
+
+
+def check_limit_grid():
+    """Every (K, depth, width) of the grid that the TPU predicates admit
+    (``cuda_mlp.fused_group_mlp_max_supported`` / ``fused_group_bwd_supported``,
+    their twins) launches K2, and K7 where the backward predicate admits it:
+    the forward within MLP_REL_TOL of its plain version, K7 finite and
+    deterministic with no dropped tie.  A refusal fails the run."""
+    from pointrcnn_tpu_torch.ops import cuda_mlp
+
+    B, N, C, S = 2, 64, 16, 8
+    n_fwd = n_bwd = 0
+    worst = 0.0
+    t0 = time.perf_counter()
+    cuda_mlp.reset_nomatch()
+    for i, (K, depth, f0) in enumerate((K, d, f) for K in LIMIT_GRID_K for d in LIMIT_GRID_DEPTH
+                                       for f in LIMIT_GRID_F0):
+        widths = (f0,) + (32,) * (depth - 1)
+        mode = ("hilo", "fold")[i % 2]
+        feats, kidx = torch.empty((B, N, C)), torch.empty((B, S, K), dtype=torch.int32)
+        if not cuda_mlp.fused_group_mlp_max_supported(feats, kidx, torch.bfloat16):
+            continue
+        fold, xyz, idx, ops, ct = _limit_mlp_case(B, N, C, S, K, widths, mode, i)
+        table, cent, w0x, ws, bs = ops
+        what = f"fused mlp grid K={K} depth {depth} layer 0 {f0} {mode}"
+        try:
+            idx_p = cuda_mlp.pad_idx(idx, N)
+            out = cuda_mlp._launch(fold, table, xyz, cent, w0x, ws, bs, idx_p, checked=True)
+            ref = cuda_mlp.fused_group_plain(fold, table, xyz, cent, w0x, ws, bs, idx)
+            e, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+            if not (torch.isfinite(out).all() and e <= MLP_REL_TOL * max(scale, 1e-30)):
+                raise AssertionError(f"{what}: max err {e} vs scale {scale}")
+            worst = max(worst, e / max(scale, 1e-30))
+            n_fwd += 1
+            if cuda_mlp.fused_group_bwd_supported(feats, kidx):
+                bwd = lambda: cuda_mlp._launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx_p, K,
+                                                   out, ct)
+                got, again = bwd(), bwd()
+                if not all(torch.equal(a, b) and torch.isfinite(a).all()
+                           for (_, a), (_, b) in zip(_named(got), _named(again))):
+                    raise AssertionError(f"{what}: the backward is not finite or deterministic")
+                n_bwd += 1
+        except (ValueError, RuntimeError) as e:
+            raise AssertionError(f"{what}: refused or failed on the card: {e}") from e
+    torch.cuda.synchronize()
+    if cuda_mlp.nomatch_count():
+        raise AssertionError(f"fused mlp grid: {cuda_mlp.nomatch_count()} maxima found no match")
+    log(f"fused mlp grid: K {LIMIT_GRID_K} x depth {LIMIT_GRID_DEPTH} x layer 0 "
+        f"{LIMIT_GRID_F0}: every shape the TPU predicates admit taken, {n_fwd} forwards (worst "
+        f"{worst:.3e} of the output's scale) and {n_bwd} backwards (deterministic, no dropped "
+        f"tie); {time.perf_counter() - t0:.1f} s")
 
 
 def check_limit_fps(rows):
@@ -1941,17 +2033,18 @@ def phase_train(train_launches):
     return path
 
 
-def _rcnn_against_cpu(rpn_ckpt, cfg=None, tag="rcnn step"):
-    """A batch-1 rcnn step (of ``cfg``, default cfgs/default.yaml's) on the
-    card against the port's CPU path: the same weights, the same target
-    draws, and the card's RPN outputs handed to the CPU model (the RPN is
-    fixed, and its eval forward is held to the CPU path in phase_default)."""
+def _rcnn_against_cpu(rpn_ckpt, cfg=None, tag="rcnn step", batch_size=1):
+    """A rcnn step (of ``cfg``, default cfgs/default.yaml's; batch 1 unless
+    ``batch_size``) on the card against the port's CPU path: the same
+    weights, the same target draws, and the card's RPN outputs handed to the
+    CPU model (the RPN is fixed, and its eval forward is held to the CPU path
+    in phase_default)."""
     from pointrcnn_tpu_torch.entry import train_entry
     from pointrcnn_tpu_torch.models.target import target_draws
     from pointrcnn_tpu_torch.train.state import loss_and_grads
 
-    _, (state, batch) = train_entry(batch=1, device="cuda", seed=5, cfg=cfg, stage="rcnn",
-                                    rpn_ckpt=rpn_ckpt)
+    _, (state, batch) = train_entry(batch=batch_size, device="cuda", seed=5, cfg=cfg,
+                                    stage="rcnn", rpn_ckpt=rpn_ckpt)
     model, cfg = state.model, state.model.cfg
     cpu_model = copy.deepcopy(model).cpu()
     seen = {}
@@ -1961,7 +2054,7 @@ def _rcnn_against_cpu(rpn_ckpt, cfg=None, tag="rcnn step"):
         rpn_out = model.rpn(batch["pts_input"])
     model.rpn.forward = lambda pts, generator=None: dict(rpn_out)
     cpu_model.rpn.forward = lambda pts, generator=None: {k: v.cpu() for k, v in rpn_out.items()}
-    draws = target_draws(cfg, torch.Generator(device="cuda").manual_seed(11), 1,
+    draws = target_draws(cfg, torch.Generator(device="cuda").manual_seed(11), batch_size,
                          cfg.TRAIN.RPN_POST_NMS_TOP_N, device="cuda")
     gl, gtb, gg = loss_and_grads(model, cfg, batch, targets=draws)
     t0 = time.perf_counter()
@@ -1976,7 +2069,7 @@ def _rcnn_against_cpu(rpn_ckpt, cfg=None, tag="rcnn step"):
     e_loss, e_norm = abs(gl.item() / cl.item() - 1), abs(card_norm / gnorm - 1)
     share = max(float((gg[k].cpu() - g).norm()) / gnorm for k, g in cg.items()
                 if k.startswith("rcnn_net."))
-    log(f"{tag} vs cpu (batch 1, {int(gtb['rcnn_cls_fg'])} fg / {int(gtb['rcnn_cls_bg'])} bg "
+    log(f"{tag} vs cpu (batch {batch_size}, {int(gtb['rcnn_cls_fg'])} fg / {int(gtb['rcnn_cls_bg'])} bg "
         f"rois, same decisions): loss {gl.item():.6f} vs {cl.item():.6f} (rel {e_loss:.2e}, tol "
         f"{RCNN_LOSS_RTOL}), grad norm {card_norm:.6f} vs {gnorm:.6f} (rel {e_norm:.2e}, tol "
         f"{RCNN_GNORM_RTOL}), worst RCNN gradient leaf {share:.2e} of the global norm "
@@ -3132,6 +3225,35 @@ def phase_car_2x_exact(card):
                                   kernels, card)}
 
 
+# path K's rcnn step: RCNN SA2 (K 512) trains on the generic route (the TPU
+# backward predicate refuses it, on both sides), so K2 five a step (RPN SA3
+# and SA4, two radii each, and RCNN SA1) and K7 one (RCNN SA1)
+DEEP_K_RCNN_STEP_LAUNCHES = {**RCNN_STEP_LAUNCHES, "fused_group_mlp_max": 5,
+                             "fused_group_mlp_backward": 1}
+
+
+def phase_deep_k(card, rpn_ckpt):
+    """Path K: cfgs/default.yaml + DEEP_K_OVERRIDES (K2 at RCNN SA1, K 256,
+    and SA2, K 512; K7 at SA1) through the entry points: the eval forward at
+    batch 4 (frames/s, peak memory, a batch-1 forward against the CPU path)
+    and the rcnn step at batch 4 from the default RPN's checkpoint (ms/step,
+    peak memory, a batch-2 step against the CPU path) -> the launches (eval:
+    over the two forwards; rcnn_step: over the timed steps)."""
+    from pointrcnn_tpu_torch.entry import DEEP_K_OVERRIDES, default_config, shipped_config, \
+        train_entry
+
+    out = {"eval": _forward_path("K", default_config(DEEP_K_OVERRIDES), EVAL_KERNELS, card)}
+    rcnn_cfg = shipped_config("default", "rcnn", DEEP_K_OVERRIDES)
+    step, (state, batch) = train_entry(batch=RCNN_BATCH, device="cuda", seed=0, cfg=rcnn_cfg,
+                                       stage="rcnn", rpn_ckpt=rpn_ckpt)
+    state, out["rcnn_step"] = _timed_steps("K rcnn step", step, state, batch,
+                                           DEEP_K_RCNN_STEP_LAUNCHES, RCNN_TRAIN_KERNELS, card)
+    del step, state, batch
+    torch.cuda.empty_cache()
+    _rcnn_against_cpu(rpn_ckpt, rcnn_cfg, "K rcnn step", batch_size=2)
+    return out
+
+
 # the joint step's second scene: every gt box moved onto a proposal, as the
 # rcnn stage's scene, which leaves the RPN few foreground points (11 in
 # people.yaml's), and its gradients hang on those points' neighbourhoods.
@@ -3449,31 +3571,46 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     t0 = time.perf_counter()
+    # the script's own time after each phase, to see where it goes
+    mark = lambda what: log(f"chip_smoke: {what} done at {time.perf_counter() - t0:.1f} s")
     card = phase_card()
     phase_build()
+    mark("build")
     tallies = {"fps": check_fps(), "three_nn": check_knn(), "group_gather": check_gather(),
                "fused_group_mlp_max": check_mlp(), "gather_backward": check_gather_bwd(),
                "fused_group_mlp_backward": check_mlp_bwd()}
     tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
+    mark("kernel checks")
     check_shipped_stages()
+    mark("shipped stages")
     for name, shape_rows in check_port_limits().items():
         tallies[name].notes["limit_shapes"] = shape_rows
+    mark("port limits")
     launches, train_launches, rcnn_launches = {}, {}, {}
     fwd_ms = phase_default(launches)
     phase_exact()
+    mark("default and exact forwards")
     eval_cli_launches = phase_kitti_eval(launches, fwd_ms, card)
+    mark("eval CLI")
     ckpt = phase_train(train_launches)
+    mark("rpn step")
     try:
         phase_rcnn_train(rcnn_launches, ckpt)
         phase_no_rpn_features(launches, ckpt)
+        mark("rcnn step, no RPN features")
+        deep_k_launches = phase_deep_k(card, ckpt)
+        mark("path K")
     finally:
         shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
     try:
         train_cli_launches, rpn_ckpt, data_root, db = phase_train_cli(
             train_launches, rcnn_launches, card)
+        mark("train CLI")
         offline_launches = phase_offline(launches, data_root, rpn_ckpt, card)
+        mark("offline")
         torch.cuda.empty_cache()
         dp_launches = phase_data_parallel(data_root, db, card)
+        mark("data parallel")
     finally:
         shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
     try:
@@ -3481,8 +3618,10 @@ def main() -> int:
     finally:
         shutil.rmtree(CAR_2X_WORK_DIR, ignore_errors=True)
     people_launches = phase_people_joint(card)
+    mark("car_2x, people")
     wide_launches = phase_wide(card)
     car_2x_exact_launches = phase_car_2x_exact(card)
+    mark("paths W, X")
     # launches: the count of the eval forward's run, or for a kernel that
     # only a training stage runs, of that stage's run (the rpn stage's for
     # the gather backward, the rcnn stage's for the MLP backward);
@@ -3499,7 +3638,9 @@ def main() -> int:
     # step and the eval), the rpn step's world 1 and each world-2 rank (its steps);
     # wide_launches: path W's (WIDE_OVERRIDES) runs' (eval: two forwards at
     # batch 4; rpn_step, rcnn_step: their timed steps); car_2x_exact_launches:
-    # path X's two forwards at batch 4
+    # path X's two forwards at batch 4; deep_k_launches: path K's
+    # (DEEP_K_OVERRIDES) runs' (eval: two forwards at batch 4; rcnn_step: its
+    # timed steps)
     rows = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name] if name in EVAL_KERNELS else
              (train_launches[name] if name in TRAIN_KERNELS else rcnn_launches[name]),
@@ -3512,6 +3653,7 @@ def main() -> int:
              "data_parallel_launches": {run: c[name] for run, c in dp_launches.items()},
              "wide_launches": {run: c[name] for run, c in wide_launches.items()},
              "car_2x_exact_launches": car_2x_exact_launches["eval"][name],
+             "deep_k_launches": {run: c[name] for run, c in deep_k_launches.items()},
              **tallies[name].row()}
             for name, source, replaces in KERNELS]
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")

@@ -15,7 +15,9 @@ stride-class ball query, ``auto`` roipool), as ``bench.py`` runs it.
 FPS, exact ball query, exact roipool); every other value, 16384 points,
 all widths, bf16 compute and TEST 9000/100 @ 0.8, stays.
 :data:`WIDE_OVERRIDES` widens and deepens default.yaml's SA stacks to the
-shapes the fused kernels' wider plans exist for.
+shapes the fused kernels' wider plans exist for; :data:`DEEP_K_OVERRIDES`
+groups 256 and 512 neighbours at the RCNN's SA stages, past the kernels'
+128-row tiles.
 """
 
 from __future__ import annotations
@@ -61,6 +63,14 @@ WIDE_OVERRIDES = [
     "RPN.SA_CONFIG.MLPS", "[[[16, 16, 32], [32, 32, 64]], [[64, 64, 128], [64, 96, 128]], "
     "[[128, 196, 512], [128, 196, 512]], [[256, 256, 512], [256, 384, 512]]]",
 ]
+
+# the most neighbours the fused kernels take, on cfgs/default.yaml: RCNN SA1
+# groups 256 of its 512 pooled points (K2 forward and K7 backward: the TPU
+# predicates admit K up to 1024 forward, 256 backward), RCNN SA2 512 of SA1's
+# 128 centroids (the forward alone: its slots past the hits backfilled with
+# the first hit; in training it takes the generic route, as on the TPU); the
+# RCNN ball queries at kmax 256 and 512 take the rank route
+DEEP_K_OVERRIDES = ["RCNN.SA_CONFIG.NSAMPLE", "[256, 512, 64]"]
 
 # tools/train.py's --train_mode switches, and the joint step of a config as
 # shipped (the RPN and the RCNN trained together)

@@ -27,16 +27,18 @@ A one-layer stack maxes over layer 0's f32 activations (padded lanes
 included, then trimmed, as ``_trim_padded_lanes`` does); its backward splits
 the cotangent among layer 0's ties.
 
-What the kernels take: 1 to 16 layers, widths padded to 16 (any width the
-plans of ``csrc/mlp.cu`` fit: a global plan keeps the activations in global
-memory, so only the gathered rows of layer 0, 64 or 128 rows of F0P bf16,
-must fit shared memory), K up to 128 (padded to 16, 32, 64 or 128; a
-128-row centroid fills a tile).  What they refuse that the TPU predicates
-``fused_group_mlp_max_supported`` / ``fused_group_bwd_supported`` admit:
-K from 129 to 1024 (forward) or 256 (backward), more than 16 layers, and a
-layer 0 too wide for the gathered tile (past about 500 padded columns at
-K = 128, about 1000 below); no config reaches them.  The refusal is a
-``ValueError``.
+What the kernels take: every shape the TPU predicates
+``fused_group_mlp_max_supported`` / ``fused_group_bwd_supported`` admit, at
+any depth and width.  K is padded to a power of two from 16 up to 1024 in
+the forward (the TPU forward predicate's reach: a chunk of 8 centroids at
+``_MAX_ROWS``) and 256 in the backward (``_MAX_ROWS_BWD``); past 128 a
+centroid spans several 128-row tiles.  The per-layer widths and offsets go
+to the kernels as a layer table in device memory, the weights and biases
+concatenated, so a stack may be any depth; the kernels' global plan keeps
+every buffer whose size grows with the widths in global memory, so a layer
+may be any width.  The ``ValueError``s left are operand errors (device,
+dtype, shapes that do not match, alignment, indices out of range) and a K
+past those reaches, which the TPU predicates refuse too.
 
 The backward (``_pallas_bwd``) works on the same operands: it recomputes the
 forward, splits each output cotangent evenly among the tied maxima, and
@@ -70,10 +72,10 @@ _MAX_N = 2048
 _MAX_OH_CELLS = 1 << 22
 _FOLD_MIN_N = 256
 
-# the kernels take up to 128 neighbours (a centroid's rows in one tile) and
-# 1-16 layers
-_MAX_K = 128
-_MAX_LAYERS = 16
+# the kernels' reach in padded neighbours: the TPU predicates' (a chunk of 8
+# centroids at _MAX_ROWS forward, _MAX_ROWS_BWD backward)
+_MAX_KP = 1024
+_MAX_KP_BWD = 256
 
 # the backward's count of (b, s, channel) whose recomputed activations held
 # no value equal to the forward's maximum (a cotangent dropped): one int32
@@ -249,17 +251,33 @@ def fused_group_backward_plain(fold, table, xyz, cent, w0x, ws, bs, idx, out, ct
     return _scatter_rows(idx, _bf16(dz), N), dxyz, dcent, dw0x, dws, dbs
 
 
-def _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx):
+def padded_k(K: int) -> int:
+    """The kernels' neighbour count for K: a power of two, at least 16."""
+    kp = 16
+    while kp < K:
+        kp *= 2
+    return kp
+
+
+def check_shape(K: int, backward: bool = False) -> None:
+    """Refuse a neighbour count past the kernels' reach (``ValueError``): K
+    past 1024 forward or 256 backward, which the TPU predicates refuse too.
+    Depth and width have no limit."""
+    reach = _MAX_KP_BWD if backward else _MAX_KP
+    if padded_k(K) > reach:
+        raise ValueError(f"fused_group_mlp{' backward' if backward else ''}: K={K} past the "
+                         f"kernel's {reach}")
+
+
+def _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx, backward: bool = False):
+    """The shape checks first, then the device: a CPU operand of a shape the
+    kernels take fails only the device check."""
     B, N, f0p = table.shape
     S, K = idx.shape[1], idx.shape[2]
-    n_layers = 1 + len(ws)
-    if not 1 <= n_layers <= _MAX_LAYERS:
-        raise ValueError(f"fused_group_mlp: {n_layers} layers, kernel takes 1..{_MAX_LAYERS}")
-    if K > _MAX_K or idx.shape[0] != B:
-        raise ValueError(f"fused_group_mlp: idx {tuple(idx.shape)} (K <= {_MAX_K})")
-    tensors = [table, cent, idx, *ws, *bs] + ([] if fold else [xyz, w0x])
-    if not all(t.is_cuda and t.device == table.device for t in tensors):
-        raise ValueError("fused_group_mlp: all operands must be on one CUDA device")
+    check_shape(K, backward)
+    if idx.shape[0] != B or len(bs) != 1 + len(ws):
+        raise ValueError(f"fused_group_mlp: idx {tuple(idx.shape)} for table "
+                         f"{tuple(table.shape)}, {len(ws)} weights and {len(bs)} biases")
     cent_shape = (B, S, f0p) if fold else (B, S, 3)
     if table.dtype != torch.bfloat16 or cent.dtype != torch.float32 or cent.shape != cent_shape:
         raise ValueError(f"fused_group_mlp: need bf16 table and f32 cent {cent_shape}, got "
@@ -273,21 +291,24 @@ def _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx):
             raise ValueError(f"fused_group_mlp: layer weight {tuple(w.shape)} {w.dtype} "
                              f"after width {cin}")
         cin = w.shape[1]
+    if bs[0].shape != (f0p,) or any(b.dtype != torch.float32 for b in bs):
+        raise ValueError("fused_group_mlp: need f32 biases, the first (F0P,)")
+    tensors = [table, cent, idx, *ws, *bs] + ([] if fold else [xyz, w0x])
+    if not all(t.is_cuda and t.device == table.device for t in tensors):
+        raise ValueError("fused_group_mlp: all operands must be on one CUDA device")
 
 
 def pad_idx(idx, N: int):
     """Check the indices against [0, N) (a host sync) and pad K to the
     kernels' 16-row tile by repeating each row's first neighbour (a
     duplicate cannot change the max; the backward gives it no cotangent)
-    -> contiguous int32 (B, S, 16 | 32 | 64 | 128)."""
+    -> contiguous int32 (B, S, kp), kp a power of two from 16 to 1024."""
     B, S, K = idx.shape
     if idx.numel():
         lo, hi = (int(v) for v in torch.aminmax(idx))
         if lo < 0 or hi >= N:
             raise ValueError(f"fused_group_mlp: indices outside [0, {N})")
-    kp = 16
-    while kp < K:
-        kp *= 2
+    kp = padded_k(K)
     idx = idx.to(torch.int32)
     if kp != K:
         idx = torch.cat([idx, idx[..., :1].expand(B, S, kp - K)], dim=-1)
@@ -302,11 +323,15 @@ def _check_aligned(*tensors):
 
 
 def _layer_args(table, ws, bs):
+    """-> (n_layers, widths, the weights of layers 1.. back to back (bf16,
+    None for one layer), the biases back to back (f32), the widths as a C
+    array): the kernels read the layers from these two buffers and a layer
+    table, so a stack may be any depth."""
     n_layers = 1 + len(ws)
     widths = [table.shape[2]] + [w.shape[1] for w in ws]
-    w_ptrs = (ctypes.c_void_p * n_layers)(0, *[w.data_ptr() for w in ws])
-    b_ptrs = (ctypes.c_void_p * n_layers)(*[b.data_ptr() for b in bs])
-    return n_layers, widths, w_ptrs, b_ptrs, (ctypes.c_int * n_layers)(*widths)
+    w_all = torch.cat([w.reshape(-1) for w in ws]) if ws else None
+    b_all = torch.cat([b.reshape(-1) for b in bs])
+    return n_layers, widths, w_all, b_all, (ctypes.c_int * n_layers)(*widths)
 
 
 @functools.lru_cache(maxsize=None)
@@ -333,9 +358,7 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
     B, N, _ = table.shape
     S = idx.shape[1]
     table, cent = table.contiguous(), cent.contiguous()
-    ws = [w.contiguous() for w in ws]
-    bs = [b.contiguous() for b in bs]
-    n_layers, widths, w_ptrs, b_ptrs, c_widths = _layer_args(table, ws, bs)
+    n_layers, widths, w_all, b_all, c_widths = _layer_args(table, ws, bs)
     lib = _build.load("mlp", _build.NO_FMAD)
     fn = lib.fused_group_mlp_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -343,14 +366,14 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
     fn.restype = ctypes.c_int
     xyz_c = xyz.contiguous() if not fold else None
     w0x_c = w0x.contiguous() if not fold else None
-    _check_aligned(table, cent, *ws)
+    _check_aligned(table, cent)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     # the index check waits for the card: everything else is ready first, so
     # the launch follows it at once
     if not checked:
         idx = pad_idx(idx, N)
     kp = idx.shape[2]
-    # a 128-row centroid's two 64-row blocks max into a zeroed output
+    # a centroid over two or more 64-row blocks maxes into a zeroed output
     out = (torch.zeros if kp > 64 else torch.empty)((B, S, widths[-1]), dtype=torch.float32,
                                                     device=table.device)
     scratch_bytes = _scratch_bytes(int(fold), B, S, kp, tuple(widths), table.device.index)
@@ -360,8 +383,9 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
                if scratch_bytes else None)
     err = fn(int(fold), table.data_ptr(), 0 if fold else xyz_c.data_ptr(),
              cent.data_ptr(), 0 if fold else w0x_c.data_ptr(),
-             idx.data_ptr(), B, N, S, kp, n_layers, w_ptrs, b_ptrs, c_widths,
-             out.data_ptr(), scratch.data_ptr() if scratch_bytes else 0, scratch_bytes, stream)
+             idx.data_ptr(), B, N, S, kp, n_layers, w_all.data_ptr() if ws else 0,
+             b_all.data_ptr(), c_widths, out.data_ptr(),
+             scratch.data_ptr() if scratch_bytes else 0, scratch_bytes, stream)
     _build.check(err, "fused_group_mlp_launch")
     launches += 1
     return out
@@ -410,17 +434,14 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     from pointrcnn_tpu_torch import _build
 
     global bwd_launches
-    _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx)
+    _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx, backward=True)
     B, N, f0p = table.shape
     S, kp = idx.shape[1], idx.shape[2]
-    if idx.dtype != torch.int32 or not idx.is_contiguous() or kp not in (16, 32, 64, 128) or not \
-            1 <= K <= kp:
+    if idx.dtype != torch.int32 or not idx.is_contiguous() or kp != padded_k(K) or K < 1:
         raise ValueError(f"fused_group_mlp backward: idx {tuple(idx.shape)} {idx.dtype} "
                          f"with K={K} is not the forward's padded index")
     table, cent = table.contiguous(), cent.contiguous()
-    ws = [w.contiguous() for w in ws]
-    bs = [b.contiguous() for b in bs]
-    n_layers, widths, w_ptrs, b_ptrs, c_widths = _layer_args(table, ws, bs)
+    n_layers, widths, w_all, b_all, c_widths = _layer_args(table, ws, bs)
     cout = widths[-1]
     if out.shape != (B, S, cout) or ct.shape != (B, S, cout):
         raise ValueError(f"fused_group_mlp backward: out {tuple(out.shape)}, ct "
@@ -439,12 +460,17 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     scratch_bytes = ctypes.c_longlong(0)
     grid = grid_fn(int(fold), B, S, kp, n_layers, c_widths, ctypes.byref(scratch_bytes))
     if grid < 0:
-        raise ValueError(f"fused_group_mlp backward: widths {widths} at K={kp} do not fit "
-                         f"the kernel's shared memory")
-    _check_aligned(table, cent, *ws)
+        raise ValueError(f"fused_group_mlp backward: widths {widths} at K={kp} fit no plan of "
+                         f"the kernel")
+    _check_aligned(table, cent)
+    # past 128 neighbours a centroid spans two tiles: the count pass's tie
+    # counts, and each tile's dcent added into a zeroed one
+    span = kp > 128
     dtable = torch.empty((B, N, f0p), dtype=torch.float32, device=dev)
     dxyz = None if fold else torch.empty((B, N, 3), dtype=torch.float32, device=dev)
-    dcent = torch.empty((B, S, f0p if fold else 3), dtype=torch.float32, device=dev)
+    dcent = (torch.zeros if span else torch.empty)((B, S, f0p if fold else 3),
+                                                   dtype=torch.float32, device=dev)
+    cnt = torch.zeros((B, S, cout), dtype=torch.int32, device=dev) if span else None
     # bf16(dz_0) (and bf16(drel)) per (b, s, k) row, scattered onto the table
     # rows after the main kernel
     dz0 = torch.empty((B, S, kp, f0p), dtype=torch.bfloat16, device=dev)
@@ -455,16 +481,17 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     scratch = (torch.empty((scratch_bytes.value,), dtype=torch.uint8, device=dev)
                if scratch_bytes.value else None)
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(int(fold), table.data_ptr(), 0 if fold else xyz.contiguous().data_ptr(),
              cent.data_ptr(), 0 if fold else w0x.contiguous().data_ptr(), idx.data_ptr(),
-             B, N, S, kp, K, n_layers, w_ptrs, b_ptrs, c_widths, out.data_ptr(),
-             ct.data_ptr(), dz0.data_ptr(), 0 if fold else drel.data_ptr(), dtable.data_ptr(),
-             0 if fold else dxyz.data_ptr(), dcent.data_ptr(), part.data_ptr(), grid,
-             grads.data_ptr(), _nomatch_counter(dev).data_ptr(),
+             B, N, S, kp, K, n_layers, w_all.data_ptr() if ws else 0, b_all.data_ptr(),
+             c_widths, out.data_ptr(), ct.data_ptr(), dz0.data_ptr(),
+             0 if fold else drel.data_ptr(), dtable.data_ptr(), 0 if fold else dxyz.data_ptr(),
+             dcent.data_ptr(), part.data_ptr(), grid, grads.data_ptr(),
+             _nomatch_counter(dev).data_ptr(), cnt.data_ptr() if span else 0,
              scratch.data_ptr() if scratch is not None else 0, scratch_bytes.value, stream)
     _build.check(err, "fused_group_mlp_bwd_launch")
     bwd_launches += 1

@@ -47,11 +47,14 @@ def _chunks(new_xyz, B, N):
 def _first_k_in_order(d2: torch.Tensor, r2: float, nsample: int, N: int) -> torch.Tensor:
     """The exact method's selection: the first ``nsample`` in-radius points
     in point order, slots past the hit count repeating the first hit, an
-    all-zero row without hits."""
+    all-zero row without hits.  ``nsample`` may pass N (the RCNN's SA2 at
+    512 neighbours of 128 points): the slots past N are past the hit count."""
     order = torch.where(d2 < r2, torch.arange(N, device=d2.device, dtype=torch.int32), N)
     # the k smallest order keys, ascending: the first in-radius points
     # (values only, so no tie-break question arises)
-    vals = torch.topk(order, nsample, dim=-1, largest=False, sorted=True).values
+    vals = torch.topk(order, min(nsample, N), dim=-1, largest=False, sorted=True).values
+    if nsample > N:
+        vals = torch.cat([vals, vals.new_full((*vals.shape[:-1], nsample - N), N)], dim=-1)
     first = vals[..., :1]
     idx = torch.where(vals < N, vals, torch.clamp(first, max=N - 1))
     return torch.where(first >= N, 0, idx).to(torch.int32)

@@ -1,12 +1,13 @@
 """Where a training step's time goes on the card.
 
-    python3 -m pointrcnn_tpu_torch.profile_train [--stage rpn|rcnn]
+    python3 -m pointrcnn_tpu_torch.profile_train [--stage rpn|rcnn] [--overrides NAME]
 
 Drives the train step of :func:`pointrcnn_tpu_torch.entry.train_entry`:
 the ``rpn`` stage (``cfgs/default.yaml`` with ``RCNN.ENABLED`` False) at
 batch 16, or the ``rcnn`` stage (a fixed RPN, online proposals and targets)
-at batch 4, x 16384 points on a seeded scene and, after two warm-up steps,
-prints for 3 steps:
+at batch 4, x 16384 points on a seeded scene (``--overrides``: one of the
+entry module's override lists added, e.g. ``DEEP_K_OVERRIDES`` for path
+K) and, after two warm-up steps, prints for 3 steps:
 
 - the wall time of an unprofiled step (host clock around synchronised
   steps) and the peak device memory of a step;
@@ -32,6 +33,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from pointrcnn_tpu_torch import entry
 from pointrcnn_tpu_torch.entry import STAGES, train_entry
 from pointrcnn_tpu_torch.models import point_rcnn
 from pointrcnn_tpu_torch.profile_forward import _Spans, _self_device, _stages
@@ -50,14 +52,20 @@ def _rpn_stages(model):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", choices=sorted(STAGES), default="rpn")
-    stage = ap.parse_args().stage
-    BATCH = STAGES[stage][1]
+    ap.add_argument("--overrides", default=None,
+                    help="an override list of pointrcnn_tpu_torch.entry, e.g. DEEP_K_OVERRIDES")
+    args = ap.parse_args()
+    stage = args.stage
+    make_cfg, BATCH = STAGES[stage]
+    cfg = make_cfg(getattr(entry, args.overrides) if args.overrides else None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"{card}; {stage} train step, batch {BATCH}, {ITERS} steps")
-    step_fn, (state, batch) = train_entry(batch=BATCH, device="cuda", seed=0, stage=stage)
+    print(f"{card}; {stage} train step{' + ' + args.overrides if args.overrides else ''}, "
+          f"batch {BATCH}, {ITERS} steps")
+    step_fn, (state, batch) = train_entry(batch=BATCH, device="cuda", seed=0, cfg=cfg,
+                                          stage=stage)
     for _ in range(2):
         state, _ = step_fn(state, batch)
     torch.cuda.synchronize()

@@ -423,9 +423,12 @@ def jax_rank_route(xyz, new_xyz, radius, nsample, chunk=512):
     return jcommon.chunked_map(per_chunk_rank, new_xyz, chunk)
 
 
-@pytest.mark.parametrize("B,N,S,radius,k", [(8, 512, 128, 0.2, 64), (8, 128, 32, 0.4, 64)])
+@pytest.mark.parametrize("B,N,S,radius,k", [(8, 512, 128, 0.2, 64), (8, 128, 32, 0.4, 64),
+                                             (8, 512, 128, 0.2, 256), (8, 128, 32, 0.4, 512)])
 def test_rank_route_matches_jax_composition(B, N, S, radius, k):
-    """RCNN SA1/SA2 shapes (8 rois instead of 400): canonical-frame points."""
+    """RCNN SA1/SA2 shapes (8 rois instead of 400): canonical-frame points;
+    and path K's (``entry.DEEP_K_OVERRIDES``), SA2 with more slots than
+    points."""
     rng = np.random.RandomState(N)
     xyz = (rng.uniform(-1, 1, (B, N, 3)) * np.array([2.0, 1.0, 3.0])).astype(np.float32)
     new_xyz = xyz[:, :S].copy()
