@@ -21,8 +21,10 @@ import os
 import numpy as np
 import torch
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.models.point_rcnn import canonical_transform, num_classes_for
 from pointrcnn_tpu_torch.models.proposal import proposal_layer
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.ops.iou3d import boxes_iou3d
 from pointrcnn_tpu_torch.ops.nms import nms_bev
 from pointrcnn_tpu_torch.ops.roipool3d import roipool3d
@@ -115,15 +117,18 @@ def refine_postprocess(cfg, rois, roi_valid, rcnn_cls, rcnn_reg) -> dict:
         raw_scores = rcnn_cls.reshape(B, M)
         norm_scores = torch.sigmoid(raw_scores)
         pred_cls = torch.zeros((B, M), dtype=torch.int32, device=rois.device)
-        anchor = torch.as_tensor(cfg.CLS_MEAN_SIZE[0], device=rois.device)
+        # a copy from pageable host memory: the host waits for the stream
+        with counts.sync("postprocess.anchor"):
+            anchor = torch.as_tensor(cfg.CLS_MEAN_SIZE[0], device=rois.device)
     else:
         logits = rcnn_cls.reshape(B, M, n_cls)
         probs = torch.softmax(logits, dim=-1)
         pred_cls = torch.argmax(probs[..., 1:], dim=-1).to(torch.int32)
         norm_scores = torch.max(probs[..., 1:], dim=-1).values
         raw_scores = torch.max(torch.log_softmax(logits, dim=-1)[..., 1:], dim=-1).values
-        anchor = torch.as_tensor(np.asarray(cfg.CLS_MEAN_SIZE), device=rois.device)[
-            pred_cls.reshape(-1).long()]
+        with counts.sync("postprocess.anchor"):
+            anchors = torch.as_tensor(np.asarray(cfg.CLS_MEAN_SIZE), device=rois.device)
+        anchor = anchors[pred_cls.reshape(-1).long()]
 
     pred_boxes3d = decode_bbox_target(
         rois.reshape(-1, 7), rcnn_reg.reshape(B * M, -1),
@@ -150,6 +155,11 @@ def joint_postprocess(cfg, out: dict, gt_boxes3d=None) -> dict:
     body, eval_rcnn.py:459-630), on the two-stage TEST outputs ``out``:
     :func:`refine_postprocess`, and with ``gt_boxes3d`` each gt box's best
     3D IoU over the refined boxes and over the rois."""
+    with trace.span("eval.postprocess"):
+        return _joint_postprocess(cfg, out, gt_boxes3d)
+
+
+def _joint_postprocess(cfg, out: dict, gt_boxes3d=None) -> dict:
     rois = out["rois"]
     result = {
         "rois": rois,
@@ -172,6 +182,11 @@ def rpn_postprocess(cfg, mode: str, out: dict, gt_boxes3d=None) -> dict:
     eval_rcnn.py:113-253): an RPN-only model runs no proposal layer, so the
     step runs it (as the reference does, eval_rcnn.py:150); the seg mask,
     and with ``gt_boxes3d`` each gt box's best 3D IoU over the rois."""
+    with trace.span("eval.postprocess"):
+        return _rpn_postprocess(cfg, mode, out, gt_boxes3d)
+
+
+def _rpn_postprocess(cfg, mode: str, out: dict, gt_boxes3d=None) -> dict:
     if "rois" not in out:
         rois, roi_scores_raw, roi_valid = proposal_layer(
             cfg, mode, out["rpn_cls"][..., 0], out["rpn_reg"], out["backbone_xyz"])
@@ -196,7 +211,7 @@ def build_joint_eval_step(model, cfg, with_gt: bool):
     eval_rcnn.py:459-630)."""
 
     def step(pts_input, gt_boxes3d=None, gt_valid=None):
-        with torch.inference_mode():
+        with trace.span("eval.step"), torch.inference_mode():
             out = model({"pts_input": pts_input})
             return joint_postprocess(cfg, out, gt_boxes3d if with_gt else None)
 
@@ -208,7 +223,7 @@ def build_rpn_eval_step(model, cfg, with_gt: bool):
     (reference eval_one_epoch_rpn, eval_rcnn.py:113-253)."""
 
     def step(pts_input, gt_boxes3d=None):
-        with torch.inference_mode():
+        with trace.span("eval.step"), torch.inference_mode():
             out = model({"pts_input": pts_input})
             return rpn_postprocess(cfg, model.mode, out, gt_boxes3d if with_gt else None)
 
@@ -243,14 +258,17 @@ def build_rcnn_offline_eval_step(model, cfg, with_gt: bool):
 
     def step(rpn_xyz, rpn_features, rpn_intensity, seg_mask, pts_depth, rois, roi_valid,
              gt_boxes3d=None):
-        with torch.inference_mode():
+        with trace.span("eval.step"), torch.inference_mode():
             pts_input = rcnn_offline_inputs(cfg, rpn_xyz, rpn_features, rpn_intensity,
                                             seg_mask, pts_depth, rois)
             out = model({"pts_input": pts_input})
-            result = refine_postprocess(cfg, rois, roi_valid, out["rcnn_cls"], out["rcnn_reg"])
-            if with_gt and gt_boxes3d is not None:
-                iou = boxes_iou3d(result["pred_boxes3d"], gt_boxes3d)
-                result["gt_max_iou"] = torch.where(roi_valid[..., None], iou, 0.0).max(dim=1).values
+            with trace.span("eval.postprocess"):
+                result = refine_postprocess(cfg, rois, roi_valid, out["rcnn_cls"],
+                                            out["rcnn_reg"])
+                if with_gt and gt_boxes3d is not None:
+                    iou = boxes_iou3d(result["pred_boxes3d"], gt_boxes3d)
+                    result["gt_max_iou"] = torch.where(roi_valid[..., None], iou,
+                                                       0.0).max(dim=1).values
             return result
 
     return step

@@ -32,6 +32,7 @@ import math
 import torch
 from torch import nn
 
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.ops.cuda_mlp import (
     fold_geometry_profitable,
     fused_group_bwd_supported,
@@ -152,7 +153,9 @@ class BatchNorm(nn.Module):
         else:
             mean, var, n = batch_stats(x)
             with torch.no_grad():
-                m = torch.tensor(self.momentum, dtype=torch.float32, device=x.device)
+                # a copy from pageable host memory: the host waits for the stream
+                with counts.sync("bn.momentum"):
+                    m = torch.tensor(self.momentum, dtype=torch.float32, device=x.device)
                 unbiased = var * (n / max(n - 1, 1))
                 self.mean.copy_((1 - m) * self.mean + m * mean)
                 self.var.copy_((1 - m) * self.var + m * unbiased)
@@ -281,7 +284,8 @@ class SharedMLP(nn.Module):
                 # before the n / (n - 1) factor (its BatchNorm takes the
                 # factor first)
                 with torch.no_grad():
-                    m = torch.tensor(self.momentum, dtype=torch.float32, device=y.device)
+                    with counts.sync("bn.momentum"):
+                        m = torch.tensor(self.momentum, dtype=torch.float32, device=y.device)
                     mean_v, var_v = getattr(self, f"bn{i}_mean"), getattr(self, f"bn{i}_var")
                     mean_v.copy_((1 - m) * mean_v + m * mean)
                     var_v.copy_((1 - m) * var_v + m * var * (n / max(n - 1, 1)))

@@ -12,6 +12,7 @@ import contextlib
 import torch
 from torch import nn
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.models.proposal import proposal_layer
 from pointrcnn_tpu_torch.models.rcnn import RCNNNet
 from pointrcnn_tpu_torch.models.rpn import RPN
@@ -21,9 +22,9 @@ from pointrcnn_tpu_torch.ops.roipool3d import roipool3d
 from pointrcnn_tpu_torch.utils.box_ops import rotate_pc_along_y
 
 
-# the context around the target layer in the forward (a profiler range, as
-# ``train.state.phase``; ``profile_train`` swaps in a timed one)
-phase = torch.profiler.record_function
+# the context around the target layer in the forward ("targets"): a span of
+# the trace, as ``train.state.phase``; looked up at call time
+phase = trace.span
 
 
 def canonical_transform(pooled_pts, rois):

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.models.layers import SharedMLP
 from pointrcnn_tpu_torch.ops import cuda_ballquery
 from pointrcnn_tpu_torch.ops.common import gather_points
@@ -133,10 +134,13 @@ class Pointnet2MSG(nn.Module):
         features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
         l_xyz, l_features = [xyz], [features]
         for k in range(self.n_sa):
-            li_xyz, li_feat = getattr(self, f"SetAbstractionMSG_{k}")(l_xyz[k], l_features[k])
+            with trace.span(f"pointnet2.SA{k + 1}"):
+                li_xyz, li_feat = getattr(self, f"SetAbstractionMSG_{k}")(l_xyz[k],
+                                                                          l_features[k])
             l_xyz.append(li_xyz)
             l_features.append(li_feat)
         for j, i in enumerate(range(-1, -(self.n_fp + 1), -1)):
-            l_features[i - 1] = getattr(self, f"FeaturePropagation_{j}")(
-                l_xyz[i - 1], l_xyz[i], l_features[i - 1], l_features[i])
+            with trace.span(f"pointnet2.FP{j + 1}"):
+                l_features[i - 1] = getattr(self, f"FeaturePropagation_{j}")(
+                    l_xyz[i - 1], l_xyz[i], l_features[i - 1], l_features[i])
         return l_xyz[0], l_features[0]

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.ops.common import argsort_desc
 from pointrcnn_tpu_torch.ops.nms import nms_bev
 from pointrcnn_tpu_torch.utils.box_coder import decode_bbox_target
@@ -43,7 +45,9 @@ def _zone2_with_fallback(proposals, scores, pre1):
     mask1 = (dist > NMS_RANGES[0]) & (dist <= NMS_RANGES[1])
     mask2 = (dist > NMS_RANGES[1]) & (dist <= NMS_RANGES[2])
     has2 = mask2.any(dim=1)
-    if bool(has2.all()):
+    with counts.sync("proposal.zone2"):
+        all2 = bool(has2.all())
+    if all2:
         return mask1, mask2
     order = argsort_desc(scores)
     m1_sorted = torch.gather(mask1, 1, order)
@@ -57,9 +61,16 @@ def proposal_layer(cfg, mode: str, rpn_scores, rpn_reg, xyz):
     """:param rpn_scores: (B, N) raw logits; rpn_reg: (B, N, C); xyz: (B, N, 3)
     :return: (rois (B, M, 7), roi_scores_raw (B, M), roi_valid (B, M)),
         M = cfg[mode].RPN_POST_NMS_TOP_N."""
+    with trace.span("models.proposal"):
+        return _proposals(cfg, mode, rpn_scores, rpn_reg, xyz)
+
+
+def _proposals(cfg, mode: str, rpn_scores, rpn_reg, xyz):
     B, N = rpn_scores.shape
     mc = cfg[mode]
-    anchor = torch.as_tensor(cfg.CLS_MEAN_SIZE[0], device=xyz.device)
+    # a copy from pageable host memory: the host waits for the stream
+    with counts.sync("proposal.anchor"):
+        anchor = torch.as_tensor(cfg.CLS_MEAN_SIZE[0], device=xyz.device)
     p = decode_bbox_target(
         xyz.reshape(-1, 3), rpn_reg.reshape(-1, rpn_reg.shape[-1]),
         loc_scope=cfg.RPN.LOC_SCOPE, loc_bin_size=cfg.RPN.LOC_BIN_SIZE,

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.models.layers import HeadMLP, SharedMLP, final_layer_init, xavier_normal
 from pointrcnn_tpu_torch.models.pointnet2 import SetAbstraction
 from pointrcnn_tpu_torch.models.rpn import compute_dtype
@@ -64,15 +65,16 @@ class RCNNNet(nn.Module):
         training the SA stacks take the fused kernels in both directions
         where admitted (BN-free), and ``generator`` draws the heads' dropout
         masks (``RCNN.DP_RATIO``)."""
-        xyz = pts_input[..., 0:3].contiguous()
-        if self.use_rpn_features:
-            xyz_feature = self.xyz_up_layer(pts_input[..., 0:self.in_ch])
-            merged = torch.cat([xyz_feature, pts_input[..., self.in_ch:]], dim=-1)
-            features = self.merge_down_layer(merged)
-        else:
-            features = pts_input[..., 3:].contiguous() if pts_input.shape[-1] > 3 else None
-        l_xyz, l_features = xyz, features
-        for k in range(self.n_sa):
-            l_xyz, l_features = getattr(self, f"SetAbstraction_{k}")(l_xyz, l_features)
-        return {"rcnn_cls": self.cls_head(l_features, generator)[:, 0, :],
-                "rcnn_reg": self.reg_head(l_features, generator)[:, 0, :]}
+        with trace.span("models.rcnn"):
+            xyz = pts_input[..., 0:3].contiguous()
+            if self.use_rpn_features:
+                xyz_feature = self.xyz_up_layer(pts_input[..., 0:self.in_ch])
+                merged = torch.cat([xyz_feature, pts_input[..., self.in_ch:]], dim=-1)
+                features = self.merge_down_layer(merged)
+            else:
+                features = pts_input[..., 3:].contiguous() if pts_input.shape[-1] > 3 else None
+            l_xyz, l_features = xyz, features
+            for k in range(self.n_sa):
+                l_xyz, l_features = getattr(self, f"SetAbstraction_{k}")(l_xyz, l_features)
+            return {"rcnn_cls": self.cls_head(l_features, generator)[:, 0, :],
+                    "rcnn_reg": self.reg_head(l_features, generator)[:, 0, :]}

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.models.layers import HeadMLP, final_layer_init, lecun_uniform
 from pointrcnn_tpu_torch.models.pointnet2 import Pointnet2MSG
 from pointrcnn_tpu_torch.utils.box_coder import reg_channel_count
@@ -44,10 +45,11 @@ class RPN(nn.Module):
 
     def forward(self, pts_input, generator: torch.Generator | None = None):
         """``generator`` draws the heads' dropout masks in training."""
-        xyz, feats = self.Pointnet2MSG_0(pts_input)
-        return {
-            "rpn_cls": self.cls_head(feats, generator),
-            "rpn_reg": self.reg_head(feats, generator),
-            "backbone_xyz": xyz,
-            "backbone_features": feats,
-        }
+        with trace.span("models.rpn"):
+            xyz, feats = self.Pointnet2MSG_0(pts_input)
+            return {
+                "rpn_cls": self.cls_head(feats, generator),
+                "rpn_reg": self.reg_head(feats, generator),
+                "backbone_xyz": xyz,
+                "backbone_features": feats,
+            }

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.ops.iou3d import boxes_iou3d, boxes_iou3d_paired
 from pointrcnn_tpu_torch.ops.roipool3d import roipool3d
 from pointrcnn_tpu_torch.parallel import mesh
@@ -91,13 +92,19 @@ def random_aug_box3d(boxes, pos_u, hwl_u, ang_u, scheme, method: str):
         hwl = (hwl_u - 0.5) / (0.5 / 0.15) + 1.0
         ang = (ang_u - 0.5) / (0.5 / (np.pi / 12))
     elif method == "multiple":
-        ranges = torch.as_tensor(_MULTI_RANGES, device=boxes.device)[scheme]  # (..., 3)
+        # a copy from pageable host memory: the host waits for the stream
+        with counts.sync("target.jitter"):
+            ranges = torch.as_tensor(_MULTI_RANGES, device=boxes.device)
+        ranges = ranges[scheme]  # (..., 3)
         pos = ((pos_u - 0.5) / 0.5) * ranges[..., 0:1]
         hwl = ((hwl_u - 0.5) / 0.5) * ranges[..., 1:2] + 1.0
         ang = ((ang_u - 0.5) / 0.5) * ranges[..., 2:3]
     elif method == "normal":
-        pos = pos_u * torch.tensor([0.3, 0.2, 0.3], device=boxes.device)
-        hwl_shift = hwl_u * torch.tensor([0.25, 0.15, 0.5], device=boxes.device)
+        with counts.sync("target.jitter", reads=2):
+            pos_scale = torch.tensor([0.3, 0.2, 0.3], device=boxes.device)
+            hwl_scale = torch.tensor([0.25, 0.15, 0.5], device=boxes.device)
+        pos = pos_u * pos_scale
+        hwl_shift = hwl_u * hwl_scale
         ang = ((ang_u - 0.5) / 0.5) * (np.pi / 12)
         return torch.cat([boxes[..., 0:3] + pos, boxes[..., 3:6] + hwl_shift,
                           boxes[..., 6:7] + ang], dim=-1)

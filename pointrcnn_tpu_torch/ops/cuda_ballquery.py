@@ -29,6 +29,7 @@ import functools
 
 import torch
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.ops.common import radius_sq, sm_count
 
 launches = 0  # full-scan kernel
@@ -276,10 +277,11 @@ def _launch(xyz, cent, kmax: int, emit_rel: bool = False, shape_plan=None):
     dist2, idx, rel = _out(B, S, kmax, emit_rel, xyz.device)
     u, warps = plan(B, S, sm_count(xyz.device)) if shape_plan is None else shape_plan
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    _build.check(_kernels()[0](xyz.data_ptr(), cent.data_ptr(), B, N, S, pick_w(N), kmax, u,
-                               warps, dist2.data_ptr(), idx.data_ptr(),
-                               0 if rel is None else rel.data_ptr(), stream),
-                 "ball_query_launch")
+    with trace.span("ball_query"):
+        _build.check(_kernels()[0](xyz.data_ptr(), cent.data_ptr(), B, N, S, pick_w(N), kmax,
+                                   u, warps, dist2.data_ptr(), idx.data_ptr(),
+                                   0 if rel is None else rel.data_ptr(), stream),
+                     "ball_query_launch")
     launches += 1
     return (dist2, idx, rel) if emit_rel else (dist2, idx)
 
@@ -298,11 +300,11 @@ def _launch_banded(xs, cent, kmax: int, n_bands: int, bands_ok, shape_plan=None)
     cpb = S // n_bands
     u, warps = plan(B, S, sm_count(xs.device), cpb) if shape_plan is None else shape_plan
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    _build.check(_kernels()[1](xs.data_ptr(), cent.data_ptr(), bands_ok.data_ptr(), B, N, S,
-                               n_bands,
-                               pick_w(N // n_bands), pick_w(N), kmax, u, warps,
-                               dist2.data_ptr(), idx.data_ptr(), rel.data_ptr(), stream),
-                 "ball_query_banded_launch")
+    with trace.span("ball_query_banded"):
+        _build.check(_kernels()[1](xs.data_ptr(), cent.data_ptr(), bands_ok.data_ptr(), B, N,
+                                   S, n_bands, pick_w(N // n_bands), pick_w(N), kmax, u, warps,
+                                   dist2.data_ptr(), idx.data_ptr(), rel.data_ptr(), stream),
+                     "ball_query_banded_launch")
     banded_launches += 1
     return dist2, idx, rel
 

@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.ops.common import sm_count
 
 # most points per row whose xyz stays in one block's shared memory (1024
@@ -115,13 +116,15 @@ def _launch(xyz: torch.Tensor, npoint: int,
     if N > MAX_N:
         # the running minima of a row past a cluster's reach
         mind = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
-        _build.check(_wide_kernel()(xyz.data_ptr(), B, N, npoint, out.data_ptr(),
-                                    mind.data_ptr(), stream), "fps_wide_launch")
+        with trace.span("fps"):
+            _build.check(_wide_kernel()(xyz.data_ptr(), B, N, npoint, out.data_ptr(),
+                                        mind.data_ptr(), stream), "fps_wide_launch")
         launches += 1
         return out
     wpr, rpb = plan(B, N, sm_count(xyz.device)) if shape_plan is None else shape_plan
-    _build.check(_kernel()(xyz.data_ptr(), B, N, npoint, out.data_ptr(), wpr, rpb, stream),
-                 "fps_launch")
+    with trace.span("fps"):
+        _build.check(_kernel()(xyz.data_ptr(), B, N, npoint, out.data_ptr(), wpr, rpb, stream),
+                     "fps_launch")
     launches += 1
     return out
 

@@ -37,6 +37,7 @@ import functools
 
 import torch
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.ops.common import gather_points, split_hilo
 
 launches = 0
@@ -142,9 +143,10 @@ def _launch(xyz, features, new_xyz, idx):
     out = torch.empty((B, S, K, 3 + C), dtype=torch.bfloat16, device=xyz.device)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
     fwd = _kernels()[0]
-    _build.check(fwd(xyz.data_ptr(), feats.data_ptr(), int(feats.dtype == torch.bfloat16),
-                     cent.data_ptr(), idx.data_ptr(), B, N, S, K, C, out.data_ptr(), stream),
-                 "group_gather_launch")
+    with trace.span("group_gather"):
+        _build.check(fwd(xyz.data_ptr(), feats.data_ptr(), int(feats.dtype == torch.bfloat16),
+                         cent.data_ptr(), idx.data_ptr(), B, N, S, K, C, out.data_ptr(),
+                         stream), "group_gather_launch")
     launches += 1
     return out
 
@@ -167,8 +169,10 @@ def _launch_bwd(idx, ct, N: int):
     work = torch.empty(_workspace_ints(B, N, S, K, cout), dtype=torch.int32, device=ct.device)
     stream = torch.cuda.current_stream(ct.device).cuda_stream
     bwd = _kernels()[1]
-    _build.check(bwd(idx.data_ptr(), ctb.data_ptr(), B, N, S, K, cout, work.data_ptr(),
-                     dtable.data_ptr(), dcent.data_ptr(), stream), "group_gather_bwd_launch")
+    with trace.span("gather_backward"):
+        _build.check(bwd(idx.data_ptr(), ctb.data_ptr(), B, N, S, K, cout, work.data_ptr(),
+                         dtable.data_ptr(), dcent.data_ptr(), stream),
+                     "group_gather_bwd_launch")
     bwd_launches += 1
     return dtable, dcent
 

@@ -14,6 +14,7 @@ import functools
 
 import torch
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.ops.common import sm_count, sqrt_rn
 
 launches = 0
@@ -99,8 +100,9 @@ def _launch(unknown: torch.Tensor, known: torch.Tensor,
     idx = torch.empty((B, n, 3), dtype=torch.int32, device=unknown.device)
     u, g = plan(B, n, sm_count(unknown.device)) if shape_plan is None else shape_plan
     stream = torch.cuda.current_stream(unknown.device).cuda_stream
-    _build.check(_kernel()(unknown.data_ptr(), known.data_ptr(), B, n, m,
-                           dist.data_ptr(), idx.data_ptr(), u, g, stream), "three_nn_launch")
+    with trace.span("three_nn"):
+        _build.check(_kernel()(unknown.data_ptr(), known.data_ptr(), B, n, m,
+                               dist.data_ptr(), idx.data_ptr(), u, g, stream), "three_nn_launch")
     launches += 1
     return dist, idx
 

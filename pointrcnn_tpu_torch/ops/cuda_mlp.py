@@ -58,6 +58,8 @@ import functools
 
 import torch
 
+from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.ops.common import gather_points, split_hilo
 
 launches = 0
@@ -305,7 +307,9 @@ def pad_idx(idx, N: int):
     -> contiguous int32 (B, S, kp), kp a power of two from 16 to 1024."""
     B, S, K = idx.shape
     if idx.numel():
-        lo, hi = (int(v) for v in torch.aminmax(idx))
+        lo, hi = torch.aminmax(idx)
+        with counts.sync("mlp.index_check", reads=2):
+            lo, hi = int(lo), int(hi)
         if lo < 0 or hi >= N:
             raise ValueError(f"fused_group_mlp: indices outside [0, {N})")
     kp = padded_k(K)
@@ -381,11 +385,12 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
         raise ValueError(f"fused_group_mlp: widths {widths} at K={kp} fit no plan of the kernel")
     scratch = (torch.empty((scratch_bytes,), dtype=torch.uint8, device=table.device)
                if scratch_bytes else None)
-    err = fn(int(fold), table.data_ptr(), 0 if fold else xyz_c.data_ptr(),
-             cent.data_ptr(), 0 if fold else w0x_c.data_ptr(),
-             idx.data_ptr(), B, N, S, kp, n_layers, w_all.data_ptr() if ws else 0,
-             b_all.data_ptr(), c_widths, out.data_ptr(),
-             scratch.data_ptr() if scratch_bytes else 0, scratch_bytes, stream)
+    with trace.span("fused_group_mlp_max"):
+        err = fn(int(fold), table.data_ptr(), 0 if fold else xyz_c.data_ptr(),
+                 cent.data_ptr(), 0 if fold else w0x_c.data_ptr(),
+                 idx.data_ptr(), B, N, S, kp, n_layers, w_all.data_ptr() if ws else 0,
+                 b_all.data_ptr(), c_widths, out.data_ptr(),
+                 scratch.data_ptr() if scratch_bytes else 0, scratch_bytes, stream)
     _build.check(err, "fused_group_mlp_launch")
     launches += 1
     return out
@@ -485,14 +490,18 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
                    + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(int(fold), table.data_ptr(), 0 if fold else xyz.contiguous().data_ptr(),
-             cent.data_ptr(), 0 if fold else w0x.contiguous().data_ptr(), idx.data_ptr(),
-             B, N, S, kp, K, n_layers, w_all.data_ptr() if ws else 0, b_all.data_ptr(),
-             c_widths, out.data_ptr(), ct.data_ptr(), dz0.data_ptr(),
-             0 if fold else drel.data_ptr(), dtable.data_ptr(), 0 if fold else dxyz.data_ptr(),
-             dcent.data_ptr(), part.data_ptr(), grid, grads.data_ptr(),
-             _nomatch_counter(dev).data_ptr(), cnt.data_ptr() if span else 0,
-             scratch.data_ptr() if scratch is not None else 0, scratch_bytes.value, stream)
+    xyz_c = None if fold else xyz.contiguous()
+    w0x_c = None if fold else w0x.contiguous()
+    with trace.span("fused_group_mlp_backward"):
+        err = fn(int(fold), table.data_ptr(), 0 if fold else xyz_c.data_ptr(),
+                 cent.data_ptr(), 0 if fold else w0x_c.data_ptr(), idx.data_ptr(),
+                 B, N, S, kp, K, n_layers, w_all.data_ptr() if ws else 0, b_all.data_ptr(),
+                 c_widths, out.data_ptr(), ct.data_ptr(), dz0.data_ptr(),
+                 0 if fold else drel.data_ptr(), dtable.data_ptr(),
+                 0 if fold else dxyz.data_ptr(), dcent.data_ptr(), part.data_ptr(), grid,
+                 grads.data_ptr(), _nomatch_counter(dev).data_ptr(),
+                 cnt.data_ptr() if span else 0,
+                 scratch.data_ptr() if scratch is not None else 0, scratch_bytes.value, stream)
     _build.check(err, "fused_group_mlp_bwd_launch")
     bwd_launches += 1
     # the partial layout of csrc/mlp.cu (grad_layout)

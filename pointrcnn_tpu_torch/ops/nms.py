@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.ops.common import argsort_desc
 from pointrcnn_tpu_torch.ops.iou3d import aligned_iou_bev, boxes_iou_bev
 
@@ -17,13 +19,16 @@ def greedy_suppress(over_thresh: torch.Tensor) -> torch.Tensor:
     ``kept[j] = not any(over[i, j] and kept[i] for i < j)``: Jacobi
     iteration from all-kept until two iterates agree (at most K steps).
     One test a step stops every matrix of the batch: a matrix at its
-    fixpoint keeps it, so each gets what it would alone."""
+    fixpoint keeps it, so each gets what it would alone.  Each test reads
+    the card (the host sync ``nms.jacobi``)."""
     K = over_thresh.shape[-1]
     O = torch.triu(over_thresh, diagonal=1)
     kept = torch.ones(over_thresh.shape[:-1], dtype=torch.bool, device=over_thresh.device)
     for _ in range(K):
         nxt = ~(O & kept[..., :, None]).any(dim=-2)
-        if torch.equal(nxt, kept):
+        with counts.sync("nms.jacobi"):
+            done = torch.equal(nxt, kept)
+        if done:
             break
         kept = nxt
     return kept
@@ -40,6 +45,11 @@ def nms_bev(boxes_bev, scores, thresh: float, pre_max: int, post_max: int,
         into the input order of the first ``post_max`` survivors in score
         order; padded slots point at index 0.
     """
+    with trace.span("ops.nms"):
+        return _nms(boxes_bev, scores, thresh, pre_max, post_max, rotated, valid)
+
+
+def _nms(boxes_bev, scores, thresh, pre_max, post_max, rotated, valid):
     n = boxes_bev.shape[-2]
     pre = min(pre_max, n)
     if valid is not None:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.ops.common import gather_points
 from pointrcnn_tpu_torch.utils.box_ops import enlarge_box3d, points_in_boxes3d
 
@@ -23,6 +24,11 @@ def roipool3d(xyz, features, boxes3d, extra_width: float, num_sampled: int,
         pooled xyz in the original frame."""
     if method not in ("auto", "exact", "approx"):
         raise ValueError(f"roipool3d method must be 'auto'|'exact'|'approx', got {method!r}")
+    with trace.span("ops.roipool3d"):
+        return _pool(xyz, features, boxes3d, extra_width, num_sampled)
+
+
+def _pool(xyz, features, boxes3d, extra_width: float, num_sampled: int):
     B, N, _ = xyz.shape
     mask = points_in_boxes3d(xyz, enlarge_box3d(boxes3d, extra_width))  # (B, M, N)
     order = torch.where(mask, torch.arange(N, device=xyz.device, dtype=torch.int32), N)

@@ -8,12 +8,14 @@ seeded cloud and, after two warm-up forwards, prints for 3 forwards:
 
 - the wall time of an unprofiled forward (host clock around synchronised
   forwards);
-- per stage (RPN SA/FP stages and heads, proposal layer, RoI pooling, RCNN
-  SA stages and the rest), the device span between CUDA events recorded
-  before and after it, and the device time of the PyTorch ops' kernels it
-  launched (``torch.profiler`` range totals; the port's own kernels,
-  launched through ``ctypes``, belong to no op and count only in the
-  span);
+- per span of the program's trace (:mod:`pointrcnn_tpu_torch.trace`: the
+  RPN and its SA/FP stages, the proposal layer and its NMS, RoI pooling,
+  the RCNN, each hand-written kernel's launch), its device time between
+  the span's CUDA events, its host time, its calls, and the device time of
+  the PyTorch ops' kernels it launched (``torch.profiler`` range totals;
+  the port's own kernels, launched through ``ctypes``, belong to no op and
+  count only in their launch spans);
+- the host syncs by site (``ops.counts``);
 - the kernels by device time, and the device's busy time and idle share
   of the profiled forward.
 
@@ -23,79 +25,40 @@ Every time is per forward, on the card named in the first line.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import subprocess
 import time
 from collections import defaultdict
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.entry import entry, forward, slice_config
-from pointrcnn_tpu_torch.models import point_rcnn
+from pointrcnn_tpu_torch.ops import counts
 
 BATCH = 4
 ITERS = 3
 
 
-def _stages(model):
-    """(name, module) for every stage module of the forward."""
-    net = model.rpn.Pointnet2MSG_0
-    out = [(f"rpn SA{k + 1}", getattr(net, f"SetAbstractionMSG_{k}")) for k in range(net.n_sa)]
-    out += [(f"rpn FP{j + 1}", getattr(net, f"FeaturePropagation_{j}")) for j in range(net.n_fp)]
-    out += [("rpn heads", model.rpn.cls_head), ("rpn heads", model.rpn.reg_head)]
-    rc = model.rcnn_net
-    out += [(f"rcnn SA{k + 1}", getattr(rc, f"SetAbstraction_{k}")) for k in range(3)]
-    out += [("rcnn rest", m) for m in (rc.xyz_up_layer, rc.merge_down_layer, rc.cls_head,
-                                       rc.reg_head)]
-    return out
+def span_table(records, iters: int) -> dict:
+    """{span name: (device ms, host ms, calls)} per iteration, from the
+    trace's records."""
+    out = defaultdict(lambda: [0.0, 0.0, 0])
+    for r in records:
+        row = out[r.name]
+        row[0] += r.device_ms() or 0.0
+        row[1] += (r.host_end_ns - r.host_start_ns) / 1e6
+        row[2] += 1
+    return {n: (d / iters, h / iters, c / iters) for n, (d, h, c) in out.items()}
 
 
-class _Spans:
-    """A record_function range and a pair of CUDA events around each call of
-    each stage (default: every stage of the eval forward); ``ms()`` sums the
-    event spans per stage name."""
-
-    def __init__(self, model, stages=None):
-        self.events = defaultdict(list)
-        self._open = []
-        for name, mod in stages if stages is not None else _stages(model):
-            mod.register_forward_pre_hook(lambda m, a, name=name: self.enter(name))
-            mod.register_forward_hook(lambda m, a, o: self.exit())
-        for fn in ("proposal_layer", "roipool3d"):
-            orig = getattr(point_rcnn, fn)
-
-            def wrapped(*a, _orig=orig, _name=fn.replace("_", " "), **kw):
-                with self.span(_name):
-                    return _orig(*a, **kw)
-
-            setattr(point_rcnn, fn, wrapped)
-
-    def enter(self, name):
-        rf = record_function(name)
-        rf.__enter__()
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        self._open.append((name, rf, start))
-
-    def exit(self):
-        name, rf, start = self._open.pop()
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        rf.__exit__(None, None, None)
-        self.events[name].append((start, end))
-
-    @contextlib.contextmanager
-    def span(self, name):
-        self.enter(name)
-        try:
-            yield
-        finally:
-            self.exit()
-
-    def ms(self):
-        torch.cuda.synchronize()
-        return {n: sum(s.elapsed_time(e) for s, e in ev) for n, ev in self.events.items()}
+def print_syncs(iters: int, what: str) -> None:
+    syncs = counts.read_syncs()
+    total = sum(n for n, _ in syncs.values())
+    print(f"host syncs: {total / iters:.1f} per {what}, waiting "
+          f"{sum(w for _, w in syncs.values()) / 1e6 / iters:.3f} ms")
+    for site, (n, wait) in sorted(syncs.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {site}: {n / iters:.1f}, {wait / 1e6 / iters:.3f} ms")
 
 
 def _device_total(row):
@@ -129,20 +92,21 @@ def main(argv=None) -> None:
     wall = 1000 * (time.perf_counter() - t0) / ITERS
     print(f"unprofiled forward: {wall:.3f} ms")
 
-    spans = _Spans(model)
+    trace.enable()
+    counts.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
             forward(model, batch)
         torch.cuda.synchronize()
         pwall = 1000 * (time.perf_counter() - t0) / ITERS
-    span_ms = spans.ms()
+    spans = span_table(trace.records(), ITERS)
+    trace.disable()
     rows = prof.key_averages()
-    names = set(span_ms)
     kernel_total, kernels = 0.0, []
     stage_kernel_ms = {}
     for r in rows:
-        if r.key in names:
+        if r.key in spans:
             if r.device_type == torch.autograd.DeviceType.CPU:
                 stage_kernel_ms[r.key] = _device_total(r) / 1000 / ITERS
             continue
@@ -153,9 +117,11 @@ def main(argv=None) -> None:
     print(f"profiled forward: {pwall:.3f} ms; kernel time {kernel_total:.3f} ms; "
           f"idle share {1 - kernel_total / pwall:.3f} (profiled), "
           f"{1 - kernel_total / wall:.3f} (against the unprofiled forward)")
-    print("stage: device span ms, PyTorch-op kernel ms (per forward)")
-    for name, ms in sorted(span_ms.items(), key=lambda kv: -kv[1]):
-        print(f"  {name}: {ms / ITERS:.3f},{stage_kernel_ms.get(name, float('nan')):.3f}")
+    print("span: device ms, host ms, calls, PyTorch-op kernel ms (per forward)")
+    for name, (dev, host, calls) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {name}: {dev:.3f}, {host:.3f}, {calls:g}, "
+              f"{stage_kernel_ms.get(name, float('nan')):.3f}")
+    print_syncs(ITERS, "forward")
     print("kernels by device time: ms per forward, launches per forward, name")
     for ms, n, key in sorted(kernels, reverse=True)[:25]:
         print(f"  {ms:.3f}  {n:4d}  {key[:110]}")

@@ -11,13 +11,14 @@ K) and, after two warm-up steps, prints for 3 steps:
 
 - the wall time of an unprofiled step (host clock around synchronised
   steps) and the peak device memory of a step;
-- per phase of the step (the ``train.state.phase`` ranges: forward, loss
-  with the labels, backward, optimizer; in the rcnn stage also "targets",
-  the target layer inside the forward) the device span between CUDA
-  events recorded before and after it, and per forward stage (RPN SA/FP
-  stages and heads; in the rcnn stage also the proposal layer and the RCNN
-  stages) its span likewise, in steps run without the profiler and in the
-  profiled ones;
+- per span of the program's trace (:mod:`pointrcnn_tpu_torch.trace`: the
+  step, its phases forward / loss + labels / backward / optimizer, in the
+  rcnn stage also "targets", the target layer inside the forward; the RPN
+  and its SA/FP stages; in the rcnn stage the proposal layer and its NMS,
+  RoI pooling and the RCNN; each hand-written kernel's launch) its device
+  time between the span's CUDA events, in steps run without the profiler
+  and in the profiled ones, and its host time and calls;
+- the host syncs by site (``ops.counts``);
 - the kernels by device time, and the device's busy time and idle share
   of the profiled step.
 
@@ -33,20 +34,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pointrcnn_tpu_torch import entry
+from pointrcnn_tpu_torch import entry, trace
 from pointrcnn_tpu_torch.entry import STAGES, train_entry
-from pointrcnn_tpu_torch.models import point_rcnn
-from pointrcnn_tpu_torch.profile_forward import _Spans, _self_device, _stages
-from pointrcnn_tpu_torch.train import state as train_state
+from pointrcnn_tpu_torch.ops import counts
+from pointrcnn_tpu_torch.profile_forward import _self_device, print_syncs, span_table
 
 ITERS = 3
-
-
-def _rpn_stages(model):
-    net = model.rpn.Pointnet2MSG_0
-    out = [(f"rpn SA{k + 1}", getattr(net, f"SetAbstractionMSG_{k}")) for k in range(net.n_sa)]
-    out += [(f"rpn FP{j + 1}", getattr(net, f"FeaturePropagation_{j}")) for j in range(net.n_fp)]
-    return out + [("rpn heads", model.rpn.cls_head), ("rpn heads", model.rpn.reg_head)]
 
 
 def main() -> None:
@@ -78,24 +71,23 @@ def main() -> None:
     print(f"unprofiled step: {wall:.3f} ms ({1000 * BATCH / wall:.3f} frames/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
-    stages = _stages(state.model) if stage == "rcnn" else _rpn_stages(state.model)
-    spans = _Spans(state.model, stages)
-    train_state.phase = point_rcnn.phase = spans.span
+    trace.enable()
     for _ in range(ITERS):
         state, _ = step_fn(state, batch)
-    plain_span_ms = spans.ms()
-    spans.events.clear()
+    plain = span_table(trace.records(), ITERS)
+    trace.reset()
+    counts.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
             state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
         pwall = 1000 * (time.perf_counter() - t0) / ITERS
-    span_ms = spans.ms()
-    names = set(span_ms)
+    spans = span_table(trace.records(), ITERS)
+    trace.disable()
     kernel_total, kernels = 0.0, []
     for r in prof.key_averages():
-        if r.key in names:
+        if r.key in spans:
             continue
         if r.device_type == torch.autograd.DeviceType.CUDA and _self_device(r) > 0:
             ms = _self_device(r) / 1000 / ITERS
@@ -104,9 +96,11 @@ def main() -> None:
     print(f"profiled step: {pwall:.3f} ms; kernel time {kernel_total:.3f} ms; "
           f"idle share {1 - kernel_total / pwall:.3f} (profiled), "
           f"{1 - kernel_total / wall:.3f} (against the unprofiled step)")
-    print("phase or forward stage: device span ms per step, unprofiled and profiled")
-    for name, ms in sorted(span_ms.items(), key=lambda kv: -kv[1]):
-        print(f"  {name}: {plain_span_ms[name] / ITERS:.3f}, {ms / ITERS:.3f}")
+    print("span: device ms per step unprofiled and profiled, host ms, calls (profiled)")
+    for name, (dev, host, calls) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {name}: {plain.get(name, (float('nan'),))[0]:.3f}, {dev:.3f}, {host:.3f}, "
+              f"{calls:g}")
+    print_syncs(ITERS, "step")
     print("kernels by device time: ms per step, launches per step, name")
     for ms, n, key in sorted(kernels, reverse=True)[:30]:
         print(f"  {ms:.3f}  {n:4d}  {key[:110]}")

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.utils.box_ops import enlarge_box3d, points_in_boxes3d
 
 
@@ -26,7 +27,9 @@ def rpn_training_labels_batch(pts_input, gt_boxes3d, gt_valid):
     ring = (points_in_boxes3d(pts, enlarge_box3d(gt_boxes3d, extra_width=0.2)) & valid) & ~fg
 
     iota = torch.arange(G, dtype=torch.int32, device=pts.device)[None, :, None]
-    none = torch.tensor(-1, dtype=torch.int32, device=pts.device)
+    # a copy from pageable host memory: the host waits for the stream
+    with counts.sync("labels.constant"):
+        none = torch.tensor(-1, dtype=torch.int32, device=pts.device)
     kf = torch.where(fg, iota, none).amax(dim=1)  # last fg box per point
     kr = torch.where(ring, iota, none).amax(dim=1)  # last ring box per point
     cls = torch.where((kf < 0) & (kr < 0), 0, torch.where(kf >= kr, 1, -1)).to(torch.int32)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.train.labels import rpn_training_labels_batch
 from pointrcnn_tpu_torch.parallel import mesh
 from pointrcnn_tpu_torch.utils import losses
@@ -109,7 +110,9 @@ def get_rcnn_loss(cfg, rcnn_cls, rcnn_reg, target: dict):
         tgt = torch.clamp(cls_label.to(torch.int32), 0, logits.shape[1] - 1)
         logp = torch.log_softmax(logits, dim=-1)
         nll = -losses._select_bin(logp, tgt)
-        cls_w = torch.tensor(cfg.RCNN.CLS_WEIGHT, dtype=logp.dtype, device=logp.device)
+        # a copy from pageable host memory: the host waits for the stream
+        with counts.sync("loss.constant"):
+            cls_w = torch.tensor(cfg.RCNN.CLS_WEIGHT, dtype=logp.dtype, device=logp.device)
         w = losses._select_bin(torch.broadcast_to(cls_w, logp.shape), tgt)
         valid = (cls_label >= 0).to(nll.dtype)
         rcnn_loss_cls = torch.sum(nll * w * valid) / torch.clamp(global_count(valid), min=1.0)
@@ -125,8 +128,10 @@ def get_rcnn_loss(cfg, rcnn_cls, rcnn_reg, target: dict):
         roi_cls = target.get("gt_cls_of_rois")
         if roi_cls is None:
             roi_cls = torch.zeros(cls_label.shape[0], dtype=torch.int64, device=cls_label.device)
-        anchor = torch.tensor(cfg.CLS_MEAN_SIZE, dtype=torch.float32,
-                              device=rcnn_reg.device)[roi_cls.long()]
+        with counts.sync("loss.constant"):
+            anchors = torch.tensor(cfg.CLS_MEAN_SIZE, dtype=torch.float32,
+                                   device=rcnn_reg.device)
+        anchor = anchors[roi_cls.long()]
     loss_loc, loss_angle, loss_size, _ = losses.get_reg_loss(
         rcnn_reg.reshape(cls_label.shape[0], -1),
         gt_boxes3d_ct.reshape(-1, 7),

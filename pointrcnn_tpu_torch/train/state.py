@@ -25,15 +25,16 @@ from dataclasses import dataclass
 
 import torch
 
+from pointrcnn_tpu_torch import trace
 from pointrcnn_tpu_torch.models.layers import set_bn_momentum
 from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
 from pointrcnn_tpu_torch.parallel import mesh
 from pointrcnn_tpu_torch.train.loss import model_loss
 
 # the context around each phase of a train step ("forward", "loss + labels",
-# "backward", "optimizer"): a profiler range, free when no profiler runs;
-# ``profile_train`` sets one that also times each phase with CUDA events
-phase = torch.profiler.record_function
+# "backward", "optimizer"): a span of the trace (a profiler range, and a
+# record while tracing); looked up at call time, so a caller may swap it
+phase = trace.span
 
 
 @dataclass
@@ -95,16 +96,18 @@ def make_train_step(cfg, tx, seed: int = 0):
     def step_fn(state: TrainState, batch: dict, bn_momentum: float, targets=None):
         """``targets``: the target layer's draws for this step, in place of
         the step's own target stream."""
-        model = state.model
-        set_bn_momentum(model, bn_momentum)
-        device = batch["pts_input"].device
-        _, tb, grads = loss_and_grads(model, cfg, batch,
-                                      dropout_generator(seed, state.step, device),
-                                      target_generator(seed, state.step, device), targets)
-        tb = {k: v.detach() for k, v in tb.items()}
-        with phase("optimizer"):
-            tb["grad_norm"] = tx.update(dict(model.named_parameters()), grads, state.opt_state)
-        state.step += 1
+        with trace.span("train.step"):
+            model = state.model
+            set_bn_momentum(model, bn_momentum)
+            device = batch["pts_input"].device
+            _, tb, grads = loss_and_grads(model, cfg, batch,
+                                          dropout_generator(seed, state.step, device),
+                                          target_generator(seed, state.step, device), targets)
+            tb = {k: v.detach() for k, v in tb.items()}
+            with phase("optimizer"):
+                tb["grad_norm"] = tx.update(dict(model.named_parameters()), grads,
+                                            state.opt_state)
+            state.step += 1
         return state, tb
 
     return step_fn

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.parallel import mesh
 
 
@@ -195,7 +196,13 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope: float, loc_bin_size: f
     size_res_l, size_res_r = ry_res_r, ry_res_r + 3
     if pred_reg.shape[1] != size_res_r:
         raise ValueError(f"get_reg_loss: {pred_reg.shape[1]} channels, expected {size_res_r}")
-    anchor_size = torch.as_tensor(anchor_size, dtype=pred_reg.dtype, device=pred_reg.device)
+    if isinstance(anchor_size, torch.Tensor) and anchor_size.device == pred_reg.device:
+        anchor_size = anchor_size.to(pred_reg.dtype)
+    else:
+        # a copy from pageable host memory: the host waits for the stream
+        with counts.sync("loss.constant"):
+            anchor_size = torch.as_tensor(anchor_size, dtype=pred_reg.dtype,
+                                          device=pred_reg.device)
     size_label = (reg_label[:, 3:6] - anchor_size) / anchor_size
     size_loss = _masked_mean(
         torch.mean(smooth_l1(pred_reg[:, size_res_l:size_res_r], size_label), dim=1), fg,
