@@ -379,7 +379,8 @@ def phase_build():
     from pointrcnn_tpu_torch import _build
 
     sources = (("fps", _build.NO_FMAD), ("knn", _build.NO_FMAD), ("gather", _build.NO_FMAD),
-               ("mlp", _build.NO_FMAD), ("ballquery", _build.NO_FMAD))
+               ("mlp", _build.NO_FMAD), ("ballquery", _build.NO_FMAD),
+               ("bn_train", _build.NO_FMAD))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(_build.load, name, flags) for name, flags in sources]:
@@ -1081,6 +1082,154 @@ def check_mlp_bwd():
             f"(tol {MLP_BWD_REL_TOL}), max abs err {err:.3e}; kernel {k:.4f} ms, plain {p:.4f} ms, "
             f"bound {bound:.4f} ms; {_rate(ops_n, k, bound)}")
     return tally
+
+
+# the training SharedMLP stacks with batch norm at batch 16 (ops/cuda_bn.py):
+# (config, npoints, nsamples, SA widths per stage and radius, FP widths
+# (rows: the FP level's points), as cfgs/default.yaml and cfgs/car_2x.yaml)
+BN_TRAIN_BATCH = 16
+BN_SA_MLPS = ([[16, 16, 32], [32, 32, 64]], [[64, 64, 128], [64, 96, 128]],
+              [[128, 196, 256], [128, 196, 256]], [[256, 256, 512], [256, 384, 512]])
+BN_CONFIGS = (("car", (4096, 1024, 256, 64), 16384), ("car-2x", (8192, 2048, 512, 128), 32768))
+BN_NSAMPLES = (16, 32)
+BN_FP_MLPS = ([512, 512], [512, 512], [256, 256], [128, 128])
+# kernel against plain version: the backward's coefficients come from f64
+# sums in another order, rounded to f32 (an ulp apart at most); the
+# statistics and element-wise outputs from the same f32 operations
+BN_STATS_REL_TOL = 1e-6
+
+
+def bn_train_layers():
+    """(name, rows, C, K, rd) of every BN layer of both configs' rpn step:
+    K > 0 at the last layer of an SA stack (the max over K), rd bf16 where
+    the output is the next layer's bf16 operand, else None."""
+    out = []
+    for cfg, npoints, n_pts in BN_CONFIGS:
+        for st, (S, mlps) in enumerate(zip(npoints, BN_SA_MLPS)):
+            for scale, (K, widths) in enumerate(zip(BN_NSAMPLES, mlps)):
+                for i, c in enumerate(widths):
+                    last = i == len(widths) - 1
+                    out.append((f"{cfg} SA{st + 1}.{scale} layer {i}", BN_TRAIN_BATCH * S * K, c,
+                                K if last else 0, None if last else torch.bfloat16))
+        levels = (npoints[2], npoints[1], npoints[0], n_pts)
+        for j, (n, widths) in enumerate(zip(levels, BN_FP_MLPS)):
+            for i, c in enumerate(widths):
+                out.append((f"{cfg} FP{j + 1} layer {i}", BN_TRAIN_BATCH * n, c, 0,
+                            torch.bfloat16 if i < len(widths) - 1 else None))
+    return out
+
+
+def _bn_rel(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def check_bn_train():
+    """The four kernels of ops/cuda_bn.py at every BN layer of the rpn step
+    of both configs at batch 16, each against its plain version on the card
+    from the same inputs: the statistics and running statistics (the same
+    reductions, then the finalize) and the element-wise outputs
+    (apply, max and tie count, dy) equal, the backward's sums and
+    coefficients within BN_STATS_REL_TOL (f64 sums in another order).  Device
+    ms by graph replay, bound = bytes over 3.35 TB/s -> a Tally a kernel.
+    ``bn_train_stats`` is PyTorch's two reductions (``y.mean``,
+    ``(y * y).mean``: four passes over y) and the finalize kernel; its bound
+    is one read of y, what a one-pass statistics kernel would need."""
+    from pointrcnn_tpu_torch.ops import cuda_bn
+
+    tallies = {k: Tally() for k in ("bn_train_stats", "bn_train_apply", "bn_train_bwd_sums",
+                                    "bn_train_bwd_apply")}
+    tallies["bn_train_stats"].notes["work"] = (
+        "PyTorch's y.mean and (y * y).mean (four passes over y) and the finalize kernel; "
+        "bound: one read of y")
+    for name, rows, C, K, rd in bn_train_layers():
+        g = torch.Generator(device="cuda").manual_seed(rows + C)
+        mu = torch.randn(C, device="cuda", generator=g)
+        sd = torch.rand(C, device="cuda", generator=g) * 2 + 0.1
+        y = torch.randn((rows, C), device="cuda", generator=g) * sd + mu
+        if K:
+            # a ball query's padding: the first neighbour repeated, so maxima tie
+            y.view(-1, K, C)[:, K // 2:] = y.view(-1, K, C)[:, :1]
+        scale = torch.rand(C, device="cuda", generator=g) + 0.5
+        bias = torch.randn(C, device="cuda", generator=g) * 0.3
+        run = [torch.rand(C, device="cuda", generator=g) for _ in range(2)]
+        groups = rows // K if K else rows
+        gin = torch.randn((groups, C), device="cuda", generator=g)
+        r1, r2 = run[0].clone(), run[1].clone()
+        st = cuda_bn.layer_stats(y, scale, r1, r2, 0.1, 1)
+        n = float(rows)
+        ref = cuda_bn.stats_finalize_plain(*cuda_bn.moments(y, 1), 0.1, n / (n - 1), scale,
+                                           run[0], run[1])
+        # the statistics and running update are the plain version's bit for bit
+        if not (torch.equal(st, ref) and torch.equal(r1, run[0]) and torch.equal(r2, run[1])):
+            raise AssertionError(f"bn_train {name}: statistics off the plain version by "
+                                 f"{max(_bn_rel(st[i], ref[i]) for i in range(4)):.3e}")
+        if K:
+            (out, cnt), (out_p, cnt_p) = (cuda_bn.layer_apply(y, st, bias, K=K),
+                                          cuda_bn.apply_max_plain(y, K, st, bias))
+            same = torch.equal(out, out_p) and torch.equal(cnt, cnt_p)
+            tied = (cnt[out > 0] >= 2).float().mean().item()
+        else:
+            out, out_p = cuda_bn.layer_apply(y, st, bias, rd), \
+                cuda_bn.apply_plain(y, st, bias, rd)
+            same, cnt, tied = torch.equal(out, out_p), None, 0.0
+        if not same:
+            raise AssertionError(f"bn_train {name}: apply differs from its plain version")
+        extra = (K, out, cnt) if K else ()
+        (ds, db), coef = cuda_bn.layer_bwd_sums(y, gin, st, bias, rd, 1, *extra)
+        sums = cuda_bn.bwd_sums_plain(y, gin, st, bias, rd, *extra)
+        ds_p, db_p = cuda_bn.bwd_grads_plain(sums, st)
+        coef_p = cuda_bn.bwd_finalize_plain(sums, st, rows)
+        err = max(_bn_rel(ds, ds_p), _bn_rel(db, db_p),
+                  *(_bn_rel(coef[i], coef_p[i]) for i in range(3)))
+        if not err <= BN_STATS_REL_TOL:
+            raise AssertionError(f"bn_train {name}: backward sums off the plain version by "
+                                 f"{err:.3e}")
+        dy = cuda_bn.layer_bwd_apply(y, gin, st, bias, coef, rd, *extra)
+        dy_p = cuda_bn.bwd_apply_plain(y, gin, st, bias, coef, rd, *extra)
+        if not torch.equal(dy, dy_p):
+            raise AssertionError(f"bn_train {name}: dy off its plain version by "
+                                 f"{_bn_rel(dy, dy_p):.3e}")
+        side = nbytes(out, cnt) if K else 0
+        cases = {
+            "bn_train_stats": (lambda: cuda_bn.layer_stats(y, scale, r1, r2, 0.1, 1),
+                               lambda: cuda_bn.stats_finalize_plain(
+                                   *cuda_bn.moments(y, 1), 0.1, n / (n - 1), scale, run[0],
+                                   run[1]), nbytes(y)),
+            "bn_train_apply": ((lambda: cuda_bn.layer_apply(y, st, bias, K=K)) if K else
+                               (lambda: cuda_bn.layer_apply(y, st, bias, rd)),
+                               (lambda: cuda_bn.apply_max_plain(y, K, st, bias)) if K else
+                               (lambda: cuda_bn.apply_plain(y, st, bias, rd)),
+                               nbytes(y, out, cnt)),
+            "bn_train_bwd_sums": (lambda: cuda_bn.layer_bwd_sums(y, gin, st, bias, rd, 1,
+                                                                 *extra),
+                                  lambda: cuda_bn.bwd_sums_plain(y, gin, st, bias, rd,
+                                                                 *extra),
+                                  nbytes(y, gin) + side),
+            "bn_train_bwd_apply": (lambda: cuda_bn.layer_bwd_apply(y, gin, st, bias, coef,
+                                                                   rd, *extra),
+                                   lambda: cuda_bn.bwd_apply_plain(y, gin, st, bias, coef,
+                                                                   rd, *extra),
+                                   nbytes(y, gin, dy) + side),
+        }
+        line = []
+        for kname, (fn, plain, nb) in cases.items():
+            ms, dev, pl = cuda_ms(fn, 3), graph_ms(fn, 5), cuda_ms(plain, 1)
+            b = tallies[kname].add(ms, pl, nb, 0.0, PEAK_F32_PER_MS, device_ms=dev)
+            tallies[kname].shapes.append({"shape": name, "rows": rows, "C": C, "K": K,
+                                          "bytes": nb, "ms": ms, "device_ms": dev,
+                                          "bound_ms": b, "bound_by": "bytes"})
+            line.append(f"{kname[9:]} {dev:.4f} ms (bound {b:.4f}, plain {pl:.3f})")
+        for t in ("bn_train_bwd_sums", "bn_train_bwd_apply"):
+            tallies[t].err = max(tallies[t].err, err)
+        log(f"bn_train {name}: rows {rows} C {C} K {K}: bwd sums {err:.2e} of the "
+            f"plain version; statistics, running statistics, apply, dy equal"
+            f"{f', {tied:.2f} of positive maxima tied' if K else ''}; "
+            + "; ".join(line))
+        del y, gin, out, out_p, dy, dy_p
+    for kname, t in tallies.items():
+        log(f"bn_train {kname}: device {t.device_ms:.3f} ms over both configs' layers, bound "
+            f"{t.bound_ms:.3f} ms (bytes), share of the bound {t.bound_ms / t.device_ms:.3f}")
+    return tallies
 
 
 # ROADMAP C12: the shipped configs whose SA stacks the card must admit
@@ -1998,10 +2147,10 @@ def phase_train(train_launches):
         f"{gnorm:.6f}, foreground points {int(tb['rpn_fg_sum'])}")
     if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
         raise AssertionError(f"train step: loss {loss}, grad norm {gnorm}")
-    for name in ("group_gather", "gather_backward"):
-        if counts[name] != 6 * TRAIN_TIMED:
+    for name, n in RPN_STEP_LAUNCHES.items():
+        if counts[name] != n * TRAIN_TIMED:
             raise AssertionError(f"train step: {name} launched {counts[name]} times in "
-                                 f"{TRAIN_TIMED} steps, not 6 a step")
+                                 f"{TRAIN_TIMED} steps, not {n} a step")
     for name in TRAIN_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the train path")
@@ -2772,7 +2921,7 @@ OFFLINE_OUT_RTOL = 0.05
 
 
 def _expect(per, n):
-    return {name: per.get(name, 0) * n for name, _, _ in KERNELS}
+    return {name: per.get(name, 0) * n for name in read_counts()}
 
 
 def _with_gt_rois(data_root, roi_dir, out_dir):
@@ -3017,16 +3166,20 @@ def phase_offline(launches, data_root, rpn_ckpt, card):
 # gathers (K4) and scatters back (K8) at SA2-SA4's six radii, the RCNN's SA1
 # and SA2 run K2 forward and K7 backward; the joint step does both (its RPN
 # SA3 and SA4 train on the generic route, so K2 only in the RCNN)
-RPN_STEP_LAUNCHES = {"group_gather": 6, "gather_backward": 6}
+# the 32 BN layers of the RPN backbone (24 SA, 8 FP), each through the four
+# kernels of ops/cuda_bn.py once a step, none falling back
+BN_STEP_LAUNCHES = {"bn_train_stats": 32, "bn_train_apply": 32, "bn_train_bwd_sums": 32,
+                    "bn_train_bwd_apply": 32, "bn_train_plain": 0}
+RPN_STEP_LAUNCHES = {"group_gather": 6, "gather_backward": 6, **BN_STEP_LAUNCHES}
 JOINT_STEP_LAUNCHES = {"group_gather": 6, "gather_backward": 6, "fused_group_mlp_max": 2,
-                       "fused_group_mlp_backward": 2}
+                       "fused_group_mlp_backward": 2, **BN_STEP_LAUNCHES}
 ALL_KERNELS = tuple(name for name, _, _ in KERNELS)
 # car_2x's RPN SA2 groups from an 8192-point table, past the gather kernel's
 # 4096 (the TPU kernel's predicate, ``cuda_gather.group_points_supported``):
 # its neighbourhoods are gathered by indexing, on the TPU by XLA, so K4 and
 # K8 run at SA3 and SA4 alone (4 a step) and not in the eval forward
 CAR_2X_EVAL_KERNELS = tuple(k for k in EVAL_KERNELS if k != "group_gather")
-CAR_2X_RPN_STEP_LAUNCHES = {"group_gather": 4, "gather_backward": 4}
+CAR_2X_RPN_STEP_LAUNCHES = {"group_gather": 4, "gather_backward": 4, **BN_STEP_LAUNCHES}
 CAR_2X_RCNN_STEP_LAUNCHES = {**RCNN_STEP_LAUNCHES, "group_gather": 0}
 CAR_2X_RCNN_KERNELS = tuple(k for k in RCNN_TRAIN_KERNELS if k != "group_gather")
 CAR_2X_WORK_DIR = os.path.join(REPO, "pointrcnn_tpu_torch", "_build", "smoke_car_2x")
@@ -3580,6 +3733,7 @@ def main() -> int:
                "fused_group_mlp_max": check_mlp(), "gather_backward": check_gather_bwd(),
                "fused_group_mlp_backward": check_mlp_bwd()}
     tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
+    bn_tallies = check_bn_train()
     mark("kernel checks")
     check_shipped_stages()
     mark("shipped stages")
@@ -3656,6 +3810,16 @@ def main() -> int:
              "deep_k_launches": {run: c[name] for run, c in deep_k_launches.items()},
              **tallies[name].row()}
             for name, source, replaces in KERNELS]
+    # the batch-norm kernels of the training stacks, which replace XLA's
+    # fusion of the TPU's SharedMLP layers rather than a pallas_call
+    rows += [{"name": name, "route": "cuda", "source": "pointrcnn_tpu_torch/csrc/bn_train.cu",
+              "replaces": "pointrcnn_tpu/models/layers.py:219-248 (XLA fusion)",
+              "train_launches": train_launches[name],
+              "car_2x_launches": {run: c[name] for run, c in car_2x_launches.items()},
+              "people_joint_launches": people_launches[name],
+              "data_parallel_launches": {run: c[name] for run, c in dp_launches.items()},
+              **tally.row()}
+             for name, tally in bn_tallies.items()]
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

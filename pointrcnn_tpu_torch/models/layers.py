@@ -32,7 +32,7 @@ import math
 import torch
 from torch import nn
 
-from pointrcnn_tpu_torch.ops import counts
+from pointrcnn_tpu_torch.ops import cuda_bn
 from pointrcnn_tpu_torch.ops.cuda_mlp import (
     fold_geometry_profitable,
     fused_group_bwd_supported,
@@ -153,9 +153,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var, n = batch_stats(x)
             with torch.no_grad():
-                # a copy from pageable host memory: the host waits for the stream
-                with counts.sync("bn.momentum"):
-                    m = torch.tensor(self.momentum, dtype=torch.float32, device=x.device)
+                # a fill on the device: no copy from the host, so no wait
+                m = torch.full((), self.momentum, dtype=torch.float32, device=x.device)
                 unbiased = var * (n / max(n - 1, 1))
                 self.mean.copy_((1 - m) * self.mean + m * mean)
                 self.var.copy_((1 - m) * self.var + m * unbiased)
@@ -196,7 +195,9 @@ class SharedMLP(nn.Module):
     (the gather kernels, forward and backward, where admitted) and every
     layer is a bf16 dot with f32 accumulation, BN on the batch's statistics
     (or the bias) and ReLU, then the max over K
-    (``models/layers.py:219-248``).
+    (``models/layers.py:219-248``); a stack with batch norm runs those layers
+    through :class:`~pointrcnn_tpu_torch.ops.cuda_bn.BNTrainStack` (its
+    kernels wherever they admit a layer).
     """
 
     def __init__(self, cin, features, bn=True, kernel_init=torch_conv_init,
@@ -275,25 +276,18 @@ class SharedMLP(nn.Module):
                 generic_grouped_train += 1
             x = group_points(g_xyz, g_feats, g_new_xyz, g_idx, g_use_xyz, out_dtype=dt)
             reduce_max = True
+        if self.bn:
+            layers = range(self.n)
+            return cuda_bn.bn_train_stack(
+                x, [getattr(self, f"w{i}") for i in layers],
+                [getattr(self, f"bn{i}_scale") for i in layers],
+                [getattr(self, f"bn{i}_bias") for i in layers],
+                [(getattr(self, f"bn{i}_mean"), getattr(self, f"bn{i}_var")) for i in layers],
+                self.momentum, reduce_max, dt, mesh.world())
         for i in range(self.n):
             w = getattr(self, f"w{i}")
             y = x.to(dt).to(torch.float32) @ w.to(dt).to(torch.float32)
-            if self.bn:
-                mean, var, n = batch_stats(y)
-                # the running update in the JAX SharedMLP's order: m * var
-                # before the n / (n - 1) factor (its BatchNorm takes the
-                # factor first)
-                with torch.no_grad():
-                    with counts.sync("bn.momentum"):
-                        m = torch.tensor(self.momentum, dtype=torch.float32, device=y.device)
-                    mean_v, var_v = getattr(self, f"bn{i}_mean"), getattr(self, f"bn{i}_var")
-                    mean_v.copy_((1 - m) * mean_v + m * mean)
-                    var_v.copy_((1 - m) * var_v + m * var * (n / max(n - 1, 1)))
-                y = (y - mean) * (torch.rsqrt(var + BN_EPS) * getattr(self, f"bn{i}_scale")) \
-                    + getattr(self, f"bn{i}_bias")
-            else:
-                y = y + getattr(self, f"b{i}")
-            x = torch.relu(y)
+            x = torch.relu(y + getattr(self, f"b{i}"))
         # amax splits the gradient evenly among tied maxima, as jnp.max does
         return x.amax(dim=2) if reduce_max else x
 

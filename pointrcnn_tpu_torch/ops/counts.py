@@ -1,6 +1,8 @@
 """The launch counts of the hand-written kernels, by kernel name: each
 kernel's wrapper adds one to its module's counter where it launches the
-kernel, and nowhere else.  ``chip_smoke.py`` and the data-parallel runs on
+kernel, and nowhere else.  Beside them ``bn_train_plain``: the training
+batch-norm layers on the card that ran on the plain versions, the kernels
+refusing them (``ops/cuda_bn.py``).  ``chip_smoke.py`` and the data-parallel runs on
 the card (``entry.dryrun_multichip``, ``tools.dp_step``) read them.
 
 Beside them, the host syncs by site: :class:`sync` goes around each read
@@ -23,6 +25,11 @@ COUNTERS = {
     "ball_query_banded": ("cuda_ballquery", "banded_launches"),
     "gather_backward": ("cuda_gather", "bwd_launches"),
     "fused_group_mlp_backward": ("cuda_mlp", "bwd_launches"),
+    "bn_train_stats": ("cuda_bn", "stats_launches"),
+    "bn_train_apply": ("cuda_bn", "apply_launches"),
+    "bn_train_bwd_sums": ("cuda_bn", "bwd_sums_launches"),
+    "bn_train_bwd_apply": ("cuda_bn", "bwd_apply_launches"),
+    "bn_train_plain": ("cuda_bn", "plain_layers"),
 }
 
 

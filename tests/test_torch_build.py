@@ -12,7 +12,7 @@ import pytest
 from pointrcnn_tpu_torch import _build
 from test_torch_port_slice import one_torch_thread  # noqa: F401 (fixture)
 
-NAMES = ("fps", "knn", "gather", "mlp", "ballquery")
+NAMES = ("fps", "knn", "gather", "mlp", "ballquery", "bn_train")
 
 
 @pytest.fixture

@@ -12,6 +12,8 @@ pow of NumPy against XLA's: an ulp of lr or of a bias correction).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,7 @@ from pointrcnn_tpu_torch.train.labels import rpn_training_labels_batch
 from pointrcnn_tpu_torch.train.loss import get_rpn_loss
 from pointrcnn_tpu_torch.utils import losses as tlosses
 
+from test_torch_bn_train import kernel_contract, on_route
 from test_torch_port_slice import _CFG, one_torch_thread  # noqa: F401 (fixture)
 
 # ---------------------------------------------------------------- labels
@@ -248,10 +251,15 @@ def test_batchnorm_train_equals_jax():
                                rtol=BN_RTOL, atol=BN_RTOL)
 
 
+@pytest.mark.parametrize("route", ["bn_train", "kernel_contract", "generic"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_shared_mlp_train_equals_jax(monkeypatch, dtype):
+def test_shared_mlp_train_equals_jax(monkeypatch, dtype, route):
     """A grouped SA stack in training: the gather route in bf16 (JAX's
-    Pallas kernel in interpret mode), BN on batch statistics, max over K."""
+    Pallas kernel in interpret mode), BN on batch statistics, max over K;
+    the port's stack on its batch-statistics route (``ops/cuda_bn.py``) as
+    the CPU runs it, or with its backward on the plain versions of the
+    backward kernels (what the card computes), or on the tests' generic
+    reference (``test_torch_bn_train.generic_bn_stack``)."""
     monkeypatch.setattr(pallas_gather, "_INTERPRET", True)
     rng = np.random.RandomState(1)
     B, N, C, S, K = 2, 256, 6, 32, 8
@@ -277,9 +285,12 @@ def test_shared_mlp_train_equals_jax(monkeypatch, dtype):
                                                        **v["batch_stats"]}.items()})
     tm.train()
     tf = torch.tensor(feats, requires_grad=True)
-    ty = tm(None, group_args=(torch.from_numpy(xyz), tf, torch.from_numpy(new_xyz),
-                              torch.from_numpy(idx), True))
-    (ty * torch.from_numpy(g)).sum().backward()
+    with on_route(route != "generic") as entered, kernel_contract() \
+            if route == "kernel_contract" else contextlib.nullcontext():
+        ty = tm(None, group_args=(torch.from_numpy(xyz), tf, torch.from_numpy(new_xyz),
+                                  torch.from_numpy(idx), True))
+        (ty * torch.from_numpy(g)).sum().backward()
+    assert len(entered) == (route != "generic")
     np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), rtol=BN_RTOL, atol=BN_RTOL)
     np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jgf), rtol=BN_RTOL,
                                atol=BN_RTOL * np.abs(np.asarray(jgf)).max())

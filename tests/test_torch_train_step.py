@@ -62,6 +62,7 @@ from pointrcnn_tpu_torch.train.loss import model_loss
 from pointrcnn_tpu_torch.train.optimizer import build_optimizer
 from pointrcnn_tpu_torch.train.state import create_train_state, loss_and_grads, make_train_step
 
+from test_torch_bn_train import kernel_contract, on_route
 from test_torch_port_slice import (  # noqa: F401 (fixture)
     _CFG,
     TINY,
@@ -199,7 +200,13 @@ def jax_routes(monkeypatch):
 def test_exact_train_steps_match_jax(jax_routes, dtype):
     cfg = load_config(str(_CFG), EXACT_OVERRIDES + TRAIN_TINY + ["COMPUTE_DTYPE", dtype])
     both = Both(cfg)
-    both.run(TOL[dtype])
+    with on_route(True) as entered, kernel_contract():
+        both.run(TOL[dtype])
+    # every BN stack of the backbone on the batch-statistics route, its
+    # backward on the plain versions of the kernels (what the card
+    # computes), in both forwards of each step
+    bn_stacks = sum(isinstance(m, layers.SharedMLP) and m.bn for m in both.ts.model.modules())
+    assert bn_stacks > 0 and len(entered) == 2 * N_STEPS * bn_stacks
     if dtype == "bfloat16":
         # SA2's two scales, traced once by JAX, run per gradient and step by the port
         assert jax_routes["jax"] >= 2 and jax_routes["port"] == 2 * 2 * N_STEPS, jax_routes

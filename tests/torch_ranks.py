@@ -218,3 +218,61 @@ def reduce_grads(grads: list, bucket_bytes: int) -> list:
 
     scale = mesh.rank() + 1
     return mesh.all_reduce_grads([torch.from_numpy(g) * scale for g in grads], bucket_bytes)
+
+
+def bn_stack(cin: int, widths: list, seed: int, dtype=torch.bfloat16):
+    """A training ``SharedMLP`` with batch norm, its scales, biases and
+    running statistics drawn from ``seed`` (so each term of the layer
+    shows), momentum 0.3."""
+    from pointrcnn_tpu_torch.models.layers import SharedMLP
+
+    gen = torch.Generator().manual_seed(seed)
+    mlp = SharedMLP(cin, widths, bn=True, dtype=dtype, gen=gen).train()
+    with torch.no_grad():
+        for i, c in enumerate(widths):
+            getattr(mlp, f"bn{i}_scale").copy_(torch.rand(c, generator=gen) + 0.5)
+            getattr(mlp, f"bn{i}_bias").copy_(torch.randn(c, generator=gen) * 0.3)
+            getattr(mlp, f"bn{i}_mean").copy_(torch.randn(c, generator=gen) * 0.1)
+            getattr(mlp, f"bn{i}_var").copy_(torch.rand(c, generator=gen) + 0.5)
+    mlp.momentum = 0.3
+    return mlp
+
+
+def contract_bwd(y, g, stats, scale, bias, round_g, world, K=0, out=None, cnt=None):
+    """``ops.cuda_bn.layer_bwd_plain`` on the plain versions of the two
+    backward kernels (``layer_bwd_sums`` and ``layer_bwd_apply`` on a CPU
+    tensor): what the kernels compute on the card."""
+    from pointrcnn_tpu_torch.ops import cuda_bn
+
+    (dscale, dbias), coef = cuda_bn.layer_bwd_sums(y, g, stats, bias, round_g, world, K, out,
+                                                   cnt)
+    return cuda_bn.layer_bwd_apply(y, g, stats, bias, coef, round_g, K, out, cnt), dscale, dbias
+
+
+def bn_stack_rows(x: np.ndarray, weights: np.ndarray, widths: list, reduce_max: bool,
+                  seed: int) -> dict:
+    """The rank's rows of ``x`` (the global batch) through a training
+    ``SharedMLP`` with batch norm on the batch-statistics route, its
+    backward on the plain versions of the kernels (:func:`contract_bwd`), a
+    loss weighting each output by ``weights`` (the rank's rows of it) -> the
+    output, the running statistics, the gradient of the rows and every
+    parameter's (the rank's own: the step all-reduces them after backward),
+    the stacks that entered the route."""
+    from pointrcnn_tpu_torch.ops import cuda_bn
+    from pointrcnn_tpu_torch.parallel import mesh
+
+    mlp = bn_stack(x.shape[-1], widths, seed)
+    xs = torch.from_numpy(mesh.shard_batch({"pts_input": x})["pts_input"]).requires_grad_()
+    w = torch.from_numpy(mesh.shard_batch({"pts_input": weights})["pts_input"])
+    entered, orig, orig_bwd = [], cuda_bn.bn_train_stack, cuda_bn.layer_bwd_plain
+    cuda_bn.bn_train_stack = lambda *a: entered.append(1) or orig(*a)
+    cuda_bn.layer_bwd_plain = contract_bwd
+    try:
+        out = mlp(xs, reduce_max=reduce_max)
+        torch.sum(out * w).backward()
+    finally:
+        cuda_bn.bn_train_stack, cuda_bn.layer_bwd_plain = orig, orig_bwd
+    return {"out": out.detach(), "grad_rows": xs.grad,
+            "grads": {k: p.grad for k, p in mlp.named_parameters()},
+            "running": {k: b.clone() for k, b in mlp.named_buffers()},
+            "stacks": len(entered)}
