@@ -1,6 +1,11 @@
-"""The steps a traffic mix feeds, through the program's public entry points.
+"""The drivers of the steps a traffic mix feeds, through the program's
+public entry points.
 
-``step`` in ``traffic/<mix>.json`` picks the driver:
+``step`` in ``traffic/<mix>.json`` picks the step (``spec.load_step``): a
+built-in step's driver is one of these two (``harness/builtin.py``), a
+step module's (``steps/<step>.py``) is its own ``Driver``, as a rule a
+subclass of ``Driver`` below, which holds the cell, its seeds, the scene
+pool and the window's counts.  The built-in steps:
 
 - ``"eval"``: ``eval.evaluator.build_joint_eval_step(model, cfg,
   with_gt=True)``, the two-stage forward then ``joint_postprocess``, in a
@@ -17,7 +22,8 @@ A driver's ``setup`` builds the program once from the seed and runs the
 first steps (which build and warm every kernel of the cell's shapes);
 ``window`` drives the same objects for the measured seconds; ``extra``
 runs steps past the window for the profiler; ``evidence`` is what the
-output check compares.
+output check compares.  The whole interface is the contract in
+``spec.py``'s docstring.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ def host(t: torch.Tensor) -> torch.Tensor:
 
 
 class Driver:
-    """State shared by both drivers: the cell, its config and seeds, the
+    """State shared by every driver: the cell, its config and seeds, the
     host pool, and the window's counts."""
 
     def __init__(self, cell, cfg, seed: int, device):
@@ -69,15 +75,21 @@ class Driver:
         self.traffic = cell.traffic
         self.seeds = sub_seeds(seed)
         self.batch = int(self.traffic["batch"])
+        num_points, max_gt = self.pool_sizes()
         self.pool = scenes.pool(self.seeds["scenes"], int(self.traffic["pool_batches"]),
-                                self.batch, cfg.RPN.NUM_POINTS,
-                                float(self.traffic["points_scale"]),
-                                tuple(self.traffic["cars"]), cfg.RCNN.MAX_GT_BOXES)
+                                self.batch, num_points, float(self.traffic["points_scale"]),
+                                tuple(self.traffic["cars"]), max_gt)
         self.step_s: list[float] = []
         self.attempted = self.failed = 0
         self.frames = 0
         self.window_s = 0.0
         self.next = 0  # the pool batch the next step takes
+
+    def pool_sizes(self) -> tuple[int, int]:
+        """The points and the gt-box slots of a frame of the scene pool, by
+        the config's names; a driver whose config names them otherwise
+        overrides this."""
+        return self.cfg.RPN.NUM_POINTS, self.cfg.RCNN.MAX_GT_BOXES
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -296,4 +308,5 @@ class TrainDriver(Driver):
         del self.state, self.model, self.step
 
 
+# the built-in steps' drivers (harness/builtin.py; trace_audit.py)
 DRIVERS = {"eval": EvalDriver, "train": TrainDriver}

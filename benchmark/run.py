@@ -3,14 +3,18 @@
     python benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Builds the cell's program (``BENCHMARK.json`` names its configuration and
-traffic mix) from the seed, runs its first steps (set-up: imports, kernel
-builds, weights, the scene pool, warm-up), drives the measured window for
-``--seconds``, checks the window's outputs against the plain reference,
-and prints one JSON line last: ``correct``, ``attempted``, ``failed``,
-``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
-per-layer ones, read by ``metrics/<name>.py``), ``device`` and, traced,
-``breakdown``; the numbers compared come last in that line and, beside
-their limits, as the last lines on standard error.
+traffic mix; the mix's ``step`` names a built-in step or a step module
+``steps/<step>.py``, ``harness/spec.py``) from the seed, runs its first
+steps (set-up: imports, kernel builds, weights, the scene pool, warm-up),
+drives the measured window for ``--seconds``, has the step's check compare
+the window's outputs with its plain reference, and prints one JSON line
+last: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
+end-to-end metrics, or with ``--trace 1`` its per-layer ones, read by
+``metrics/<name>.py``), ``device`` and, traced, ``breakdown``; the numbers
+compared come last in that line and, beside their limits, as the last
+lines on standard error.  ``correct`` is the harness's verdict on the
+step's numbers (``check.verdict``) and the window's failed steps, for
+every step.
 
 Needs a CUDA card: without one it exits non-zero and prints no result.
 """
@@ -20,7 +24,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import pathlib  # noqa: E402
@@ -32,8 +35,6 @@ ROOT = BENCH.parent
 # every build and kernel cache at a fixed path inside the checkout
 CACHE = BENCH / ".cache"
 FORBIDDEN = ("jax", "jaxlib", "flax", "pointrcnn_tpu")
-# steps past the window that the profiler records in a traced run
-PROFILED_STEPS = {"eval": 20, "train": 4}
 
 
 def forbidden_modules() -> list[str]:
@@ -111,15 +112,14 @@ def execute(cell, seed: int, seconds: float, traced: bool, device: str):
     drive it on the CPU (untraced); a run measures on the card."""
     import torch
 
-    from benchmark.harness import check, drivers, spans, spec, trace
-    from pointrcnn_tpu_torch.config import load_config
+    from benchmark.harness import check, spans, spec, trace
     from pointrcnn_tpu_torch.ops import counts
 
     on_card = torch.device(device).type == "cuda"
+    step = spec.load_step(cell.traffic["step"], cell.bench)
     overrides = list(cell.traffic.get("overrides", []))
-    cfg = load_config(str(cell.config_path), overrides)
-    kind = cell.traffic["step"]
-    d = drivers.DRIVERS[kind](cell, cfg, seed, device)
+    cfg = step.load_config(str(cell.config_path), overrides)
+    d = step.Driver(cell, cfg, seed, device)
     d.setup()
     if on_card:
         torch.cuda.synchronize()
@@ -129,7 +129,7 @@ def execute(cell, seed: int, seconds: float, traced: bool, device: str):
     if traced:
         d.spans = spans.Spans()
         for m in cell.per_layer:
-            r = spec.load_reader(m["name"])
+            r = spec.load_reader(m["name"], cell.bench)
             r.install(d)
             readers.append((m, r))
         counts.reset()
@@ -142,8 +142,8 @@ def execute(cell, seed: int, seconds: float, traced: bool, device: str):
         d.span_ms = {n: d.spans.total_ms(n) for n in list(d.spans.events)}
         d.window_calls = {n: list(v) for n, v in d.spans.calls.items()}
         d.spans.clear()
-        d.trace = {**trace.profiled(d.extra, PROFILED_STEPS[kind]),
-                   "steps": PROFILED_STEPS[kind]}
+        d.trace = {**trace.profiled(d.extra, step.PROFILED_STEPS),
+                   "steps": step.PROFILED_STEPS}
         d.spans.remove()
     steps_ms = sorted(1e3 * s for s in d.step_s)
     print(json.dumps({"steps": len(steps_ms), "step_ms_median": steps_ms[len(steps_ms) // 2],
@@ -164,7 +164,7 @@ def execute(cell, seed: int, seconds: float, traced: bool, device: str):
                                   "unit": m["unit"]}
 
     # the output check, once the window has closed and the program is freed
-    numbers = run_check(d, cell, overrides, kind)
+    numbers = step.check(d, cell, overrides)
     correct, rows = check.verdict(numbers, cell.limits)
     correct = correct and d.failed == 0
 
@@ -180,31 +180,6 @@ def execute(cell, seed: int, seconds: float, traced: bool, device: str):
                              "idle_gaps": d.trace["idle_gaps"]}
     line["compared"] = {k: {"value": v, "limit": lim} for k, v, lim in rows}
     return line, rows
-
-
-def run_check(d, cell, overrides, kind) -> dict:
-    """The numbers of the output check (``harness/check.py``)."""
-    import torch
-
-    from benchmark.harness import check
-
-    device = d.device
-    if kind == "eval":
-        evidence, state = d.evidence, d.state
-        d.release()
-        gc.collect()
-        torch.cuda.empty_cache()
-        cfg = check.ref_config(cell.config_path, overrides)
-        model = check.ref_eval_model(cfg, state, device)
-        return check.worst([check.compare_eval(model, cfg, rec, device) for rec in evidence])
-    evidence = d.evidence_record()
-    d.release()
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    cfg = check.ref_config(cell.config_path, overrides)
-    ref = check.ref_train(cfg, cell.traffic, evidence, device)
-    return check.compare_train(evidence, ref)
 
 
 if __name__ == "__main__":

@@ -54,7 +54,8 @@ def test_cell_resolves_to_its_files(cell):
     assert c.config_path.exists()
     meta = json.loads(c.config_path.with_suffix(".json").read_text())
     assert meta["reduced"] == c.config["reduced"]
-    assert c.traffic["step"] in ("eval", "train")
+    assert all(callable(getattr(spec.load_step(c.traffic["step"], c.bench).Driver, a))
+               for a in spec.DRIVER_CONTRACT)
     assert c.limits
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
