@@ -530,6 +530,53 @@ def check_fps():
     return tally
 
 
+# K9 (F-FPS) at 3DSSD's batch-4 shapes: (stage, rows, table rows, values a
+# row, picks, range start, range end): SA2's F-FPS half of fusion sampling
+# over 4096 rows of 3 + 64, SA3's over the first 512 of 1024 rows of 3 + 128
+FFPS_SHAPES = (("3DSSD SA2", BATCH, 4096, 67, 512, 0, 4096),
+               ("3DSSD SA3", BATCH, 1024, 131, 256, 0, 512))
+
+
+def _ffps_rows(b, n, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    xyz = torch.rand((b, n, 3), generator=g) * 40.0
+    feats = torch.relu(torch.randn((b, n, d - 3), generator=g)) * 3.0
+    return torch.cat([xyz, feats], -1).cuda()
+
+
+def check_ffps():
+    """K9 against its plain version (torch.equal) at 3DSSD's shapes, on
+    random rows and on rows each given twice (every step ties), timed
+    through its wrapper, with its bound: the table's bytes, (npoint - 1) x n
+    x (3 d + 1) operations at the f32 rate, K1's step latency."""
+    from pointrcnn_tpu_torch.ops import cuda_fps
+
+    tally = Tally()
+    t_step = fps_step_ms()
+    for name, B, N, D, npoint, start, end in FFPS_SHAPES:
+        rows = _ffps_rows(B, N, D, N + D)
+        half = rows[:, : N // 2]
+        for what, x in (("random rows", rows), ("every row twice", torch.cat([half, half], 1))):
+            got = cuda_fps.feature_fps(x, npoint, start, end)
+            ref = cuda_fps.feature_fps_plain(x, npoint, start, end)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"ffps {name} {what}: {(got != ref).sum().item()} picks "
+                                     f"differ from the plain version")
+        ms = cuda_ms(lambda: cuda_fps.feature_fps(rows, npoint, start, end), 10)
+        plain_ms = cuda_ms(lambda: cuda_fps.feature_fps_plain(rows, npoint, start, end), 1)
+        n = end - start
+        nb, ops = 4 * B * (n * D + npoint), float(B) * (npoint - 1) * n * (3 * D + 1)
+        lat = (npoint - 1) * t_step
+        tally.add(ms, plain_ms, nb, ops, PEAK_F32_PER_MS, lat)
+        b, term = bound(nb, ops, PEAK_F32_PER_MS, lat)
+        tally.shapes.append({"stage": name, "rows": B, "n": n, "d": D, "npoint": npoint,
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "term": term})
+        log(f"ffps {name} {B}x{n}x{D}->{npoint}: exact match on random and duplicated rows; "
+            f"kernel {ms:.4f} ms through its wrapper, plain {plain_ms:.1f} ms, bound {b:.4f} ms "
+            f"({term}), bound / kernel {b / ms:.3f}")
+    return tally
+
+
 def knn_case(B, n, m):
     """K3 at one shape under every plan the kernel takes, indices and
     distances each held to the plain version (torch.equal) and timed on the
@@ -2037,6 +2084,79 @@ def phase_default(launches):
 
     check_against_cpu(model, synthetic_cloud(1, cfg.RPN.NUM_POINTS, 5), "default")
     return _frames_per_s(fwd, model, clouds[0], "default")
+
+
+# 3DSSD's eval step (pointrcnn_tpu_torch/cfgs/3dssd_car.yaml) a forward:
+# D-FPS at SA1, SA2 (fusion) and SA3, F-FPS at SA2 and SA3, K2 at the nine
+# SA scales and the two vote-aggregation scales
+SSD3D_LAUNCHES = {"fps": 3, "ffps": 2, "fused_group_mlp_max": 11}
+
+
+def phase_ssd3d(card):
+    """3DSSD's eval step at batch 4 x 16384 points on the card (K9 and K2 at
+    their widths; frames/s), and a batch-1 forward against the port's CPU
+    path: every index set equal, features, votes and head outputs within
+    5% of their scale (K2 against its plain version, bf16 roundings in
+    another order), the survivors of the same boxes equal."""
+    from pointrcnn_tpu_torch import ssd3d_config
+    from pointrcnn_tpu_torch.entry import synthetic_cloud
+    from pointrcnn_tpu_torch.eval.evaluator import build_ssd3d_eval_step
+    from pointrcnn_tpu_torch.models.ssd3d import SSD3D, postprocess
+
+    cfg = ssd3d_config.load_config(os.path.join(REPO, "pointrcnn_tpu_torch", "cfgs",
+                                                "3dssd_car.yaml"))
+    model = SSD3D(cfg, torch.Generator().manual_seed(0)).cuda().eval()
+
+    def frames(b, seed):
+        xyz = torch.from_numpy(synthetic_cloud(b, cfg.NUM_POINTS, seed))
+        inten = torch.rand((b, cfg.NUM_POINTS, 1), generator=torch.Generator().manual_seed(seed))
+        return torch.cat([xyz, inten], -1)
+
+    step = build_ssd3d_eval_step(model, cfg, with_gt=False)
+    pts = frames(BATCH, 0).cuda()
+    step(pts)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_ITERS):
+        out = step(pts)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_ITERS
+    counts = read_counts()
+    want = {k: v * TIMED_ITERS for k, v in SSD3D_LAUNCHES.items()}
+    if {k: counts[k] for k in want} != want or any(
+            v for k, v in counts.items() if k not in want and k != "bn_train_plain"):
+        raise AssertionError(f"3DSSD launches {counts}, expected {want} and nothing else")
+    if not all(bool(torch.isfinite(v.float()).all()) for v in out.values()):
+        raise AssertionError("3DSSD step: non-finite outputs")
+    log(f"3DSSD eval step at {BATCH} x {cfg.NUM_POINTS}: {ms:.2f} ms a batch "
+        f"({BATCH * 1e3 / ms:.1f} frames/s), launches a step {SSD3D_LAUNCHES}; {card}")
+
+    one = frames(1, 5)
+    cpu = copy.deepcopy(model).cpu()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu(one)
+        got = {k: v for k, v in model(one.cuda()).items()}
+    log(f"3DSSD batch-1 cpu comparison: {time.perf_counter() - t0:.1f} s")
+    for k in ("sa1_sample_idx", "sa2_sample_idx", "sa3_sample_idx"):
+        if not torch.equal(got[k].cpu(), ref[k]):
+            raise AssertionError(f"3DSSD {k} differs from the CPU path")
+    for k in ("sa1_query_idx", "sa2_query_idx", "sa3_query_idx", "agg_query_idx"):
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got[k], ref[k])):
+            raise AssertionError(f"3DSSD {k} differs from the CPU path")
+    for k in ("sa1_features", "sa2_features", "sa3_features", "votes", "cls", "reg"):
+        e = (got[k].cpu() - ref[k]).abs().max().item()
+        scale = ref[k].abs().max().item()
+        log(f"3DSSD vs cpu {k}: max err {e:.3e} (scale {scale:.3e})")
+        if e > 0.05 * scale:
+            raise AssertionError(f"3DSSD {k} differs from the CPU path by {e} (scale {scale})")
+    post_cpu = postprocess(cfg, {k: got[k].cpu() for k in ("cls", "reg", "votes")})
+    post_card = postprocess(cfg, {k: got[k] for k in ("cls", "reg", "votes")})
+    for k in ("sel_idx", "sel_valid"):
+        if not torch.equal(post_card[k].cpu(), post_cpu[k]):
+            raise AssertionError(f"3DSSD post-process {k}: the card's differs from the CPU's")
+    return {"ms": ms, "launches": counts}
 
 
 def phase_exact():
@@ -3734,6 +3854,7 @@ def main() -> int:
                "fused_group_mlp_backward": check_mlp_bwd()}
     tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
     bn_tallies = check_bn_train()
+    ffps_tally = check_ffps()
     mark("kernel checks")
     check_shipped_stages()
     mark("shipped stages")
@@ -3776,6 +3897,8 @@ def main() -> int:
     wide_launches = phase_wide(card)
     car_2x_exact_launches = phase_car_2x_exact(card)
     mark("paths W, X")
+    ssd3d = phase_ssd3d(card)
+    mark("3DSSD")
     # launches: the count of the eval forward's run, or for a kernel that
     # only a training stage runs, of that stage's run (the rpn stage's for
     # the gather backward, the rcnn stage's for the MLP backward);
@@ -3820,6 +3943,11 @@ def main() -> int:
               "data_parallel_launches": {run: c[name] for run, c in dp_launches.items()},
               **tally.row()}
              for name, tally in bn_tallies.items()]
+    # K9, 3DSSD's F-FPS (no TPU twin); its launches: 3DSSD's timed steps'
+    rows.append({"name": "ffps", "route": "cuda", "source": "pointrcnn_tpu_torch/csrc/fps.cu",
+                 "replaces": "none: 3DSSD's F-FPS (mmdetection3d's FS / F-FPS samplers)",
+                 "ssd3d_launches": ssd3d["launches"]["ffps"], "ssd3d_ms": ssd3d["ms"],
+                 **ffps_tally.row()})
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -59,10 +59,13 @@
 //   16384 points' coordinates in shared memory, the rest read from global
 //   memory (L2) each step, the running minima in a global scratch row.
 //
+// K9, feature-space FPS (3DSSD's F-FPS), is at the end of the file.
+//
 // Compiled with --fmad=false so the distance is not contracted into FMAs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <climits>
 
 namespace {
@@ -412,6 +415,171 @@ int cluster_size(int n) {
   return 0;
 }
 
+// ---------------------------------------------------------------- K9: F-FPS
+//
+// Feature-space furthest point sampling (3DSSD's F-FPS): FPS over rows of d
+// = 3 + C f32 values (xyz, then a point's features), a row range [r0, r0 +
+// n) of each batch row's table.  K1's contract with a wider distance: the
+// first pick is the range's first row; each step folds the squared distance
+// to the last pick into a running minimum that starts at 1e10 and picks its
+// argmax, the lowest index on ties.  The distance is summed over the d
+// values in dimension order, ((((x0 - q0)^2 + (x1 - q1)^2) + (x2 - q2)^2)
+// + ...), each square and each sum rounded to f32 (--fmad=false): at d = 3
+// it is K1's (dx*dx + dy*dy) + dz*dz.
+//
+// What bounds it: the chain of npoint - 1 dependent steps, each a d-long
+// chain of dependent adds over every point of the row.  A step reads the
+// whole table (4096 x 67 x 4 B = 1.1 MB a row at 3DSSD's SA2), which no
+// single SM holds, so a row belongs to a thread-block cluster of
+// kFfpsCluster blocks, each holding its share of the rows in shared memory
+// (point-major at an odd stride, so a warp's reads of one dimension fall in
+// 32 banks) and its points' running minima in registers.  A step: every
+// thread folds its points' distances to the pick row (a copy in its
+// block's shared memory, read as a broadcast), the lane-local argmax over
+// rising index with strict >, the warp's by redux, the block's through one
+// slot a warp behind one barrier; each block publishes its winner (key,
+// index and its whole row) in a double-buffered slot of its shared memory;
+// one cluster barrier; every block copies the cluster's kFfpsCluster
+// candidate rows and keys through distributed shared memory in one round
+// trip, and every thread takes the largest key, the lowest index on ties:
+// its row is the next pick row.
+constexpr int kFfpsCluster = 8;
+
+__host__ __device__ inline int ffps_stride(int d) { return d | 1; }
+
+template <int PPL>
+__global__ void __cluster_dims__(kFfpsCluster, 1, 1) __launch_bounds__(1024)
+    ffps_kernel(const float* __restrict__ x, int n_total, int r0, int n, int d, int m,
+                int npoint, int* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  constexpr int CS = kFfpsCluster;
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int ds = ffps_stride(d);
+  const int row = blockIdx.x / CS;
+  const int p0 = rank * m;
+  const int cnt = max(0, min(m, n - p0));
+  // layout: the share (m x ds), the candidate rows (CS x ds), the two
+  // published rows (2 x ds), then 8-byte words: the two published keys,
+  // the candidate keys (CS), the warp slots (2 x 32)
+  float* tab = smem;
+  float* cand = tab + (size_t)m * ds;
+  float* pub = cand + CS * ds;
+  size_t words = ((size_t)m * ds + (CS + 2) * ds + 1) / 2;
+  unsigned long long* pubkey = reinterpret_cast<unsigned long long*>(smem) + words;
+  unsigned long long* ckey = pubkey + 2;
+  unsigned long long* slot = ckey + CS;
+
+  const float* src = x + ((size_t)row * n_total + r0) * d;
+  for (int t = tid; t < cnt * d; t += nthreads) {
+    const int p = t / d, k = t - p * d;
+    tab[(size_t)p * ds + k] = src[(size_t)(p0 + p) * d + k];
+  }
+  // the first pick row: the range's first row, in every block's slot 0
+  for (int k = tid; k < d; k += nthreads) cand[k] = src[k];
+  float dist[PPL];
+#pragma unroll
+  for (int j = 0; j < PPL; ++j) dist[j] = tid + nthreads * j < cnt ? 1e10f : -1.f;
+  int* o = out + (size_t)row * npoint;
+  if (rank == 0 && tid == 0) o[0] = r0;
+  const float* q = cand;
+  __syncthreads();
+  for (int step = 1; step < npoint; ++step) {
+    float best = -1.f;
+    int bi = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < PPL; ++j) {
+      const int i = tid + nthreads * j;
+      if (i < cnt) {
+        const float* p = tab + (size_t)i * ds;
+        float dd = p[0] - q[0];
+        float acc = dd * dd;
+#pragma unroll 4
+        for (int k = 1; k < d; ++k) {
+          dd = p[k] - q[k];
+          acc = acc + dd * dd;
+        }
+        dist[j] = fminf(dist[j], acc);
+        if (dist[j] > best) {  // ascending i: strict > keeps the lowest index on ties
+          best = dist[j];
+          bi = p0 + i;
+        }
+      }
+    }
+    unsigned key = best < 0.f ? 0u : __float_as_uint(best);
+    int idx = bi;
+    warp_argmax(key, idx);
+    unsigned long long* sl = slot + (step & 1) * 32;
+    if (lane == 0) sl[warp] = (static_cast<unsigned long long>(key) << 32) | static_cast<unsigned>(~idx);
+    __syncthreads();
+    {
+      const unsigned long long e = lane < nwarps ? sl[lane] : 0x80000000ull;  // key 0, INT_MAX
+      key = static_cast<unsigned>(e >> 32);
+      idx = ~static_cast<int>(static_cast<unsigned>(e));
+      warp_argmax(key, idx);
+    }
+    // this block's winner, published with its row (double-buffered by step:
+    // a buffer is rewritten only after every block has passed the next
+    // step's cluster barrier, so after every read of it)
+    float* pb = pub + (step & 1) * ds;
+    const bool real = idx >= p0 && idx < p0 + cnt;
+    for (int k = tid; k < d; k += nthreads) pb[k] = real ? tab[(size_t)(idx - p0) * ds + k] : 0.f;
+    if (tid == 0) {
+      pubkey[step & 1] = (static_cast<unsigned long long>(key) << 32) | static_cast<unsigned>(~idx);
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    // every block: the cluster's candidates in one round trip
+    for (int t = tid; t < CS * d; t += nthreads) {
+      const int r = t / d, k = t - r * d;
+      cand[r * ds + k] = *cluster.map_shared_rank(pb + k, r);
+    }
+    if (tid < CS) ckey[tid] = *cluster.map_shared_rank(pubkey + (step & 1), tid);
+    __syncthreads();
+    // the largest key, the lowest index on ties: the largest (key << 32 |
+    // ~index)
+    int win = 0;
+    unsigned long long top = ckey[0];
+#pragma unroll
+    for (int r = 1; r < CS; ++r) {
+      if (ckey[r] > top) {
+        top = ckey[r];
+        win = r;
+      }
+    }
+    q = cand + win * ds;
+    if (rank == 0 && tid == 0) o[step] = r0 + ~static_cast<int>(static_cast<unsigned>(top));
+  }
+  // no block leaves while another may still read its published winner
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared memory of a block of ffps_kernel for shares of m points of d
+// values
+size_t ffps_smem(int m, int d) {
+  const int ds = ffps_stride(d);
+  const size_t words = ((size_t)m * ds + (kFfpsCluster + 2) * ds + 1) / 2;
+  return (words + 2 + kFfpsCluster + 2 * 32) * 8;
+}
+
+// the most dynamic shared memory a block may take on sm_90
+constexpr size_t kMaxSmem = 227 * 1024;
+
+template <int PPL>
+cudaError_t launch_ffps(const float* x, int rows, int n_total, int r0, int n, int d, int m,
+                        int threads, int npoint, int* out, size_t smem, cudaStream_t s) {
+  auto kernel = ffps_kernel<PPL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<rows * kFfpsCluster, threads, smem, s>>>(x, n_total, r0, n, d, m, npoint, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // xyz (rows, n, 3) f32 -> out (rows, npoint) int32.  (wpr warps a row, rpb
@@ -475,4 +643,28 @@ extern "C" int fps_wide_launch(const float* xyz, int rows, int n, int npoint, in
 extern "C" int fps_step_probe(const float* xyz, int steps, int* out, void* stream) {
   fps_step_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(xyz, steps, out);
   return (int)cudaGetLastError();
+}
+
+// K9: x (rows, n_total, d) f32, the range [r0, r0 + n) of each row ->
+// out (rows, npoint) int32 indices into the whole row (r0 + local index).
+// A row a cluster of kFfpsCluster blocks; refuses (cudaErrorInvalidValue)
+// a share that does not fit a block's shared memory or takes more than 16
+// points a thread (ops/cuda_fps.py::ffps_supported says which).
+extern "C" int ffps_launch(const float* x, int rows, int n_total, int r0, int n, int d,
+                           int npoint, int* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows < 1 || n < 1 || d < 3 || d > 1024 || r0 < 0 || r0 + n > n_total || npoint < 1 ||
+      npoint > n) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int m = (n + kFfpsCluster - 1) / kFfpsCluster;
+  const int threads = std::min(1024, std::max(32, (m + 31) / 32 * 32));
+  const int ppl = (m + threads - 1) / threads;
+  const size_t smem = ffps_smem(m, d);
+  if (smem > kMaxSmem || ppl > 16) return (int)cudaErrorInvalidValue;
+  if (ppl <= 1) return (int)launch_ffps<1>(x, rows, n_total, r0, n, d, m, threads, npoint, out, smem, s);
+  if (ppl <= 2) return (int)launch_ffps<2>(x, rows, n_total, r0, n, d, m, threads, npoint, out, smem, s);
+  if (ppl <= 4) return (int)launch_ffps<4>(x, rows, n_total, r0, n, d, m, threads, npoint, out, smem, s);
+  if (ppl <= 8) return (int)launch_ffps<8>(x, rows, n_total, r0, n, d, m, threads, npoint, out, smem, s);
+  return (int)launch_ffps<16>(x, rows, n_total, r0, n, d, m, threads, npoint, out, smem, s);
 }

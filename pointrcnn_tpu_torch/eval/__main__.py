@@ -12,6 +12,12 @@ Modes:
           rpn eval with --save_rpn_feature wrote (--rcnn_eval_roi_dir,
           --rcnn_eval_feature_dir): recall, KITTI result files, official AP
 
+A config file whose ``FAMILY`` is ``3dssd`` (``ssd3d_config.py``, e.g.
+``pointrcnn_tpu_torch/cfgs/3dssd_car.yaml``) builds 3DSSD instead: its one
+mode is ``rcnn``, the whole detector (recall, KITTI result files, official
+AP), through ``evaluator.build_ssd3d_eval_step``; ``--ckpt`` restores it
+(without one, weights drawn from a fixed seed).
+
 Data parallel: under torchrun (``torchrun --nproc_per_node N -m
 pointrcnn_tpu_torch.eval ...``) every rank loads the same batches and runs
 the step on its slice of each (``--batch_size`` is the global batch; the
@@ -171,6 +177,8 @@ def eval_ckpt(args, cfg, ckpt_path, logger, device=None):
     from pointrcnn_tpu_torch.eval.kitti_eval import evaluate
     from pointrcnn_tpu_torch.models.point_rcnn import PointRCNN
 
+    if "FAMILY" in cfg:
+        return eval_ckpt_ssd3d(args, cfg, ckpt_path, logger, device)
     np.random.seed(666 if args.eval_mode == "rcnn" else 1024)  # reference seeds
     split = cfg.TEST.SPLIT if not args.test else "test"
     mode = "TEST" if args.test else "EVAL"
@@ -224,6 +232,42 @@ def eval_ckpt(args, cfg, ckpt_path, logger, device=None):
     return mesh.broadcast_object(ret)
 
 
+def eval_ckpt_ssd3d(args, cfg, ckpt_path, logger, device=None):
+    """Evaluate one 3DSSD checkpoint (``--eval_mode rcnn``) -> the result
+    dict (every rank's, under data parallel)."""
+    from pointrcnn_tpu_torch.data.loader import DataLoader
+    from pointrcnn_tpu_torch.eval.evaluator import eval_one_epoch_ssd3d
+    from pointrcnn_tpu_torch.eval.kitti_eval import evaluate
+    from pointrcnn_tpu_torch.models.ssd3d import SSD3D
+    from pointrcnn_tpu_torch.ssd3d_config import dataset_config
+
+    np.random.seed(666)
+    split = cfg.TEST.SPLIT if not args.test else "test"
+    dataset = KittiRCNNDataset(
+        args.data_root, dataset_config(cfg), npoints=cfg.NUM_POINTS, split=split,
+        mode="TEST" if args.test else "EVAL", classes=cfg.CLASSES, logger=logger,
+        random_select=True, rpn_eval_labels=False)
+    loader = DataLoader(dataset, batch_size=args.batch_size, num_workers=args.workers,
+                        use_processes=args.worker_processes)
+    model = SSD3D(cfg, generator=torch.Generator().manual_seed(0))
+    model = model.to(torch.device(args.device) if device is None else device)
+    epoch = restore(args, model, ckpt_path, logger)
+    model.eval()
+    out_root = args.output_dir or os.path.join(
+        os.path.dirname(os.path.dirname(ckpt_path)), "eval", f"epoch_{epoch}", split)
+    os.makedirs(out_root, exist_ok=True)
+    ret, final_dir = eval_one_epoch_ssd3d(model, cfg, loader, out_root, logger,
+                                          test_mode=args.test)
+    if not args.test and mesh.rank() == 0:
+        split_file = os.path.join(args.data_root, "KITTI", "ImageSets", f"{split}.txt")
+        label_dir = os.path.join(args.data_root, "KITTI", "object", "training", "label_2")
+        result_str, ap = evaluate(label_dir, final_dir, split_file,
+                                  current_classes=AP_CLASSES[cfg.CLASSES])
+        logger.info("\n%s", result_str)
+        ret.update(ap)
+    return mesh.broadcast_object(ret)
+
+
 def main(argv=None):
     args = parse_args(argv)
     with mesh.process_group(args.device, args.dist_backend) as device:
@@ -235,17 +279,25 @@ def _evaluate(args, device):
     from pointrcnn_tpu_torch.train.checkpoint import list_checkpoints
     from pointrcnn_tpu_torch.utils.snapshot import backup_source
 
-    cfg = load_config(args.cfg_file, args.set_cfgs)
-    if args.eval_mode == "rcnn_offline":
-        overrides = ["RPN.ENABLED", "False", "RCNN.ENABLED", "True",
-                     "RCNN.ROI_SAMPLE_JIT", "False"]
-        assert args.rcnn_eval_roi_dir and args.rcnn_eval_feature_dir, (
-            "rcnn_offline eval requires --rcnn_eval_roi_dir and --rcnn_eval_feature_dir"
-        )
+    from pointrcnn_tpu_torch import ssd3d_config
+
+    if ssd3d_config.family_of(args.cfg_file) == ssd3d_config.FAMILY:
+        if args.eval_mode != "rcnn":
+            raise ValueError(f"a 3DSSD config evaluates the whole detector (--eval_mode rcnn), "
+                             f"not {args.eval_mode!r}")
+        cfg = ssd3d_config.load_config(args.cfg_file, args.set_cfgs)
     else:
-        overrides = ["RPN.ENABLED", "True"]
-        overrides += ["RCNN.ENABLED", "True" if args.eval_mode == "rcnn" else "False"]
-    cfg = merge_from_list(cfg, overrides)
+        cfg = load_config(args.cfg_file, args.set_cfgs)
+        if args.eval_mode == "rcnn_offline":
+            overrides = ["RPN.ENABLED", "False", "RCNN.ENABLED", "True",
+                         "RCNN.ROI_SAMPLE_JIT", "False"]
+            assert args.rcnn_eval_roi_dir and args.rcnn_eval_feature_dir, (
+                "rcnn_offline eval requires --rcnn_eval_roi_dir and --rcnn_eval_feature_dir"
+            )
+        else:
+            overrides = ["RPN.ENABLED", "True"]
+            overrides += ["RCNN.ENABLED", "True" if args.eval_mode == "rcnn" else "False"]
+        cfg = merge_from_list(cfg, overrides)
 
     tag = os.path.splitext(os.path.basename(args.cfg_file))[0]
     if args.extra_tag != "default":

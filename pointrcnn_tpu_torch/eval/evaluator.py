@@ -1,8 +1,9 @@
 """Detection evaluation pipelines (counterpart of
 ``pointrcnn_tpu/eval/evaluator.py``; reference tools/eval_rcnn.py:113-683).
 
-Each mode (joint, rpn, and the offline RCNN over saved proposals and
-features) has an eval step that runs on the model's device: the forward,
+Each mode (joint, rpn, the offline RCNN over saved proposals and
+features, and 3DSSD's one-stage detector) has an eval step that runs on
+the model's device: the forward,
 box decode, score threshold, the final rotated NMS of a batch's frames and
 the recall IoUs.  The host loop does file IO, recall accounting and the KITTI-format
 output, one batch behind the device (:func:`_pipelined_epoch`).
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch.models import ssd3d
 from pointrcnn_tpu_torch.models.point_rcnn import canonical_transform, num_classes_for
 from pointrcnn_tpu_torch.models.proposal import proposal_layer
 from pointrcnn_tpu_torch.ops import counts
@@ -214,6 +216,20 @@ def build_joint_eval_step(model, cfg, with_gt: bool):
         with trace.span("eval.step"), torch.inference_mode():
             out = model({"pts_input": pts_input})
             return joint_postprocess(cfg, out, gt_boxes3d if with_gt else None)
+
+    return step
+
+
+def build_ssd3d_eval_step(model, cfg, with_gt: bool):
+    """3DSSD's eval step ``(pts_input[, gt_boxes3d, gt_valid]) -> outputs``
+    on the model's device: the forward (``models/ssd3d.py``), the decode, the
+    NMS and the score threshold (:func:`ssd3d.postprocess`), and with
+    ``gt_boxes3d`` each gt box's best 3D IoU over the survivors."""
+
+    def step(pts_input, gt_boxes3d=None, gt_valid=None):
+        with trace.span("ssd3d.step"), torch.inference_mode():
+            out = model(pts_input)
+            return ssd3d.postprocess(cfg, out, gt_boxes3d if with_gt else None)
 
     return step
 
@@ -432,6 +448,67 @@ def eval_one_epoch_joint(model, cfg, loader, result_dir, logger=None, test_mode=
         logger.info(
             "recall@%.1f: %.4f (roi %.4f)", th, ret[f"recall_{th}"], ret[f"roi_recall_{th}"]
         )
+    return mesh.broadcast_object(ret), final_output_dir
+
+
+def eval_one_epoch_ssd3d(model, cfg, loader, result_dir, logger=None, test_mode=False):
+    """A 3DSSD eval epoch: :func:`build_ssd3d_eval_step` a batch, each
+    frame's survivors as KITTI result files, recall at ``THRESH_LIST``.
+    The dataset's intensity is PointRCNN's (``intensity - 0.5``); 3DSSD
+    takes it as read, so the host adds 0.5 back."""
+    logger = logger or logging.getLogger(__name__)
+    dataset = loader.dataset
+    device = _device(model)
+    final_output_dir = os.path.join(result_dir, "final_result", "data")
+    os.makedirs(final_output_dir, exist_ok=True)
+    with_gt = not test_mode
+    step = build_ssd3d_eval_step(model, cfg, with_gt)
+    total_recalled = np.zeros(len(THRESH_LIST), np.int64)
+    total_gt = 0
+    final_total = 0
+    fetch = ["pred_boxes3d", "scores", "sel_idx", "sel_valid"] + (["gt_max_iou"] if with_gt else [])
+
+    def enqueue(batch):
+        pts = np.array(batch["pts_input"], dtype=np.float32)
+        if cfg.USE_INTENSITY:
+            pts[..., 3] += 0.5
+        dev = _put({**batch, "pts_input": pts}, ("pts_input", "gt_boxes3d", "gt_valid"), device)
+        if with_gt and "gt_boxes3d" in batch:
+            out = step(dev["pts_input"], dev["gt_boxes3d"], dev["gt_valid"])
+        else:
+            out = step(dev["pts_input"])
+        return {k: out[k] for k in fetch if k in out}
+
+    def process(batch, out):
+        nonlocal total_gt, final_total
+        B = batch["pts_input"].shape[0]
+        if with_gt and "gt_max_iou" in out:
+            for k in range(B):
+                v = batch["gt_valid"][k]
+                gmi = out["gt_max_iou"][k][v]
+                for i, th in enumerate(THRESH_LIST):
+                    total_recalled[i] += int((gmi > th).sum())
+                total_gt += int(v.sum())
+        for k in range(B):
+            sel = out["sel_idx"][k][out["sel_valid"][k]]
+            if sel.size == 0:
+                continue
+            sample_id = int(batch["sample_id"][k])
+            final_total += sel.size
+            save_kitti_format(sample_id, dataset.get_calib(sample_id), out["pred_boxes3d"][k][sel],
+                              final_output_dir, out["scores"][k][sel],
+                              dataset.get_image_shape(sample_id), class_name=cfg.CLASSES)
+
+    _pipelined_epoch(loader, enqueue, process)
+    if mesh.rank() == 0:
+        for sid in dataset.image_idx_list:
+            path = os.path.join(final_output_dir, "%06d.txt" % int(sid))
+            if not os.path.exists(path):
+                open(path, "w").close()
+    ret = {"final_total": final_total, "total_gt_bbox": max(total_gt, 1)}
+    for i, th in enumerate(THRESH_LIST):
+        ret[f"recall_{th}"] = total_recalled[i] / max(total_gt, 1)
+        logger.info("recall@%.1f: %.4f", th, ret[f"recall_{th}"])
     return mesh.broadcast_object(ret), final_output_dir
 
 

@@ -201,11 +201,19 @@ class SharedMLP(nn.Module):
     """
 
     def __init__(self, cin, features, bn=True, kernel_init=torch_conv_init,
-                 dtype=None, fold_geometry=False, gen=None):
+                 dtype=None, fold_geometry=False, gen=None, conv_bias=False, eps=BN_EPS,
+                 any_table=False):
+        """``conv_bias``: a bias ``b{i}`` before each batch norm too (an
+        mmdetection3d ``ConvModule`` with ``bias=True``; eval only); ``eps``:
+        the batch norms' epsilon; ``any_table``: at eval a grouped stack
+        takes the fused kernel at any table length the kernel takes, past
+        the TPU predicate's (3DSSD's SA1 and SA2 tables of 16384 and 4096
+        points)."""
         super().__init__()
         self.n, self.bn, self.dtype = len(features), bn, dtype
         self.momentum = 0.1
         self.fold_geometry = fold_geometry
+        self.conv_bias, self.eps, self.any_table = conv_bias and bn, eps, any_table
         for i, f in enumerate(features):
             self.register_parameter(f"w{i}", nn.Parameter(kernel_init(cin, f, gen)))
             if bn:
@@ -213,7 +221,7 @@ class SharedMLP(nn.Module):
                 self.register_parameter(f"bn{i}_bias", nn.Parameter(torch.zeros(f)))
                 self.register_buffer(f"bn{i}_mean", torch.zeros(f))
                 self.register_buffer(f"bn{i}_var", torch.ones(f))
-            else:
+            if not bn or self.conv_bias:
                 self.register_parameter(f"b{i}", nn.Parameter(torch.zeros(f)))
             cin = f
 
@@ -223,9 +231,14 @@ class SharedMLP(nn.Module):
         for i in range(self.n):
             w = getattr(self, f"w{i}")
             if self.bn:
-                inv = getattr(self, f"bn{i}_scale") * torch.rsqrt(getattr(self, f"bn{i}_var") + BN_EPS)
+                inv = getattr(self, f"bn{i}_scale") * torch.rsqrt(getattr(self, f"bn{i}_var")
+                                                                  + self.eps)
                 ws.append(w * inv[None, :])
-                bs.append(getattr(self, f"bn{i}_bias") - getattr(self, f"bn{i}_mean") * inv)
+                if self.conv_bias:
+                    bs.append(getattr(self, f"bn{i}_bias")
+                              + (getattr(self, f"b{i}") - getattr(self, f"bn{i}_mean")) * inv)
+                else:
+                    bs.append(getattr(self, f"bn{i}_bias") - getattr(self, f"bn{i}_mean") * inv)
             else:
                 ws.append(w)
                 bs.append(getattr(self, f"b{i}"))
@@ -241,7 +254,8 @@ class SharedMLP(nn.Module):
             ws, bs = self.folded()
             if group_args is not None:
                 g_xyz, g_feats, g_new_xyz, g_idx, g_use_xyz = group_args
-                if fused_group_mlp_max_supported(g_feats, g_idx, dt):
+                if fused_group_mlp_max_supported(g_feats, g_idx, dt) or (
+                        self.any_table and g_feats is not None and dt == torch.bfloat16):
                     return fused_group_mlp_max(
                         g_xyz, g_feats, g_new_xyz, g_idx, ws, bs, g_use_xyz,
                         fold_geometry=self.fold_geometry and fold_geometry_profitable(g_feats))
@@ -251,8 +265,11 @@ class SharedMLP(nn.Module):
         for i in range(self.n):
             w = getattr(self, f"w{i}")
             y = x.to(dt).to(torch.float32) @ w.to(dt).to(torch.float32)
+            if self.conv_bias:
+                y = y + getattr(self, f"b{i}")
             if self.bn:
-                inv = torch.rsqrt(getattr(self, f"bn{i}_var") + BN_EPS) * getattr(self, f"bn{i}_scale")
+                inv = (torch.rsqrt(getattr(self, f"bn{i}_var") + self.eps)
+                       * getattr(self, f"bn{i}_scale"))
                 y = (y - getattr(self, f"bn{i}_mean")) * inv + getattr(self, f"bn{i}_bias")
             else:
                 y = y + getattr(self, f"b{i}")
@@ -261,6 +278,8 @@ class SharedMLP(nn.Module):
 
     def _train_forward(self, x, reduce_max, group_args, dt):
         global generic_grouped_train
+        if self.conv_bias:
+            raise NotImplementedError("SharedMLP: a bias before batch norm is eval only")
         if group_args is not None:
             g_xyz, g_feats, g_new_xyz, g_idx, g_use_xyz = group_args
             if not self.bn:

@@ -4,6 +4,8 @@ inside the shared MLPs; the sampling and grouping are the same in both."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -19,22 +21,38 @@ from pointrcnn_tpu_torch.ops.grouping import (
     three_interpolate,
     three_nn,
 )
-from pointrcnn_tpu_torch.ops.sampling import furthest_point_sample
+from pointrcnn_tpu_torch.ops.sampling import furthest_point_sample, sample_points
 
 
 class SetAbstractionMSG(nn.Module):
     """Multi-scale grouping: FPS centroids, per-radius ball query + shared
-    MLP + max over the neighbourhood, concatenated over scales."""
+    MLP + max over the neighbourhood, concatenated over scales.
+
+    3DSSD's stages (``models/ssd3d.py``) add: ``sampler``, a sampler spec
+    (``ops.sampling.Sampler``s: D-FPS, F-FPS, fusion sampling over row
+    ranges) in place of FPS of ``npoint``; centres given to :meth:`run`
+    (``target_xyz``, the vote aggregation's votes) in place of sampling;
+    ``aggregation``, the width of a Conv1d-BN-ReLU over the concatenated
+    scales; ``mlp_opts``, options of every :class:`SharedMLP`
+    (``conv_bias``, ``eps``, ``any_table``); ``query_span``, a span named so
+    around the ball query."""
 
     def __init__(self, cin, npoint, radii, nsamples, mlps, use_xyz=True, bn=True,
-                 dtype=None, query_method="exact", fps_method="exact", gen=None):
+                 dtype=None, query_method="exact", fps_method="exact", gen=None,
+                 sampler=None, aggregation=None, mlp_opts=None, query_span=None):
         super().__init__()
         self.npoint, self.use_xyz = npoint, use_xyz
         self.specs = list(zip(radii, nsamples))
         self.query_method, self.fps_method, self.dtype = query_method, fps_method, dtype
+        self.sampler, self.query_span = sampler, query_span
+        opts = mlp_opts or {}
         for i, mlp in enumerate(mlps):
             self.add_module(f"SharedMLP_{i}", SharedMLP(
-                cin + (3 if use_xyz else 0), mlp, bn=bn, dtype=dtype, gen=gen))
+                cin + (3 if use_xyz else 0), mlp, bn=bn, dtype=dtype, gen=gen, **opts))
+        self.aggregation = None
+        if aggregation is not None:
+            self.aggregation = SharedMLP(sum(m[-1] for m in mlps), [aggregation], bn=bn,
+                                         dtype=dtype, gen=gen, conv_bias=True)
 
     def forward(self, xyz, features):
         if features is None and self.use_xyz and self.query_method == "approx":
@@ -44,13 +62,30 @@ class SetAbstractionMSG(nn.Module):
                 outs = [getattr(self, f"SharedMLP_{i}")(rel.to(dt), reduce_max=True)
                         for i, rel in enumerate(rels)]
                 return new_xyz, torch.cat(outs, dim=-1)
-        fps_idx = furthest_point_sample(xyz, self.npoint, method=self.fps_method)
-        new_xyz = gather_points(xyz, fps_idx)
-        idx_list = ball_query_multi(xyz, new_xyz, self.specs, method=self.query_method)
+        out = self.run(xyz, features)
+        return out["xyz"], out["features"]
+
+    def run(self, xyz, features, target_xyz=None) -> dict:
+        """Sampling (or the given centres), ball query, the grouped stacks and
+        the aggregation -> {"xyz", "features", "sample_idx" (None with given
+        centres), "query_idx" (one (B, S, nsample) int32 a scale)}."""
+        if target_xyz is not None:
+            new_xyz, fps_idx = target_xyz, None
+        else:
+            if self.sampler is not None:
+                fps_idx = sample_points(xyz, features, self.sampler)
+            else:
+                fps_idx = furthest_point_sample(xyz, self.npoint, method=self.fps_method)
+            new_xyz = gather_points(xyz, fps_idx)
+        with trace.span(self.query_span) if self.query_span else contextlib.nullcontext():
+            idx_list = ball_query_multi(xyz, new_xyz, self.specs, method=self.query_method)
         outs = [getattr(self, f"SharedMLP_{i}")(
                     None, group_args=(xyz, features, new_xyz, idx, self.use_xyz))
                 for i, idx in enumerate(idx_list)]
-        return new_xyz, torch.cat(outs, dim=-1)
+        feats = torch.cat(outs, dim=-1)
+        if self.aggregation is not None:
+            feats = self.aggregation(feats)
+        return {"xyz": new_xyz, "features": feats, "sample_idx": fps_idx, "query_idx": idx_list}
 
     def _xyz_only(self, xyz):
         """An xyz-only stage: the selection kernels emit the neighbourhoods'

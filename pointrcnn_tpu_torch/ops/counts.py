@@ -18,6 +18,7 @@ import time
 # kernel -> (module under pointrcnn_tpu_torch.ops, counter)
 COUNTERS = {
     "fps": ("cuda_fps", "launches"),
+    "ffps": ("cuda_fps", "ffps_launches"),
     "three_nn": ("cuda_knn", "launches"),
     "group_gather": ("cuda_gather", "launches"),
     "fused_group_mlp_max": ("cuda_mlp", "launches"),

@@ -32,6 +32,13 @@ from pointrcnn_tpu_torch.ops.common import sm_count
 MAX_N = 16384
 
 launches = 0
+ffps_launches = 0
+
+# blocks of a K9 cluster (a row's table is spread over their shared memory)
+FFPS_CLUSTER = 8
+# a K9 block's shared-memory budget on sm_90 and its most points a thread
+_FFPS_SMEM = 227 * 1024
+_FFPS_MAX_PPL = 16
 
 
 def plans(n: int) -> tuple[tuple[int, int], ...]:
@@ -160,3 +167,92 @@ def step_probe_ms(steps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
+
+
+def _ffps_smem(m: int, d: int) -> int:
+    """A K9 block's shared memory for shares of ``m`` points of ``d``
+    values (``ffps_smem`` in ``csrc/fps.cu``)."""
+    ds = d | 1
+    words = (m * ds + (FFPS_CLUSTER + 2) * ds + 1) // 2
+    return (words + 2 + FFPS_CLUSTER + 2 * 32) * 8
+
+
+def ffps_supported(n: int, d: int) -> bool:
+    """Whether K9 takes a range of ``n`` rows of ``d`` values: each of the
+    cluster's blocks holds its share in shared memory at 16 points a thread
+    at most (3DSSD's SA2, 4096 x 67: 137 KB a block)."""
+    m = -(-n // FFPS_CLUSTER)
+    threads = min(1024, max(32, -(-m // 32) * 32))
+    return (3 <= d <= 1024 and n >= 1 and _ffps_smem(m, d) <= _FFPS_SMEM
+            and -(-m // threads) <= _FFPS_MAX_PPL)
+
+
+def feature_fps_plain(rows: torch.Tensor, npoint: int, start: int = 0,
+                      end: int | None = None) -> torch.Tensor:
+    """Plain version of K9: (B, N, D) f32 rows, the range [start, end) ->
+    (B, npoint) int32 indices into the whole row."""
+    x = rows[:, start:end].to(torch.float32)
+    B, n, D = x.shape
+    col = torch.arange(n, device=x.device)
+    dists = torch.full((B, n), 1e10, dtype=torch.float32, device=x.device)
+    out = torch.zeros((B, npoint), dtype=torch.int32, device=x.device)
+    last = torch.zeros((B, 1), dtype=torch.long, device=x.device)
+    for i in range(1, npoint):
+        diff = x - torch.gather(x, 1, last[..., None].expand(B, 1, D))
+        acc = diff[..., 0] * diff[..., 0]
+        for k in range(1, D):
+            acc = acc + diff[..., k] * diff[..., k]
+        dists = torch.minimum(dists, acc)
+        m = dists.max(dim=1, keepdim=True).values
+        last = torch.where(dists == m, col, n).min(dim=1, keepdim=True).values
+        out[:, i] = last[:, 0].to(torch.int32)
+    return out + start
+
+
+@functools.lru_cache(maxsize=None)
+def _ffps_kernel():
+    """``ffps_launch`` of the library, its argument types set once."""
+    from pointrcnn_tpu_torch import _build
+
+    fn = _build.load("fps", _build.NO_FMAD).ffps_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_ffps(rows: torch.Tensor, npoint: int, start: int, n: int) -> torch.Tensor:
+    from pointrcnn_tpu_torch import _build
+
+    global ffps_launches
+    B, N, D = rows.shape
+    if not ffps_supported(n, D):
+        raise ValueError(f"feature_fps: a range of {n} rows of {D} values is past K9's "
+                         f"shared memory ({FFPS_CLUSTER} blocks a row)")
+    rows = rows.contiguous()
+    out = torch.empty((B, npoint), dtype=torch.int32, device=rows.device)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    with trace.span("ffps"):
+        _build.check(_ffps_kernel()(rows.data_ptr(), B, N, start, n, D, npoint,
+                                    out.data_ptr(), stream), "ffps_launch")
+    ffps_launches += 1
+    return out
+
+
+def feature_fps(rows: torch.Tensor, npoint: int, start: int = 0,
+                end: int | None = None) -> torch.Tensor:
+    """F-FPS over ``rows`` (B, N, 3 + C) f32 in the row range [start, end)
+    -> (B, npoint) int32 indices into the whole row: K9 for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    B, N, D = rows.shape
+    end = N if end is None else end
+    if rows.dtype != torch.float32 or D < 3:
+        raise ValueError(f"feature_fps: need (B, N, 3 + C) float32, got {tuple(rows.shape)} "
+                         f"{rows.dtype}")
+    if not (0 <= start < end <= N and 1 <= npoint <= end - start):
+        raise ValueError(f"feature_fps: need 0 <= start < end <= N and 1 <= npoint <= end - "
+                         f"start, got [{start}, {end}) of {N}, npoint={npoint}")
+    if rows.is_cuda:
+        return _launch_ffps(rows, npoint, start, end - start)
+    if rows.device.type == "cpu":
+        return feature_fps_plain(rows, npoint, start, end)
+    raise ValueError(f"feature_fps: unsupported device {rows.device}")

@@ -4,9 +4,18 @@
 ``method="blockwise"`` z-sorts each cloud, splits it into ``s`` equal-count
 depth bands and runs the exact chain per band for ``npoint / s`` picks.
 Every chain runs the FPS kernel (its plain version for CPU tensors).
+
+:func:`sample_points` runs a stage's sampler spec (3DSSD's, after
+mmdetection3d's ``Points_Sampler``): a list of :class:`Sampler`, each over
+the row range from where the previous one ended, its indices concatenated:
+``D-FPS`` (the exact chain over xyz, K1), ``F-FPS`` (over concat(xyz,
+features), K9) or ``FS`` (fusion sampling: the F-FPS and the D-FPS picks of
+the same range, in that order, ``2 * npoint`` indices).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -60,3 +69,57 @@ def _blockwise_stripes(N: int, npoint: int) -> int:
     ):
         s *= 2
     return s
+
+
+SAMPLER_MODES = ("D-FPS", "F-FPS", "FS")
+
+
+@dataclass(frozen=True)
+class Sampler:
+    """One sampler of a stage's spec: ``mode`` (``SAMPLER_MODES``),
+    ``npoint`` picks (``FS``: that many of each kind) over the rows from the
+    previous sampler's end to ``end`` (-1: the last row; mmdetection3d's
+    ``fps_sample_range_list``)."""
+
+    mode: str
+    npoint: int
+    end: int = -1
+
+    def __post_init__(self):
+        if self.mode not in SAMPLER_MODES:
+            raise ValueError(f"sampler mode must be one of {SAMPLER_MODES}, got {self.mode!r}")
+
+    @property
+    def picks(self) -> int:
+        return 2 * self.npoint if self.mode == "FS" else self.npoint
+
+
+def sampler_spec(modes, npoints, ends) -> tuple[Sampler, ...]:
+    """A stage's spec from the config's lists (``FPS_MODS``, ``NPOINTS``,
+    ``FPS_RANGES``)."""
+    return tuple(Sampler(m, int(n), int(e)) for m, n, e in zip(modes, npoints, ends))
+
+
+def sample_points(xyz: torch.Tensor, features, spec) -> torch.Tensor:
+    """A stage's sampler spec over (B, N, 3) xyz and (B, N, C) f32
+    features -> (B, sum of picks) int32 indices into the N rows."""
+    N = xyz.shape[1]
+    rows = None
+    out, start = [], 0
+    for s in spec:
+        end = N if s.end == -1 else s.end
+        if not 0 <= start < end <= N:
+            raise ValueError(f"sampler range [{start}, {end}) outside {N} rows")
+        parts = []
+        if s.mode in ("F-FPS", "FS"):
+            if features is None:
+                raise ValueError(f"{s.mode} needs features")
+            if rows is None:
+                rows = torch.cat([xyz.to(torch.float32), features.to(torch.float32)], dim=-1)
+            parts.append(cuda_fps.feature_fps(rows, s.npoint, start, end))
+        if s.mode in ("D-FPS", "FS"):
+            sub = xyz if (start, end) == (0, N) else xyz[:, start:end]
+            parts.append(cuda_fps.furthest_point_sample(sub, s.npoint) + start)
+        out += parts
+        start = end
+    return torch.cat(out, dim=1) if len(out) > 1 else out[0]

@@ -23,8 +23,11 @@ The names follow the layer map: ``eval.step`` and ``train.step`` (roots),
 ``models.rpn`` with ``pointnet2.SA1``... and ``pointnet2.FP1``...,
 ``models.proposal``, ``ops.nms``, ``ops.roipool3d``, ``models.rcnn``,
 ``eval.postprocess``, the train step's phases (``train.state.phase``,
-``models.point_rcnn.phase``), and each kernel's launch under its counter's
-name (``ops.counts.COUNTERS``).
+``models.point_rcnn.phase``), 3DSSD's eval step (``ssd3d.step``, a root,
+with ``ssd3d.SA1``..., ``ssd3d.vote``, ``ssd3d.vote_aggregation``,
+``ssd3d.head``, ``ssd3d.decode`` and ``ops.ball_query_exact`` around each
+exact ball query), and each kernel's launch under its counter's name
+(``ops.counts.COUNTERS``).
 """
 
 from __future__ import annotations
