@@ -40,7 +40,10 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    W wide and bands whose full-row branch folds from another W, each
    banded one with its flag true and false), and the banded stage
    (``fps_group_banded``) captured in a CUDA graph and replayed on a cloud
-   whose flag reads false;
+   whose flag reads false; K9 (F-FPS) at 3DSSD's shapes; K10 (the exact
+   ball query) index-equal to its plain version at 3DSSD's four queries
+   and the exact setting's stages, on random, duplicated and on-sphere
+   points under every block size, timed beside its bound;
 3b. the SA stages of every shipped config (``cfgs/default.yaml``,
    ``people.yaml``, ``car_2x.yaml``), of default.yaml + ``WIDE_OVERRIDES``
    and of car_2x.yaml + ``EXACT_OVERRIDES`` that the port routes to the
@@ -60,7 +63,7 @@ Phases (any failure exits non-zero and the final ``ok`` line is not printed):
    RPN SA1 then equal to the full scan of its sorted table; hold a batch-1
    forward against the port's plain path on the CPU; time frames/s;
 5. the same for the exact-method setting (``entry.EXACT_OVERRIDES``) on
-   one cloud;
+   one cloud, every ball query on K10 (one launch a sampling SA stage);
 6. the gather backward (K8) against its plain version at the ``rpn``
    training stage's shapes (RPN SA2-SA4, K = 16 and 32, batch 16):
    deterministic, equal to the plain version on the CPU, within the f32
@@ -380,7 +383,7 @@ def phase_build():
 
     sources = (("fps", _build.NO_FMAD), ("knn", _build.NO_FMAD), ("gather", _build.NO_FMAD),
                ("mlp", _build.NO_FMAD), ("ballquery", _build.NO_FMAD),
-               ("bn_train", _build.NO_FMAD))
+               ("ballquery_first_k", _build.NO_FMAD), ("bn_train", _build.NO_FMAD))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(_build.load, name, flags) for name, flags in sources]:
@@ -574,6 +577,122 @@ def check_ffps():
         log(f"ffps {name} {B}x{n}x{D}->{npoint}: exact match on random and duplicated rows; "
             f"kernel {ms:.4f} ms through its wrapper, plain {plain_ms:.1f} ms, bound {b:.4f} ms "
             f"({term}), bound / kernel {b / ms:.3f}")
+    return tally
+
+
+# K10's shapes (name, B, N, S, specs, cloud): 3DSSD's four exact queries at
+# batch 4 (cfgs/3dssd_car.yaml; the tally's: SA2's fusion sampling gives 2 x
+# 512 centres, SA3 queries its 2 x 256 over SA2's 1024 rows, the votes 256
+# over SA3's 512), then the exact setting's PointRCNN stages (entry.EXACT_OVERRIDES: RPN SA1-SA4 at batch 4, RCNN SA1
+# and SA2 over 400 rois) and path K's nsample past N
+FIRST_K_SHAPES = (
+    ("3DSSD SA1", BATCH, 16384, 4096, ((0.2, 32), (0.4, 32), (0.8, 64)), "rpn"),
+    ("3DSSD SA2", BATCH, 4096, 1024, ((0.4, 32), (0.8, 32), (1.6, 64)), "rpn"),
+    ("3DSSD SA3", BATCH, 1024, 512, ((1.6, 32), (3.2, 32), (4.8, 32)), "rpn"),
+    ("3DSSD votes", BATCH, 512, 256, ((4.8, 16), (6.4, 32)), "rpn"),
+    ("exact RPN SA1", BATCH, 16384, 4096, ((0.1, 16), (0.5, 32)), "rpn"),
+    ("exact RPN SA2", BATCH, 4096, 1024, ((0.5, 16), (1.0, 32)), "rpn"),
+    ("exact RPN SA3", BATCH, 1024, 256, ((1.0, 16), (2.0, 32)), "rpn"),
+    ("exact RPN SA4", BATCH, 256, 64, ((2.0, 16), (4.0, 32)), "rpn"),
+    ("exact RCNN SA1", 400, 512, 128, ((0.2, 64),), "roi"),
+    ("exact RCNN SA2", 400, 128, 32, ((0.4, 64),), "roi"),
+    ("nsample past N", 400, 128, 32, ((0.4, 512),), "roi"),
+)
+
+
+def _first_k_equal(what, got, ref):
+    for (radius, nsample), a, b in zip(what[1], got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"ball_query_first_k {what[0]} r={radius} ns={nsample}: "
+                                 f"{(a != b).sum().item()} indices differ from the plain version")
+
+
+def _first_k_pairs(x, c, specs) -> int:
+    """The (centre, point) pairs the selection needs: per centre the points
+    up to the one at which every spec holds its nsample hits, the whole row
+    where one never does (what K10 scans, before its steps of 32)."""
+    from pointrcnn_tpu_torch.ops.common import radius_sq, square_distance_exact
+
+    N = x.shape[1]
+    total = 0
+    for cc in c.split(256, dim=1):
+        d2 = square_distance_exact(cc, x)
+        need = torch.zeros(cc.shape[:2], dtype=torch.int64, device=x.device)
+        for radius, nsample in specs:
+            full = (d2 < radius_sq(radius)).cumsum(-1, dtype=torch.int32) >= nsample
+            need = torch.maximum(need, torch.where(full.any(-1), full.int().argmax(-1) + 1, N))
+        total += int(need.sum())
+    return total
+
+
+def _sphere_table(c, specs, per: int, seed: int):
+    """Points on the sphere of each radius around each centre of ``c`` (B,
+    S, 3): the six along the axes (d2 == r2 or its neighbour after
+    rounding) and ``per`` more in random directions, the rows shuffled."""
+    g = torch.Generator().manual_seed(seed)
+    B, S, _ = c.shape
+    axes = torch.cat([torch.eye(3), -torch.eye(3)])
+    pts = []
+    for radius, _ in specs:
+        u = torch.randn((B, S, per, 3), generator=g)
+        u = torch.cat([axes.expand(B, S, 6, 3), u / u.norm(dim=-1, keepdim=True)], 2)
+        r = torch.tensor(radius, dtype=torch.float32)
+        pts.append(c.cpu()[:, :, None, :] + r * u)
+    pts = torch.cat(pts, 2).reshape(B, -1, 3)
+    return pts[:, torch.randperm(pts.shape[1], generator=g)].contiguous().cuda()
+
+
+def check_ball_query_first_k():
+    """K10 index-equal to its plain version on the card at every shape of
+    FIRST_K_SHAPES, on random points, on every point given twice and on
+    points placed on the sphere of each radius; timed through its wrapper
+    and on the device (CUDA-graph replay)
+    beside the plain version, with its bound: the table, centres and indices
+    once, 8 FP32 operations and a compare a spec for each (centre, point)
+    pair the selection needs (:func:`_first_k_pairs`); then more specs than
+    a launch takes (two launches)."""
+    from pointrcnn_tpu_torch.ops import cuda_ballquery as bq
+
+    tally = Tally()
+    for i, (name, B, N, S, specs, kind) in enumerate(FIRST_K_SHAPES):
+        g = torch.Generator().manual_seed(31 + i)
+        x = cloud(kind, B, N, 31 + i)
+        c = x[:, torch.randperm(N, generator=g)[:S].cuda()].contiguous()
+        half = x[:, :N // 2]
+        twice = torch.cat([half, half], 1).contiguous()
+        sphere_c = c[:, :64].contiguous()
+        cases = (("random", x, c), ("every point twice", twice, c),
+                 ("on the spheres", _sphere_table(sphere_c, specs, 10, i), sphere_c))
+        for what, xx, cc in cases:
+            _first_k_equal((f"{name} {what}", specs), bq.ball_query_first_k(xx, cc, specs),
+                           bq.ball_query_first_k_plain(xx, cc, specs))
+        run = lambda: bq.ball_query_first_k(x, c, specs)  # noqa: E731
+        ms = cuda_ms(run, 20)
+        device_ms = graph_ms(run, 10)
+        plain_ms = cuda_ms(lambda: bq.ball_query_first_k_plain(x, c, specs), 1)
+        pairs = _first_k_pairs(x, c, specs)
+        nb = nbytes(x, c) + 4 * B * S * sum(ns for _, ns in specs)
+        ops = float(pairs) * (8 + len(specs))
+        b, term = bound(nb, ops, PEAK_F32_PER_MS)
+        if name.startswith("3DSSD"):
+            tally.add(ms, plain_ms, nb, ops, PEAK_F32_PER_MS, device_ms=device_ms)
+        tally.shapes.append({"stage": name, "b": B, "n": N, "s": S, "specs": specs,
+                             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "pairs": pairs,
+                             "pairs_share": pairs / (B * S * N), "bound_ms": b, "term": term})
+        log(f"ball_query_first_k {name} B={B} N={N} S={S} specs {specs}: index-equal on random, "
+            f"duplicated and on-sphere points; kernel {ms:.4f} ms through its wrapper, "
+            f"{device_ms:.4f} device, plain {plain_ms:.3f} ms, bound {b:.4f} ms ({term}; "
+            f"{pairs / (B * S * N):.3f} of the pairs needed), bound / device {b / device_ms:.3f}")
+    x = cloud("rpn", 2, 3000, 7)
+    c = x[:, :300].contiguous()
+    specs = [(0.5 * (k + 1), 4 + 3 * k) for k in range(bq.FIRST_K_SPECS + 2)]
+    before = bq.first_k_launches
+    _first_k_equal(("six specs", specs), bq.ball_query_first_k(x, c, specs),
+                   bq.ball_query_first_k_plain(x, c, specs))
+    if bq.first_k_launches - before != 2:
+        raise AssertionError(f"six specs took {bq.first_k_launches - before} launches, not 2")
+    log(f"ball_query_first_k {len(specs)} specs, N=3000 (no multiple of a tile): index-equal "
+        f"in two launches")
     return tally
 
 
@@ -2068,8 +2187,9 @@ def phase_default(launches):
     for name in EVAL_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the default path")
-    if counts["gather_backward"]:
-        raise AssertionError("the eval forward launched the gather backward")
+    if counts["gather_backward"] or counts["ball_query_first_k"]:
+        raise AssertionError("the eval forward launched the gather backward or the exact "
+                             "ball query")
     launches.update(counts)
 
     thin = torch.from_numpy(thin_band_cloud(BATCH, cfg.RPN.NUM_POINTS, 9)).cuda()
@@ -2088,8 +2208,9 @@ def phase_default(launches):
 
 # 3DSSD's eval step (pointrcnn_tpu_torch/cfgs/3dssd_car.yaml) a forward:
 # D-FPS at SA1, SA2 (fusion) and SA3, F-FPS at SA2 and SA3, K2 at the nine
-# SA scales and the two vote-aggregation scales
-SSD3D_LAUNCHES = {"fps": 3, "ffps": 2, "fused_group_mlp_max": 11}
+# SA scales and the two vote-aggregation scales, K10 at SA1-SA3 and the vote
+# aggregation (every scale of a stage in one launch)
+SSD3D_LAUNCHES = {"fps": 3, "ffps": 2, "fused_group_mlp_max": 11, "ball_query_first_k": 4}
 
 
 def phase_ssd3d(card):
@@ -2159,6 +2280,16 @@ def phase_ssd3d(card):
     return {"ms": ms, "launches": counts}
 
 
+def exact_query_launches(model) -> int:
+    """K10's launches a forward of a model whose ball queries are all exact:
+    one for each sampling SA stage's specs, up to FIRST_K_SPECS a launch."""
+    from pointrcnn_tpu_torch.models.pointnet2 import SetAbstraction, SetAbstractionMSG
+    from pointrcnn_tpu_torch.ops.cuda_ballquery import FIRST_K_SPECS
+
+    return sum(-(-len(getattr(m, "specs", [None])) // FIRST_K_SPECS) for m in model.modules()
+               if isinstance(m, (SetAbstraction, SetAbstractionMSG)) and m.npoint is not None)
+
+
 def phase_exact():
     """The exact-method setting (entry.EXACT_OVERRIDES), on one cloud."""
     from pointrcnn_tpu_torch.entry import entry, slice_config, synthetic_cloud
@@ -2173,6 +2304,9 @@ def phase_exact():
     for name in ("fps", "three_nn", "group_gather", "fused_group_mlp_max"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the exact path")
+    if counts["ball_query_first_k"] != exact_query_launches(model):
+        raise AssertionError(f"exact forward: {counts['ball_query_first_k']} ball_query_first_k "
+                             f"launches, expected {exact_query_launches(model)}")
     check_against_cpu(model, synthetic_cloud(1, model.cfg.RPN.NUM_POINTS, 5), "exact")
     _frames_per_s(fwd, model, batch["pts_input"], "exact")
 
@@ -3494,8 +3628,16 @@ def phase_car_2x_exact(card):
     # the exact ball query scans the table (no K5/K6); car_2x's RPN SA2
     # table (8192 points) is past K4's predicate, as in phase_car_2x
     kernels = ("fps", "three_nn", "fused_group_mlp_max")
-    return {"eval": _forward_path("X", shipped_config("car_2x", None, EXACT_OVERRIDES),
-                                  kernels, card)}
+    cfg = shipped_config("car_2x", None, EXACT_OVERRIDES)
+    out = {"eval": _forward_path("X", cfg, kernels, card)}
+    # two forwards, every ball query on K10
+    from pointrcnn_tpu_torch.entry import entry
+
+    want = 2 * exact_query_launches(entry(batch=1, device="cpu", seed=0, cfg=cfg)[1][0])
+    if out["eval"]["ball_query_first_k"] != want:
+        raise AssertionError(f"X forward: {out['eval']['ball_query_first_k']} "
+                             f"ball_query_first_k launches, expected {want}")
+    return out
 
 
 # path K's rcnn step: RCNN SA2 (K 512) trains on the generic route (the TPU
@@ -3855,6 +3997,7 @@ def main() -> int:
     tallies["ball_query"], tallies["ball_query_banded"] = check_ballquery()
     bn_tallies = check_bn_train()
     ffps_tally = check_ffps()
+    first_k_tally = check_ball_query_first_k()
     mark("kernel checks")
     check_shipped_stages()
     mark("shipped stages")
@@ -3948,6 +4091,15 @@ def main() -> int:
                  "replaces": "none: 3DSSD's F-FPS (mmdetection3d's FS / F-FPS samplers)",
                  "ssd3d_launches": ssd3d["launches"]["ffps"], "ssd3d_ms": ssd3d["ms"],
                  **ffps_tally.row()})
+    # K10, the exact ball query (no TPU twin: XLA's top_k there); its
+    # launches: 3DSSD's timed steps' and path X's two forwards'
+    rows.append({"name": "ball_query_first_k", "route": "cuda",
+                 "source": "pointrcnn_tpu_torch/csrc/ballquery_first_k.cu",
+                 "replaces": "none: the exact query's top_k over order keys "
+                             "(pointrcnn_tpu/ops/grouping.py:95)",
+                 "ssd3d_launches": ssd3d["launches"]["ball_query_first_k"],
+                 "car_2x_exact_launches": car_2x_exact_launches["eval"]["ball_query_first_k"],
+                 **first_k_tally.row()})
     log(f"{card}; chip_smoke {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

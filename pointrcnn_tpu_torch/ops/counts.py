@@ -24,6 +24,7 @@ COUNTERS = {
     "fused_group_mlp_max": ("cuda_mlp", "launches"),
     "ball_query": ("cuda_ballquery", "launches"),
     "ball_query_banded": ("cuda_ballquery", "banded_launches"),
+    "ball_query_first_k": ("cuda_ballquery", "first_k_launches"),
     "gather_backward": ("cuda_gather", "bwd_launches"),
     "fused_group_mlp_backward": ("cuda_mlp", "bwd_launches"),
     "bn_train_stats": ("cuda_bn", "stats_launches"),

@@ -20,6 +20,14 @@ full scan does (the JAX version's ``lax.cond`` in ``fps_group_banded``).
 
 Selection is approximate (a class keeps only its nearest member); callers
 mask by radius and backfill (:func:`ball_query_multi_grouped`).
+
+Beside them K10, the exact method's selection (:func:`ball_query_first_k`,
+``csrc/ballquery_first_k.cu``, its own library): per centre and (radius,
+nsample) spec, the first ``nsample`` points in point order whose
+``(dx*dx + dy*dy) + dz*dz`` (``dx = c.x - p.x``, f32, no FMA) is below
+:func:`radius_sq`, slots past the hit count repeating the first hit, an
+all-zero row without hits; ``nsample`` may pass N.  One launch takes every
+spec of a stage (up to :data:`FIRST_K_SPECS`).
 """
 
 from __future__ import annotations
@@ -30,10 +38,11 @@ import functools
 import torch
 
 from pointrcnn_tpu_torch import trace
-from pointrcnn_tpu_torch.ops.common import radius_sq, sm_count
+from pointrcnn_tpu_torch.ops.common import radius_sq, sm_count, square_distance_exact
 
 launches = 0  # full-scan kernel
 banded_launches = 0  # banded kernel
+first_k_launches = 0  # K10, the exact first-in-order selection
 
 # the TPU predicate's smallest table: below it the XLA path was cheaper;
 # tests may lower it
@@ -48,6 +57,13 @@ _BIG = 3.0e38
 
 # centroids x candidates per chunk of the plain version's distance block
 _PLAIN_CELLS = 1 << 25
+
+# (centres x points) cells per chunk of a first-in-order selection's
+# distance block (:func:`centre_chunks`)
+CHUNK_CELLS = 1 << 23
+# specs a K10 launch takes (csrc/ballquery_first_k.cu's kMaxSpecs); more take
+# more launches
+FIRST_K_SPECS = 4
 
 # the (centroids a warp, warps a block) that :func:`plan` picks for the full
 # scan and for the banded kernel, the ones csrc/ballquery.cu's launchers take
@@ -136,6 +152,21 @@ def _check(xyz, cent, kmax, n_bands=None, bands_ok=None):
                                     and bands_ok.device == xyz.device):
         raise ValueError(f"ball_query: bands_ok must be one bool tensor on {xyz.device}, "
                          f"got {bands_ok!r}")
+
+
+def _check_first_k(xyz, cent, specs):
+    """K10's and its plain version's inputs: (B, N, 3) and (B, S, 3) float32
+    on one device, at least one spec, each nsample at least 1."""
+    for name, t in (("xyz", xyz), ("cent", cent)):
+        if t.dtype != torch.float32 or t.dim() != 3 or t.shape[2] != 3:
+            raise ValueError(f"ball_query_first_k: {name} must be (B, n, 3) float32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if cent.shape[0] != xyz.shape[0] or cent.device != xyz.device:
+        raise ValueError(f"ball_query_first_k: cent {tuple(cent.shape)} on {cent.device} does "
+                         f"not match xyz {tuple(xyz.shape)} on {xyz.device}")
+    if not specs or any(int(ns) < 1 for _, ns in specs):
+        raise ValueError(f"ball_query_first_k: specs {specs!r} must be one or more "
+                         f"(radius, nsample >= 1)")
 
 
 # ---------------------------------------------------------------- plain
@@ -234,6 +265,43 @@ def ball_query_banded_plain(xs, cent, kmax: int, n_bands: int, bands_ok):
     return _outputs(xs, cent, dist2, g, True)
 
 
+def centre_chunks(cent, B: int, N: int):
+    """``cent`` (B, S, 3) split along S into chunks of at most
+    :data:`CHUNK_CELLS` (centre, point) cells over an N-point table."""
+    return cent.split(max(1, CHUNK_CELLS // max(B * N, 1)), dim=1)
+
+
+def first_k_in_order(d2: torch.Tensor, r2: float, nsample: int, N: int) -> torch.Tensor:
+    """The exact method's selection on a distance block ``d2`` (..., N): the
+    first ``nsample`` points with ``d2 < r2`` in point order, slots past the
+    hit count repeating the first hit, an all-zero row without hits.
+    ``nsample`` may pass N (the RCNN's SA2 at 512 neighbours of 128 points):
+    the slots past N are past the hit count."""
+    order = torch.where(d2 < r2, torch.arange(N, device=d2.device, dtype=torch.int32), N)
+    # the k smallest order keys, ascending: the first in-radius points
+    # (values only, so no tie-break question arises)
+    vals = torch.topk(order, min(nsample, N), dim=-1, largest=False, sorted=True).values
+    if nsample > N:
+        vals = torch.cat([vals, vals.new_full((*vals.shape[:-1], nsample - N), N)], dim=-1)
+    first = vals[..., :1]
+    idx = torch.where(vals < N, vals, torch.clamp(first, max=N - 1))
+    return torch.where(first >= N, 0, idx).to(torch.int32)
+
+
+def ball_query_first_k_plain(xyz, cent, specs):
+    """K10's plain version: (B, N, 3) x (B, S, 3) float32 -> per (radius,
+    nsample) of ``specs`` the (B, S, nsample) int32 selection, over
+    :func:`square_distance_exact` blocks of centres in chunks."""
+    _check_first_k(xyz, cent, specs)
+    B, N, _ = xyz.shape
+    outs = [[] for _ in specs]
+    for c in centre_chunks(cent, B, N):
+        d2 = square_distance_exact(c, xyz)
+        for o, (radius, nsample) in zip(outs, specs):
+            o.append(first_k_in_order(d2, radius_sq(radius), nsample, N))
+    return [torch.cat(o, dim=1) for o in outs]
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -256,6 +324,20 @@ def _kernels():
     banded.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4
     full.restype = banded.restype = ctypes.c_int
     return full, banded
+
+
+@functools.lru_cache(maxsize=None)
+def _first_k_kernel():
+    """K10's launcher, from a library of its own (built at first use, so a
+    path that runs only the exact query builds no K5/K6)."""
+    from pointrcnn_tpu_torch import _build
+
+    fn = _build.load("ballquery_first_k", _build.NO_FMAD).ball_query_first_k_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _aligned(t):
@@ -307,6 +389,44 @@ def _launch_banded(xs, cent, kmax: int, n_bands: int, bands_ok, shape_plan=None)
                      "ball_query_banded_launch")
     banded_launches += 1
     return dist2, idx, rel
+
+
+def _launch_first_k(xyz, cent, specs):
+    """K10 on CUDA tensors, :data:`FIRST_K_SPECS` specs a launch."""
+    from pointrcnn_tpu_torch import _build
+
+    global first_k_launches
+    _check_first_k(xyz, cent, specs)
+    B, N, _ = xyz.shape
+    S = cent.shape[1]
+    xyz, cent = xyz.contiguous(), cent.contiguous()
+    outs = [torch.empty((B, S, int(ns)), dtype=torch.int32, device=xyz.device)
+            for _, ns in specs]
+    if B * S == 0:
+        return outs
+    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    for g in range(0, len(specs), FIRST_K_SPECS):
+        group = range(g, min(g + FIRST_K_SPECS, len(specs)))
+        r2 = (ctypes.c_float * len(group))(*[radius_sq(specs[i][0]) for i in group])
+        ns = (ctypes.c_int * len(group))(*[int(specs[i][1]) for i in group])
+        out = (ctypes.c_void_p * len(group))(*[outs[i].data_ptr() for i in group])
+        with trace.span("ball_query_first_k"):
+            _build.check(_first_k_kernel()(xyz.data_ptr(), cent.data_ptr(), B, N, S, len(group),
+                                           r2, ns, out, stream),
+                         "ball_query_first_k_launch")
+        first_k_launches += 1
+    return outs
+
+
+def ball_query_first_k(xyz, cent, specs):
+    """The exact method's selection for every (radius, nsample) of
+    ``specs``: K10 for CUDA tensors, the plain version for CPU tensors ->
+    a (B, S, nsample) int32 tensor a spec."""
+    if xyz.is_cuda:
+        return _launch_first_k(xyz, cent, specs)
+    if xyz.device.type == "cpu":
+        return ball_query_first_k_plain(xyz, cent, specs)
+    raise ValueError(f"ball_query_first_k: unsupported device {xyz.device}")
 
 
 def ball_query(xyz, cent, kmax: int, emit_rel: bool = False):

@@ -5,7 +5,8 @@ Two neighbourhood methods, as in the JAX version:
 
 - ``"exact"``: the first ``nsample`` in-radius points in point order, slots
   past the hit count repeat the first hit, and a centroid without hits gets
-  an all-zero row (the CUDA ball_query semantics);
+  an all-zero row (the CUDA ball_query semantics): every spec of a stage in
+  one launch of ``cuda_ballquery.ball_query_first_k`` (K10);
 - ``"approx"``: the nearest in-radius candidates, with the same backfill.
   Tables of at least ``cuda_ballquery.MIN_N`` points go through the
   stride-class kernel; smaller ones take the exact nearest ``nsample`` by
@@ -20,44 +21,17 @@ from __future__ import annotations
 import torch
 
 from pointrcnn_tpu_torch.ops import cuda_ballquery, cuda_gather, cuda_knn
-from pointrcnn_tpu_torch.ops.common import (
-    gather_points,
-    radius_sq,
-    square_distance,
-    square_distance_exact,
-)
+from pointrcnn_tpu_torch.ops.common import gather_points, radius_sq, square_distance
+from pointrcnn_tpu_torch.ops.cuda_ballquery import centre_chunks, first_k_in_order
 from pointrcnn_tpu_torch.ops.sampling import _banded_fps, _blockwise_stripes, _zsort
 
 # the TPU's rank route for single-radius queries on small tables
 _RANK_MAX_N = 1024
 
-# (centroids x points) cells per chunk of a selection's distance block
-_CHUNK_CELLS = 1 << 23
-
 
 def _check_method(method: str) -> None:
     if method not in ("exact", "approx"):
         raise ValueError(f"ball query method must be 'exact'|'approx', got {method!r}")
-
-
-def _chunks(new_xyz, B, N):
-    return new_xyz.split(max(1, _CHUNK_CELLS // max(B * N, 1)), dim=1)
-
-
-def _first_k_in_order(d2: torch.Tensor, r2: float, nsample: int, N: int) -> torch.Tensor:
-    """The exact method's selection: the first ``nsample`` in-radius points
-    in point order, slots past the hit count repeating the first hit, an
-    all-zero row without hits.  ``nsample`` may pass N (the RCNN's SA2 at
-    512 neighbours of 128 points): the slots past N are past the hit count."""
-    order = torch.where(d2 < r2, torch.arange(N, device=d2.device, dtype=torch.int32), N)
-    # the k smallest order keys, ascending: the first in-radius points
-    # (values only, so no tie-break question arises)
-    vals = torch.topk(order, min(nsample, N), dim=-1, largest=False, sorted=True).values
-    if nsample > N:
-        vals = torch.cat([vals, vals.new_full((*vals.shape[:-1], nsample - N), N)], dim=-1)
-    first = vals[..., :1]
-    idx = torch.where(vals < N, vals, torch.clamp(first, max=N - 1))
-    return torch.where(first >= N, 0, idx).to(torch.int32)
 
 
 def _mask_candidates(vals, idx, specs):
@@ -76,7 +50,7 @@ def _nearest_k(xyz, new_xyz, kmax: int):
     lower index first on ties -> (dist2, idx) (B, S, kmax)."""
     B, N, _ = xyz.shape
     vals, idx = [], []
-    for c in _chunks(new_xyz, B, N):
+    for c in centre_chunks(new_xyz, B, N):
         d2 = square_distance(c, xyz)
         # d2 >= +0 and never -0.0 here, so a stable sort is the total order
         v, i = torch.sort(d2, dim=-1, stable=True)
@@ -86,27 +60,23 @@ def _nearest_k(xyz, new_xyz, kmax: int):
 
 
 def ball_query_multi(xyz, new_xyz, specs, method: str = "exact"):
-    """Multi-radius ball query sharing one candidate search.
+    """Multi-radius ball query sharing one candidate search (``"exact"``:
+    :func:`cuda_ballquery.ball_query_first_k`, one K10 launch a stage).
 
     :param xyz: (B, N, 3); new_xyz: (B, S, 3); specs: [(radius, nsample)]
     :return: list of (B, S, nsample_i) int32
     """
     _check_method(method)
-    B, N, _ = xyz.shape
+    if method == "exact":
+        return cuda_ballquery.ball_query_first_k(xyz, new_xyz, specs)
+    N = xyz.shape[1]
     kmax = max(ns for _, ns in specs)
-    if method == "approx":
-        if cuda_ballquery.ball_query_supported(N, new_xyz.shape[1], kmax):
-            vals, idx = cuda_ballquery.ball_query(
-                xyz.to(torch.float32), new_xyz.to(torch.float32), kmax)
-        else:
-            vals, idx = _nearest_k(xyz, new_xyz, kmax)
-        return _mask_candidates(vals, idx, specs)
-    outs = [[] for _ in specs]
-    for c in _chunks(new_xyz, B, N):
-        d2 = square_distance_exact(c, xyz)
-        for o, (radius, nsample) in zip(outs, specs):
-            o.append(_first_k_in_order(d2, radius_sq(radius), nsample, N))
-    return [torch.cat(o, dim=1) for o in outs]
+    if cuda_ballquery.ball_query_supported(N, new_xyz.shape[1], kmax):
+        vals, idx = cuda_ballquery.ball_query(
+            xyz.to(torch.float32), new_xyz.to(torch.float32), kmax)
+    else:
+        vals, idx = _nearest_k(xyz, new_xyz, kmax)
+    return _mask_candidates(vals, idx, specs)
 
 
 def ball_query(xyz, new_xyz, radius: float, nsample: int, method: str = "exact"):
@@ -121,8 +91,8 @@ def ball_query(xyz, new_xyz, radius: float, nsample: int, method: str = "exact")
     if (method == "approx" and N <= _RANK_MAX_N
             and not cuda_ballquery.ball_query_supported(N, new_xyz.shape[1], nsample)):
         r2 = radius_sq(radius)
-        return torch.cat([_first_k_in_order(square_distance(c, xyz), r2, nsample, N)
-                          for c in _chunks(new_xyz, B, N)], dim=1)
+        return torch.cat([first_k_in_order(square_distance(c, xyz), r2, nsample, N)
+                          for c in centre_chunks(new_xyz, B, N)], dim=1)
     return ball_query_multi(xyz, new_xyz, [(radius, nsample)], method)[0]
 
 

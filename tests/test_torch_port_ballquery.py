@@ -385,7 +385,7 @@ def test_square_distance_and_first_k_in_order_match_jax():
         kio = jnp.arange(k)
         jwant = jnp.where(cnt > 0, jnp.where(kio < cnt, hits, hits[..., :1]), 0)
         np.testing.assert_array_equal(
-            grouping._first_k_in_order(t(np.where(mask, 0.0, 1.0)), 0.5, k, 200).numpy(),
+            cuda_ballquery.first_k_in_order(t(np.where(mask, 0.0, 1.0)), 0.5, k, 200).numpy(),
             np.asarray(jwant))
 
 
