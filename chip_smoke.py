@@ -192,6 +192,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from pointrcnn_tpu_torch.ops import counts as kernel_counts
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4
 CLOUD_SEEDS = (0, 1, 2)
@@ -352,18 +354,6 @@ class Tally:
                 "library_ms": self.library_ms,
                 **({"device_ms": self.device_ms} if self.device_ms is not None else {}),
                 **({"shapes": self.shapes} if self.shapes else {}), **self.notes}
-
-
-def reset_counts() -> None:
-    from pointrcnn_tpu_torch.ops import counts
-
-    counts.reset()
-
-
-def read_counts() -> dict:
-    from pointrcnn_tpu_torch.ops import counts
-
-    return counts.read()
 
 
 def phase_card() -> str:
@@ -686,11 +676,12 @@ def check_ball_query_first_k():
     x = cloud("rpn", 2, 3000, 7)
     c = x[:, :300].contiguous()
     specs = [(0.5 * (k + 1), 4 + 3 * k) for k in range(bq.FIRST_K_SPECS + 2)]
-    before = bq.first_k_launches
+    before = kernel_counts.read()["ball_query_first_k"]
     _first_k_equal(("six specs", specs), bq.ball_query_first_k(x, c, specs),
                    bq.ball_query_first_k_plain(x, c, specs))
-    if bq.first_k_launches - before != 2:
-        raise AssertionError(f"six specs took {bq.first_k_launches - before} launches, not 2")
+    launched = kernel_counts.read()["ball_query_first_k"] - before
+    if launched != 2:
+        raise AssertionError(f"six specs took {launched} launches, not 2")
     log(f"ball_query_first_k {len(specs)} specs, N=3000 (no multiple of a tile): index-equal "
         f"in two launches")
     return tally
@@ -1418,7 +1409,8 @@ def _sa_stages(model, cfg):
         sa = getattr(net, f"SetAbstractionMSG_{k}")
         n = r.NUM_POINTS if k == 0 else r.SA_CONFIG.NPOINTS[k - 1]
         for i, (_, ns) in enumerate(sa.specs):
-            yield f"RPN SA{k + 1}.{i}", getattr(sa, f"SharedMLP_{i}"), n, sa.npoint, ns, BATCH, False
+            yield (f"RPN SA{k + 1}.{i}", getattr(sa, f"SharedMLP_{i}"), n, sa.sampler[0].npoint, ns,
+                   BATCH, False)
     c, rois = cfg.RCNN, BATCH * cfg.TEST.RPN_POST_NMS_TOP_N
     for k in range(model.rcnn_net.n_sa):
         sa = getattr(model.rcnn_net, f"SetAbstraction_{k}")
@@ -1463,7 +1455,7 @@ def check_shipped_stages():
                     f"(not routed to the fused kernels)")
                 continue
             group_args = (xyz, feats, xyz[:, :S].contiguous(), idx, True)
-            f0, b0 = cuda_mlp.launches, cuda_mlp.bwd_launches
+            before = kernel_counts.read()
             try:
                 mlp.train(train)
                 if train:
@@ -1479,7 +1471,9 @@ def check_shipped_stages():
                                      f"refused the fused stage: {e}") from e
             finally:
                 mlp.train(False)
-            launched = (cuda_mlp.launches - f0, cuda_mlp.bwd_launches - b0)
+            after = kernel_counts.read()
+            launched = tuple(after[k] - before[k]
+                             for k in ("fused_group_mlp_max", "fused_group_mlp_backward"))
             if launched != (1, int(train)) or not torch.isfinite(out).all():
                 raise AssertionError(f"{cfg_name} {name}: launches (K2, K7) {launched}, finite "
                                      f"{bool(torch.isfinite(out).all())}")
@@ -2070,11 +2064,11 @@ def check_banded_graph():
     thin = torch.from_numpy(thin_band_cloud(BATCH, 16384, 9)).cuda()
     want = [fps_group_banded(x, 4096, specs) for x in (static, thin)]
     torch.cuda.synchronize()
-    before = bq.banded_launches
+    before = kernel_counts.read()["ball_query_banded"]
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         out = fps_group_banded(static, 4096, specs)
-    if bq.banded_launches != before + 1:
+    if kernel_counts.read()["ball_query_banded"] != before + 1:
         raise AssertionError("the captured banded stage did not launch K6 once")
     for x, (w_xyz, w_rels), what in zip((static, thin), want, ("cloud 0", "thin-band cloud")):
         static.copy_(x)
@@ -2173,11 +2167,11 @@ def phase_default(launches):
     cfg = model.cfg
     clouds = [torch.from_numpy(synthetic_cloud(BATCH, cfg.RPN.NUM_POINTS, s)).cuda()
               for s in CLOUD_SEEDS]
-    reset_counts()
+    kernel_counts.reset()
     with gather_feature_dtypes("eval"), banded_calls() as calls:
         outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
         torch.cuda.synchronize()
-    counts = read_counts()
+    counts = kernel_counts.read()
     if [bool(call[4]) for call in calls] != [True] * len(clouds):
         raise AssertionError("the banded stage's thin-band flag did not read true on the "
                              "seeded clouds")
@@ -2193,11 +2187,11 @@ def phase_default(launches):
     launches.update(counts)
 
     thin = torch.from_numpy(thin_band_cloud(BATCH, cfg.RPN.NUM_POINTS, 9)).cuda()
-    reset_counts()
+    kernel_counts.reset()
     with banded_calls() as calls:
         out = fwd(model, {"pts_input": thin})
         torch.cuda.synchronize()
-    counts = read_counts()
+    counts = kernel_counts.read()
     log(f"thin-band cloud launches: {counts}")
     _check_outputs(out, cfg.TEST.RPN_POST_NMS_TOP_N, "default, thin-band cloud")
     check_thin_band(calls, counts)
@@ -2237,13 +2231,13 @@ def phase_ssd3d(card):
     pts = frames(BATCH, 0).cuda()
     step(pts)
     torch.cuda.synchronize()
-    reset_counts()
+    kernel_counts.reset()
     t0 = time.perf_counter()
     for _ in range(TIMED_ITERS):
         out = step(pts)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TIMED_ITERS
-    counts = read_counts()
+    counts = kernel_counts.read()
     want = {k: v * TIMED_ITERS for k, v in SSD3D_LAUNCHES.items()}
     if {k: counts[k] for k in want} != want or any(
             v for k, v in counts.items() if k not in want and k != "bn_train_plain"):
@@ -2287,7 +2281,8 @@ def exact_query_launches(model) -> int:
     from pointrcnn_tpu_torch.ops.cuda_ballquery import FIRST_K_SPECS
 
     return sum(-(-len(getattr(m, "specs", [None])) // FIRST_K_SPECS) for m in model.modules()
-               if isinstance(m, (SetAbstraction, SetAbstractionMSG)) and m.npoint is not None)
+               if isinstance(m, SetAbstractionMSG) and m.sampler is not None
+               or isinstance(m, SetAbstraction) and m.npoint is not None)
 
 
 def phase_exact():
@@ -2295,10 +2290,10 @@ def phase_exact():
     from pointrcnn_tpu_torch.entry import entry, slice_config, synthetic_cloud
 
     fwd, (model, batch) = entry(batch=BATCH, device="cuda", seed=0, cfg=slice_config())
-    reset_counts()
+    kernel_counts.reset()
     out = fwd(model, batch)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = kernel_counts.read()
     log(f"exact forward launches: {counts}")
     _check_outputs(out, model.cfg.TEST.RPN_POST_NMS_TOP_N, "exact, cloud 0")
     for name in ("fps", "three_nn", "group_gather", "fused_group_mlp_max"):
@@ -2384,14 +2379,14 @@ def phase_train(train_launches):
     for _ in range(TRAIN_WARMUP):
         state, tb = step(state, batch)
     torch.cuda.synchronize()
-    reset_counts()
+    kernel_counts.reset()
     t0 = time.perf_counter()
     with gather_feature_dtypes("train"):
         for _ in range(TRAIN_TIMED):
             state, tb = step(state, batch)
         torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_TIMED
-    counts = read_counts()
+    counts = kernel_counts.read()
     peak = torch.cuda.max_memory_allocated()
     log(f"train batch {TRAIN_BATCH} x {batch['pts_input'].shape[1]} points: {1000 * dt:.3f} ms/step, "
         f"{TRAIN_BATCH / dt:.3f} frames/s ({TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up), "
@@ -2494,7 +2489,6 @@ def phase_rcnn_train(rcnn_launches, rpn_ckpt):
     """The rcnn training stage at batch 4 x 16384 points, the RPN from the
     rpn stage's checkpoint."""
     from pointrcnn_tpu_torch.entry import KITTI_TRAIN_FRAMES, TRAIN_EPOCHS, train_entry
-    from pointrcnn_tpu_torch.models import layers
     from pointrcnn_tpu_torch.ops import cuda_mlp
     from pointrcnn_tpu_torch.train.optimizer import build_optimizer, steps_for
 
@@ -2506,19 +2500,18 @@ def phase_rcnn_train(rcnn_launches, rpn_ckpt):
     rpn_params = {k: v for k, v in model.named_parameters() if k.startswith("rpn.")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    layers.generic_grouped_train = 0
     cuda_mlp.reset_nomatch()
     for _ in range(TRAIN_WARMUP):
         state, tb = step(state, batch)
     torch.cuda.synchronize()
-    reset_counts()
+    kernel_counts.reset()
     t0 = time.perf_counter()
     with gather_feature_dtypes("rcnn train"):
         for _ in range(TRAIN_TIMED):
             state, tb = step(state, batch)
         torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_TIMED
-    counts = read_counts()
+    counts = kernel_counts.read()
     peak = torch.cuda.max_memory_allocated()
     log(f"rcnn train batch {RCNN_BATCH} x {batch['pts_input'].shape[1]} points: "
         f"{1000 * dt:.3f} ms/step, {RCNN_BATCH / dt:.3f} frames/s ({TRAIN_TIMED} steps after "
@@ -2536,9 +2529,9 @@ def phase_rcnn_train(rcnn_launches, rpn_ckpt):
     for name in RCNN_TRAIN_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the rcnn train path")
-    if layers.generic_grouped_train or cuda_mlp.nomatch_count():
-        raise AssertionError(f"rcnn train step: {layers.generic_grouped_train} SA stacks off the "
-                             f"fused route, {cuda_mlp.nomatch_count()} dropped maxima")
+    if counts["generic_grouped_train"] or cuda_mlp.nomatch_count():
+        raise AssertionError(f"rcnn train step: {counts['generic_grouped_train']} SA stacks off "
+                             f"the fused route, {cuda_mlp.nomatch_count()} dropped maxima")
     rcnn_launches.update(counts)
 
     after = model.state_dict()
@@ -2839,13 +2832,13 @@ def phase_kitti_eval(launches, fwd_ms, card):
         del state
         common = ["--cfg_file", os.path.join(REPO, "cfgs", "default.yaml"), "--data_root",
                   data_root, "--batch_size", str(EVAL_BATCH), "--device", "cuda"]
-        reset_counts()
+        kernel_counts.reset()
         t0 = time.perf_counter()
         with eval_instruments() as rec:
             ret = eval_main(common + ["--eval_mode", "rcnn", "--ckpt", ckpt,
                                       "--output_dir", os.path.join(work, "rcnn")])
         run_s = time.perf_counter() - t0
-        counts = read_counts()
+        counts = kernel_counts.read()
         log(f"eval CLI rcnn launches: {counts}")
         per_fwd = {k: v / len(CLOUD_SEEDS) for k, v in launches.items()}
         for name in EVAL_KERNELS:
@@ -2895,10 +2888,10 @@ def phase_kitti_eval(launches, fwd_ms, card):
             f"{1000 * (enq[0][0] - e0):.3f} ms before the first batch; the default forward "
             f"alone {fwd_ms:.3f} ms a batch (phase 4)")
 
-        reset_counts()
+        kernel_counts.reset()
         rpn = eval_main(common + ["--eval_mode", "rpn", "--rpn_ckpt", ckpt,
                                   "--output_dir", os.path.join(work, "rpn")])
-        rpn_counts = read_counts()
+        rpn_counts = kernel_counts.read()
         if rpn_counts["fused_group_mlp_max"] <= 0 or "rpn_seg_iou" not in rpn \
                 or not np.isfinite(rpn["recall_0.7"]):
             raise AssertionError(f"eval CLI rpn: {rpn}, launches {rpn_counts}")
@@ -2978,14 +2971,14 @@ def _train_cli_run(what, argv, card):
     the instruments' record, the kernels' launches)."""
     from pointrcnn_tpu_torch.train.__main__ import main as train_main
 
-    reset_counts()
+    kernel_counts.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with train_instruments() as rec:
         run = train_main(argv)
     run_s = time.perf_counter() - t0
-    counts = read_counts()
+    counts = kernel_counts.read()
     peak = torch.cuda.max_memory_allocated()
     ms, steps = rec["ms"], sum(e["steps"] for e in run.history)
     if len(ms) != steps or not all(np.isfinite(rec["losses"])):
@@ -3115,7 +3108,6 @@ def phase_no_rpn_features(launches, rpn_ckpt):
     stage's checkpoint launches K2 and K7 as phase_rcnn_train's step does,
     no stack off the fused route, with a finite loss and gradient norm."""
     from pointrcnn_tpu_torch.entry import default_config, entry, rcnn_config, train_entry
-    from pointrcnn_tpu_torch.models import layers
     from pointrcnn_tpu_torch.ops import cuda_mlp
 
     override = ["RCNN.USE_RPN_FEATURES", "False"]
@@ -3124,10 +3116,10 @@ def phase_no_rpn_features(launches, rpn_ckpt):
             .shape[0] != 3 + 2 + 128:
         raise AssertionError("RCNN.USE_RPN_FEATURES False: the RCNN kept its up layer or SA1's "
                              "input is not 133 channels")
-    reset_counts()
+    kernel_counts.reset()
     out = fwd(model, batch)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = kernel_counts.read()
     _check_outputs(out, model.cfg.TEST.RPN_POST_NMS_TOP_N, "no RPN features, cloud 0")
     per_fwd = {k: v // len(CLOUD_SEEDS) for k, v in launches.items()}
     if counts != per_fwd:
@@ -3137,12 +3129,11 @@ def phase_no_rpn_features(launches, rpn_ckpt):
 
     step, (state, data) = train_entry(device="cuda", seed=0, stage="rcnn", rpn_ckpt=rpn_ckpt,
                                       cfg=rcnn_config(override))
-    layers.generic_grouped_train = 0
     cuda_mlp.reset_nomatch()
-    reset_counts()
+    kernel_counts.reset()
     state, tb = step(state, data)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = kernel_counts.read()
     loss, gnorm = tb["loss"].item(), tb["grad_norm"].item()
     log(f"no RPN features rcnn step batch {RCNN_BATCH}: loss {loss:.6f}, grad norm {gnorm:.6f}, "
         f"launches {counts}")
@@ -3152,9 +3143,10 @@ def phase_no_rpn_features(launches, rpn_ckpt):
         if counts[name] != n:
             raise AssertionError(f"no RPN features rcnn step: {name} launched {counts[name]} "
                                  f"times, not {n}")
-    if layers.generic_grouped_train or cuda_mlp.nomatch_count():
-        raise AssertionError(f"no RPN features rcnn step: {layers.generic_grouped_train} SA stacks "
-                             f"off the fused route, {cuda_mlp.nomatch_count()} dropped maxima")
+    if counts["generic_grouped_train"] or cuda_mlp.nomatch_count():
+        raise AssertionError(f"no RPN features rcnn step: {counts['generic_grouped_train']} SA "
+                             f"stacks off the fused route, {cuda_mlp.nomatch_count()} dropped "
+                             f"maxima")
 
 
 # ---------------------------------------------------------------- offline RCNN
@@ -3175,7 +3167,7 @@ OFFLINE_OUT_RTOL = 0.05
 
 
 def _expect(per, n):
-    return {name: per.get(name, 0) * n for name in read_counts()}
+    return {name: per.get(name, 0) * n for name in kernel_counts.read()}
 
 
 def _with_gt_rois(data_root, roi_dir, out_dir):
@@ -3303,7 +3295,7 @@ def phase_offline(launches, data_root, rpn_ckpt, card):
     for split, top_n in (("train", 300), ("smallval", None)):
         out = os.path.join(work, f"dump_{split}")
         sets = ["TEST.SPLIT", split] + (["TEST.RPN_POST_NMS_TOP_N", str(top_n)] if top_n else [])
-        reset_counts()
+        kernel_counts.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with eval_instruments() as rec:
@@ -3311,7 +3303,7 @@ def phase_offline(launches, data_root, rpn_ckpt, card):
                                     "--batch_size", str(EVAL_BATCH), "--save_rpn_feature",
                                     "--output_dir", out, "--set", *sets])
         run_s = time.perf_counter() - t0
-        counts[f"d_{split}"] = read_counts()
+        counts[f"d_{split}"] = kernel_counts.read()
         (e0, e1), n_frames = rec["epoch"][0], len(os.listdir(os.path.join(out, "rpn_result",
                                                                             "data")))
         rois = [sum(1 for _ in open(os.path.join(out, "rpn_result", "data", f)))
@@ -3369,7 +3361,7 @@ def phase_offline(launches, data_root, rpn_ckpt, card):
     del rec_p
 
     # (f)
-    reset_counts()
+    kernel_counts.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with eval_instruments() as rec:
@@ -3379,7 +3371,7 @@ def phase_offline(launches, data_root, rpn_ckpt, card):
                                 "--output_dir", os.path.join(work, "eval"),
                                 "--set", "TEST.SPLIT", "smallval"])
     run_s = time.perf_counter() - t0
-    counts["f"] = read_counts()
+    counts["f"] = kernel_counts.read()
     peak = torch.cuda.max_memory_allocated()
     final = os.path.join(work, "eval", "final_result", "data")
     n_frames = len(open(os.path.join(data_root, "KITTI", "ImageSets", "smallval.txt"))
@@ -3455,13 +3447,13 @@ def _timed_steps(what, step, state, batch, per_step, kernels, card):
     for _ in range(SHIPPED_WARMUP):
         state, tb = step(state, batch)
     torch.cuda.synchronize()
-    reset_counts()
+    kernel_counts.reset()
     t0 = time.perf_counter()
     for _ in range(SHIPPED_TIMED):
         state, tb = step(state, batch)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SHIPPED_TIMED
-    counts = read_counts()
+    counts = kernel_counts.read()
     peak = torch.cuda.max_memory_allocated()
     loss, gnorm = tb["loss"].item(), tb["grad_norm"].item()
     log(f"{card}: {what} batch {frames} x {batch['pts_input'].shape[1]} points: "
@@ -3505,10 +3497,10 @@ def phase_car_2x(card):
               for s in CLOUD_SEEDS[:2]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    kernel_counts.reset()
     outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
     torch.cuda.synchronize()
-    out["eval"] = read_counts()
+    out["eval"] = kernel_counts.read()
     peak = torch.cuda.max_memory_allocated()
     log(f"car_2x forward x{len(clouds)} launches: {out['eval']}; peak memory "
         f"{peak / 2 ** 30:.3f} GiB")
@@ -3561,10 +3553,10 @@ def _forward_path(what, cfg, kernels, card):
               for s in CLOUD_SEEDS[:2]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    kernel_counts.reset()
     outs = [fwd(model, {"pts_input": pts}) for pts in clouds]
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = kernel_counts.read()
     peak = torch.cuda.max_memory_allocated()
     log(f"{what} forward x{len(clouds)} launches: {counts}; peak memory {peak / 2 ** 30:.3f} GiB")
     for s, o in zip(CLOUD_SEEDS, outs):

@@ -6,6 +6,12 @@ header of ``csrc/`` (``*.cuh``, which the sources include by relative path)
 and the flags, so an edited source or header is rebuilt and a stale library
 never loads.
 No PyTorch headers are included, which keeps a build to seconds.
+
+Every C entry point that Python calls is bound here: :class:`Entry` (a
+library, a symbol and its ctypes signature, set once at the first call and
+kept: a launch's host time counts on the host-paced paths), and
+:func:`launch`, the one way a counted kernel is launched (its span, its
+return code checked, its count in ``ops/counts.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,11 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import torch
+
+from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch.ops import counts
 
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -86,3 +97,43 @@ def check(err: int, what: str) -> None:
     """Raise if a launch function returned a non-zero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+class Entry:
+    """The C function ``symbol`` of ``csrc/<lib>.cu`` with its ctypes
+    signature (``argtypes``, ``restype``): the library is built, loaded and
+    the signature set at the first call, then the function is kept."""
+
+    __slots__ = ("lib", "symbol", "argtypes", "restype", "_fn")
+
+    def __init__(self, lib: str, symbol: str, argtypes, restype=ctypes.c_int):
+        self.lib, self.symbol = lib, symbol
+        self.argtypes, self.restype = argtypes, restype
+        self._fn = None
+
+    def __call__(self, *args):
+        fn = self._fn
+        if fn is None:
+            # every kernel library is built without FMA contraction
+            fn = self._fn = bind(load(self.lib, NO_FMAD), self.symbol, self.argtypes,
+                                 self.restype)
+        return fn(*args)
+
+
+def bind(lib: ctypes.CDLL, symbol: str, argtypes, restype=ctypes.c_int):
+    """``symbol`` of a loaded library with its signature set."""
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+def launch(name: str, entry: Entry, t: torch.Tensor, *args) -> None:
+    """One launch of kernel ``name`` (its key in ``ops/counts.py``):
+    ``entry(*args, stream)`` on the current stream of ``t``'s device under
+    the span ``name``, its return code checked, then one added to its
+    count."""
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    with trace.span(name):
+        err = entry(*args, stream)
+    check(err, entry.symbol)
+    counts.add(name)

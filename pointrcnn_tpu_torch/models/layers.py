@@ -32,7 +32,7 @@ import math
 import torch
 from torch import nn
 
-from pointrcnn_tpu_torch.ops import cuda_bn
+from pointrcnn_tpu_torch.ops import counts, cuda_bn
 from pointrcnn_tpu_torch.ops.cuda_mlp import (
     fold_geometry_profitable,
     fused_group_bwd_supported,
@@ -44,10 +44,6 @@ from pointrcnn_tpu_torch.ops.grouping import group_points
 from pointrcnn_tpu_torch.parallel import mesh
 
 BN_EPS = 1e-5
-
-# training forwards of BN-free grouped stacks that missed the fused route
-# (the fused forward or backward predicate failed) and took the generic one
-generic_grouped_train = 0
 
 
 # --- initialisers: (fan_in, fan_out, generator) -> (fan_in, fan_out) tensor
@@ -277,7 +273,6 @@ class SharedMLP(nn.Module):
         return x
 
     def _train_forward(self, x, reduce_max, group_args, dt):
-        global generic_grouped_train
         if self.conv_bias:
             raise NotImplementedError("SharedMLP: a bias before batch norm is eval only")
         if group_args is not None:
@@ -292,7 +287,7 @@ class SharedMLP(nn.Module):
                     return fused_group_mlp_max(
                         g_xyz, g_feats, g_new_xyz, g_idx, ws, bs, g_use_xyz,
                         fold_geometry=self.fold_geometry and fold_geometry_profitable(g_feats))
-                generic_grouped_train += 1
+                counts.add("generic_grouped_train")
             x = group_points(g_xyz, g_feats, g_new_xyz, g_idx, g_use_xyz, out_dtype=dt)
             reduce_max = True
         if self.bn:

@@ -4,8 +4,6 @@ inside the shared MLPs; the sampling and grouping are the same in both."""
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 from torch import nn
 
@@ -21,30 +19,28 @@ from pointrcnn_tpu_torch.ops.grouping import (
     three_interpolate,
     three_nn,
 )
-from pointrcnn_tpu_torch.ops.sampling import furthest_point_sample, sample_points
+from pointrcnn_tpu_torch.ops.sampling import Sampler, furthest_point_sample, sample_points
 
 
 class SetAbstractionMSG(nn.Module):
-    """Multi-scale grouping: FPS centroids, per-radius ball query + shared
-    MLP + max over the neighbourhood, concatenated over scales.
+    """Multi-scale grouping: centres from the stage's sampler spec
+    (``ops.sampling.Sampler``s; PointRCNN's: one full-range D-FPS; 3DSSD's:
+    D-FPS, F-FPS, fusion sampling over row ranges), per-radius ball query +
+    shared MLP + max over the neighbourhood, concatenated over scales.
 
-    3DSSD's stages (``models/ssd3d.py``) add: ``sampler``, a sampler spec
-    (``ops.sampling.Sampler``s: D-FPS, F-FPS, fusion sampling over row
-    ranges) in place of FPS of ``npoint``; centres given to :meth:`run`
-    (``target_xyz``, the vote aggregation's votes) in place of sampling;
-    ``aggregation``, the width of a Conv1d-BN-ReLU over the concatenated
-    scales; ``mlp_opts``, options of every :class:`SharedMLP`
-    (``conv_bias``, ``eps``, ``any_table``); ``query_span``, a span named so
-    around the ball query."""
+    3DSSD's stages (``models/ssd3d.py``) add: centres given to :meth:`run`
+    (``target_xyz``, the vote aggregation's votes, whose ``sampler`` is
+    None) in place of sampling; ``aggregation``, the width of a
+    Conv1d-BN-ReLU over the concatenated scales; ``mlp_opts``, options of
+    every :class:`SharedMLP` (``conv_bias``, ``eps``, ``any_table``)."""
 
-    def __init__(self, cin, npoint, radii, nsamples, mlps, use_xyz=True, bn=True,
-                 dtype=None, query_method="exact", fps_method="exact", gen=None,
-                 sampler=None, aggregation=None, mlp_opts=None, query_span=None):
+    def __init__(self, cin, sampler, radii, nsamples, mlps, use_xyz=True, bn=True,
+                 dtype=None, query_method="exact", gen=None, aggregation=None, mlp_opts=None):
         super().__init__()
-        self.npoint, self.use_xyz = npoint, use_xyz
+        self.sampler, self.use_xyz = sampler, use_xyz
         self.specs = list(zip(radii, nsamples))
-        self.query_method, self.fps_method, self.dtype = query_method, fps_method, dtype
-        self.sampler, self.query_span = sampler, query_span
+        self.query_method, self.dtype = query_method, dtype
+        self._query_span = f"ops.ball_query_{query_method}"
         opts = mlp_opts or {}
         for i, mlp in enumerate(mlps):
             self.add_module(f"SharedMLP_{i}", SharedMLP(
@@ -72,12 +68,9 @@ class SetAbstractionMSG(nn.Module):
         if target_xyz is not None:
             new_xyz, fps_idx = target_xyz, None
         else:
-            if self.sampler is not None:
-                fps_idx = sample_points(xyz, features, self.sampler)
-            else:
-                fps_idx = furthest_point_sample(xyz, self.npoint, method=self.fps_method)
+            fps_idx = sample_points(xyz, features, self.sampler)
             new_xyz = gather_points(xyz, fps_idx)
-        with trace.span(self.query_span) if self.query_span else contextlib.nullcontext():
+        with trace.span(self._query_span):
             idx_list = ball_query_multi(xyz, new_xyz, self.specs, method=self.query_method)
         outs = [getattr(self, f"SharedMLP_{i}")(
                     None, group_args=(xyz, features, new_xyz, idx, self.use_xyz))
@@ -92,12 +85,13 @@ class SetAbstractionMSG(nn.Module):
         relative xyz directly, banded after blockwise FPS where the shapes
         allow, else after FPS by the full scan -> (new_xyz, rels), or
         (None, None) when neither applies."""
+        (s,) = self.sampler  # one full-range D-FPS
         N = xyz.shape[1]
         nsamples = [ns for _, ns in self.specs]
-        if self.fps_method == "blockwise" and fps_group_banded_supported(N, self.npoint, nsamples):
-            return fps_group_banded(xyz, self.npoint, self.specs)
-        if cuda_ballquery.ball_query_supported(N, self.npoint, max(nsamples)):
-            new_xyz = gather_points(xyz, furthest_point_sample(xyz, self.npoint, method=self.fps_method))
+        if s.method == "blockwise" and fps_group_banded_supported(N, s.npoint, nsamples):
+            return fps_group_banded(xyz, s.npoint, self.specs)
+        if cuda_ballquery.ball_query_supported(N, s.npoint, max(nsamples)):
+            new_xyz = gather_points(xyz, furthest_point_sample(xyz, s.npoint, method=s.method))
             return new_xyz, cuda_ballquery.ball_query_multi_grouped(xyz, new_xyz, self.specs)
         return None, None
 
@@ -154,10 +148,10 @@ class Pointnet2MSG(nn.Module):
         self.n_sa, self.n_fp = len(npoints), len(fp_mlps)
         ch = [in_features]
         for k in range(self.n_sa):
+            sampler = (Sampler("D-FPS", int(npoints[k]), method=fps_method),)
             self.add_module(f"SetAbstractionMSG_{k}", SetAbstractionMSG(
-                ch[k], npoints[k], radii[k], nsamples[k], mlps[k], use_xyz=use_xyz,
-                bn=bn, dtype=dtype, query_method=query_method,
-                fps_method=fps_method, gen=gen))
+                ch[k], sampler, radii[k], nsamples[k], mlps[k], use_xyz=use_xyz, bn=bn,
+                dtype=dtype, query_method=query_method, gen=gen))
             ch.append(sum(m[-1] for m in mlps[k]))
         for j, i in enumerate(range(-1, -(self.n_fp + 1), -1)):
             self.add_module(f"FeaturePropagation_{j}", FeaturePropagation(

@@ -45,7 +45,6 @@ from pointrcnn_tpu_torch.ops.sampling import sampler_spec
 
 # the backbone's stages, the vote layers, the head: span names of the forward
 SA_SPANS = ("ssd3d.SA1", "ssd3d.SA2", "ssd3d.SA3")
-QUERY_SPAN = "ops.ball_query_exact"
 
 
 class PointLinear(nn.Module):
@@ -81,11 +80,10 @@ class SSD3D(nn.Module):
         self.backbone = nn.Module()
         for k in range(len(bb.MLPS)):
             sa = SetAbstractionMSG(
-                cin, None, bb.RADIUS[k], bb.NSAMPLE[k], bb.MLPS[k], use_xyz=True, bn=True,
-                dtype=dt, query_method="exact", gen=gen,
-                sampler=sampler_spec(bb.FPS_MODS[k], bb.NPOINTS[k], bb.FPS_RANGES[k]),
-                aggregation=bb.AGGREGATION[k],
-                mlp_opts={"eps": bb.BN_EPS, "any_table": True}, query_span=QUERY_SPAN)
+                cin, sampler_spec(bb.FPS_MODS[k], bb.NPOINTS[k], bb.FPS_RANGES[k]),
+                bb.RADIUS[k], bb.NSAMPLE[k], bb.MLPS[k], use_xyz=True, bn=True, dtype=dt,
+                query_method="exact", gen=gen, aggregation=bb.AGGREGATION[k],
+                mlp_opts={"eps": bb.BN_EPS, "any_table": True})
             sa.aggregation.eps = bb.AGGREGATION_BN_EPS
             self.backbone.add_module(f"SetAbstractionMSG_{k}", sa)
             cin = bb.AGGREGATION[k]
@@ -96,8 +94,7 @@ class SSD3D(nn.Module):
         self.vote_aggregation = SetAbstractionMSG(
             cin, None, agg.RADIUS, agg.NSAMPLE, agg.MLPS, use_xyz=True, bn=True, dtype=dt,
             query_method="exact", gen=gen,
-            mlp_opts={"eps": agg.BN_EPS, "any_table": True, "conv_bias": True},
-            query_span=QUERY_SPAN)
+            mlp_opts={"eps": agg.BN_EPS, "any_table": True, "conv_bias": True})
         head = cfg.HEAD
         width = sum(m[-1] for m in agg.MLPS)
         opts = {"bn": True, "dtype": dt, "gen": gen, "conv_bias": True, "eps": head.BN_EPS}

@@ -1,9 +1,11 @@
 """The launch counts of the hand-written kernels, by kernel name: each
-kernel's wrapper adds one to its module's counter where it launches the
-kernel, and nowhere else.  Beside them ``bn_train_plain``: the training
+launch through ``_build.launch`` adds one under its kernel's name.  Beside them two route counts: ``bn_train_plain``, the training
 batch-norm layers on the card that ran on the plain versions, the kernels
-refusing them (``ops/cuda_bn.py``).  ``chip_smoke.py`` and the data-parallel runs on
-the card (``entry.dryrun_multichip``, ``tools.dp_step``) read them.
+refusing them (``ops/cuda_bn.py``), and ``generic_grouped_train``, the
+training forwards of BN-free grouped stacks that missed the fused route
+(``models/layers.py``).  ``chip_smoke.py``, the benchmark, the tools and the
+data-parallel runs on the card (``entry.dryrun_multichip``,
+``tools.dp_step``) read them.
 
 Beside them, the host syncs by site: :class:`sync` goes around each read
 that makes the host wait for the card (a value read back, a copy from
@@ -12,32 +14,15 @@ on: an int add and two clock reads, next to a sync's tens of us."""
 
 from __future__ import annotations
 
-import importlib
 import time
 
-# kernel -> (module under pointrcnn_tpu_torch.ops, counter)
-COUNTERS = {
-    "fps": ("cuda_fps", "launches"),
-    "ffps": ("cuda_fps", "ffps_launches"),
-    "three_nn": ("cuda_knn", "launches"),
-    "group_gather": ("cuda_gather", "launches"),
-    "fused_group_mlp_max": ("cuda_mlp", "launches"),
-    "ball_query": ("cuda_ballquery", "launches"),
-    "ball_query_banded": ("cuda_ballquery", "banded_launches"),
-    "ball_query_first_k": ("cuda_ballquery", "first_k_launches"),
-    "gather_backward": ("cuda_gather", "bwd_launches"),
-    "fused_group_mlp_backward": ("cuda_mlp", "bwd_launches"),
-    "bn_train_stats": ("cuda_bn", "stats_launches"),
-    "bn_train_apply": ("cuda_bn", "apply_launches"),
-    "bn_train_bwd_sums": ("cuda_bn", "bwd_sums_launches"),
-    "bn_train_bwd_apply": ("cuda_bn", "bwd_apply_launches"),
-    "bn_train_plain": ("cuda_bn", "plain_layers"),
-}
+# read() gives the counts in this order
+COUNTERS = ("fps", "ffps", "three_nn", "group_gather", "fused_group_mlp_max", "ball_query",
+            "ball_query_banded", "ball_query_first_k", "gather_backward",
+            "fused_group_mlp_backward", "bn_train_stats", "bn_train_apply", "bn_train_bwd_sums",
+            "bn_train_bwd_apply", "bn_train_plain", "generic_grouped_train")
 
-
-def _module(name: str):
-    return importlib.import_module(f"pointrcnn_tpu_torch.ops.{name}")
-
+_counts = dict.fromkeys(COUNTERS, 0)
 
 # site -> [reads, host wait ns] since the last reset
 _syncs: dict[str, list] = {}
@@ -70,16 +55,21 @@ class sync:
         return False
 
 
+def add(name: str) -> None:
+    """One more under ``name`` (one of :data:`COUNTERS`)."""
+    _counts[name] += 1
+
+
 def reset() -> None:
-    """Zero every launch counter and the host syncs."""
-    for mod, attr in COUNTERS.values():
-        setattr(_module(mod), attr, 0)
+    """Zero every count and the host syncs."""
+    for name in COUNTERS:
+        _counts[name] = 0
     _syncs.clear()
 
 
 def read() -> dict:
-    """Launches by kernel name."""
-    return {name: getattr(_module(mod), attr) for name, (mod, attr) in COUNTERS.items()}
+    """The counts by name, in :data:`COUNTERS`' order."""
+    return dict(_counts)
 
 
 def read_syncs() -> dict:

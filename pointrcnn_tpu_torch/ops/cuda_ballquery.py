@@ -37,12 +37,8 @@ import functools
 
 import torch
 
-from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch import _build
 from pointrcnn_tpu_torch.ops.common import radius_sq, sm_count, square_distance_exact
-
-launches = 0  # full-scan kernel
-banded_launches = 0  # banded kernel
-first_k_launches = 0  # K10, the exact first-in-order selection
 
 # the TPU predicate's smallest table: below it the XLA path was cheaper;
 # tests may lower it
@@ -312,32 +308,14 @@ def _out(B, S, kmax, emit_rel, device):
     return dist2, idx, rel
 
 
-@functools.lru_cache(maxsize=None)
-def _kernels():
-    """The library's two launchers (built at first use), their argument
-    types set once: a launch's host time counts on a host-paced path."""
-    from pointrcnn_tpu_torch import _build
-
-    lib = _build.load("ballquery", _build.NO_FMAD)
-    full, banded = lib.ball_query_launch, lib.ball_query_banded_launch
-    full.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
-    banded.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4
-    full.restype = banded.restype = ctypes.c_int
-    return full, banded
-
-
-@functools.lru_cache(maxsize=None)
-def _first_k_kernel():
-    """K10's launcher, from a library of its own (built at first use, so a
-    path that runs only the exact query builds no K5/K6)."""
-    from pointrcnn_tpu_torch import _build
-
-    fn = _build.load("ballquery_first_k", _build.NO_FMAD).ball_query_first_k_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
-                      ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+P, I = ctypes.c_void_p, ctypes.c_int
+_FULL = _build.Entry("ballquery", "ball_query_launch", (P,) * 2 + (I,) * 7 + (P,) * 4)
+_BANDED = _build.Entry("ballquery", "ball_query_banded_launch", (P,) * 3 + (I,) * 9 + (P,) * 4)
+# K10 is a library of its own, so a path that runs only the exact query
+# builds no K5/K6
+_FIRST_K = _build.Entry("ballquery_first_k", "ball_query_first_k_launch",
+                        (P, P, I, I, I, I, ctypes.POINTER(ctypes.c_float),
+                         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p), P))
 
 
 def _aligned(t):
@@ -349,31 +327,21 @@ def _aligned(t):
 def _launch(xyz, cent, kmax: int, emit_rel: bool = False, shape_plan=None):
     """The full-scan kernel on CUDA tensors; ``shape_plan`` overrides
     :func:`plan` (for measuring the alternatives)."""
-    from pointrcnn_tpu_torch import _build
-
-    global launches
     _check(xyz, cent, kmax)
     B, N, _ = xyz.shape
     S = cent.shape[1]
     xyz, cent = _aligned(xyz), cent.contiguous()
     dist2, idx, rel = _out(B, S, kmax, emit_rel, xyz.device)
     u, warps = plan(B, S, sm_count(xyz.device)) if shape_plan is None else shape_plan
-    stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    with trace.span("ball_query"):
-        _build.check(_kernels()[0](xyz.data_ptr(), cent.data_ptr(), B, N, S, pick_w(N), kmax,
-                                   u, warps, dist2.data_ptr(), idx.data_ptr(),
-                                   0 if rel is None else rel.data_ptr(), stream),
-                     "ball_query_launch")
-    launches += 1
+    _build.launch("ball_query", _FULL, xyz, xyz.data_ptr(), cent.data_ptr(), B, N, S, pick_w(N),
+                  kmax, u, warps, dist2.data_ptr(), idx.data_ptr(),
+                  0 if rel is None else rel.data_ptr())
     return (dist2, idx, rel) if emit_rel else (dist2, idx)
 
 
 def _launch_banded(xs, cent, kmax: int, n_bands: int, bands_ok, shape_plan=None):
     """The banded kernel on CUDA tensors; ``bands_ok`` a one-element bool
     tensor on the same device, read by the kernel."""
-    from pointrcnn_tpu_torch import _build
-
-    global banded_launches
     _check(xs, cent, kmax, n_bands, bands_ok)
     B, N, _ = xs.shape
     S = cent.shape[1]
@@ -381,21 +349,14 @@ def _launch_banded(xs, cent, kmax: int, n_bands: int, bands_ok, shape_plan=None)
     dist2, idx, rel = _out(B, S, kmax, True, xs.device)
     cpb = S // n_bands
     u, warps = plan(B, S, sm_count(xs.device), cpb) if shape_plan is None else shape_plan
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    with trace.span("ball_query_banded"):
-        _build.check(_kernels()[1](xs.data_ptr(), cent.data_ptr(), bands_ok.data_ptr(), B, N,
-                                   S, n_bands, pick_w(N // n_bands), pick_w(N), kmax, u, warps,
-                                   dist2.data_ptr(), idx.data_ptr(), rel.data_ptr(), stream),
-                     "ball_query_banded_launch")
-    banded_launches += 1
+    _build.launch("ball_query_banded", _BANDED, xs, xs.data_ptr(), cent.data_ptr(),
+                  bands_ok.data_ptr(), B, N, S, n_bands, pick_w(N // n_bands), pick_w(N), kmax, u,
+                  warps, dist2.data_ptr(), idx.data_ptr(), rel.data_ptr())
     return dist2, idx, rel
 
 
 def _launch_first_k(xyz, cent, specs):
     """K10 on CUDA tensors, :data:`FIRST_K_SPECS` specs a launch."""
-    from pointrcnn_tpu_torch import _build
-
-    global first_k_launches
     _check_first_k(xyz, cent, specs)
     B, N, _ = xyz.shape
     S = cent.shape[1]
@@ -404,17 +365,13 @@ def _launch_first_k(xyz, cent, specs):
             for _, ns in specs]
     if B * S == 0:
         return outs
-    stream = torch.cuda.current_stream(xyz.device).cuda_stream
     for g in range(0, len(specs), FIRST_K_SPECS):
         group = range(g, min(g + FIRST_K_SPECS, len(specs)))
         r2 = (ctypes.c_float * len(group))(*[radius_sq(specs[i][0]) for i in group])
         ns = (ctypes.c_int * len(group))(*[int(specs[i][1]) for i in group])
         out = (ctypes.c_void_p * len(group))(*[outs[i].data_ptr() for i in group])
-        with trace.span("ball_query_first_k"):
-            _build.check(_first_k_kernel()(xyz.data_ptr(), cent.data_ptr(), B, N, S, len(group),
-                                           r2, ns, out, stream),
-                         "ball_query_first_k_launch")
-        first_k_launches += 1
+        _build.launch("ball_query_first_k", _FIRST_K, xyz, xyz.data_ptr(), cent.data_ptr(), B, N,
+                      S, len(group), r2, ns, out)
     return outs
 
 

@@ -46,30 +46,23 @@ package's other tests hold the CPU to JAX at their bounds unchanged.  The
 plain versions of the two backward kernels (:func:`layer_bwd_sums` and
 :func:`layer_bwd_apply` on a CPU tensor) state what the kernels compute;
 ``chip_smoke.py`` holds the kernels to them on the card, and the tests hold
-them to autograd and to JAX.  :data:`plain_layers` counts the CUDA layers
-the kernels refused (``bn_train_plain`` in ``ops/counts.py``: 0 on the CPU,
-as every launch count).
+them to autograd and to JAX.  ``bn_train_plain`` in ``ops/counts.py``
+counts the CUDA layers the kernels refused (0 on the CPU, as every launch
+count).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.distributed as dist
 
-from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch import _build
+from pointrcnn_tpu_torch.ops import counts
 
 BN_EPS = 1e-5
 MAX_WIDTH = 1024
-
-stats_launches = 0
-apply_launches = 0
-bwd_sums_launches = 0
-bwd_apply_launches = 0
-# CUDA training BN layers that ran on the plain versions (kernels_admit refused them)
-plain_layers = 0
 
 
 def kernels_admit(y: torch.Tensor, round_dt=None) -> bool:
@@ -181,59 +174,35 @@ def bwd_apply_plain(y, g, stats, bias, coef, round_g=None, K: int = 0, out=None,
 # --- the kernels
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The library (built at its first use: the eval path never builds it),
-    its argument types set once."""
-    from pointrcnn_tpu_torch import _build
-
-    lib = _build.load("bn_train", _build.NO_FMAD)
-    P, I, LL, D, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double,
-                      ctypes.c_float)
-    lib.bn_train_partials.argtypes = [LL, I]
-    lib.bn_train_stats_launch.argtypes = [P, P, I, F, F, F] + [P] * 5
-    lib.bn_train_apply_launch.argtypes = [P, LL, I, I, P, P, I, P, P, P]
-    lib.bn_train_bwd_sums_launch.argtypes = [P, P, LL, I, I] + [P] * 4 + [I, P, D] + [P] * 5
-    lib.bn_train_bwd_finalize_launch.argtypes = [P, I, D, P, P, P]
-    lib.bn_train_bwd_apply_launch.argtypes = [P, P, LL, I, I] + [P] * 5 + [I, P, P]
-    for f in (lib.bn_train_partials, lib.bn_train_stats_launch, lib.bn_train_apply_launch,
-              lib.bn_train_bwd_sums_launch, lib.bn_train_bwd_finalize_launch,
-              lib.bn_train_bwd_apply_launch):
-        f.restype = ctypes.c_int
-    return lib
+# the library is built at its first use: the eval path never builds it
+P, I, LL, D, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double, ctypes.c_float
+_PARTIALS = _build.Entry("bn_train", "bn_train_partials", (LL, I))
+_STATS = _build.Entry("bn_train", "bn_train_stats_launch", (P, P, I, F, F, F) + (P,) * 5)
+_APPLY = _build.Entry("bn_train", "bn_train_apply_launch", (P, LL, I, I, P, P, I, P, P, P))
+_BWD_SUMS = _build.Entry("bn_train", "bn_train_bwd_sums_launch",
+                         (P, P, LL, I, I) + (P,) * 4 + (I, P, D) + (P,) * 5)
+_BWD_FINALIZE = _build.Entry("bn_train", "bn_train_bwd_finalize_launch", (P, I, D, P, P, P))
+_BWD_APPLY = _build.Entry("bn_train", "bn_train_bwd_apply_launch",
+                          (P, P, LL, I, I) + (P,) * 5 + (I, P, P))
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check(err: int, what: str) -> None:
-    from pointrcnn_tpu_torch import _build
-
-    _build.check(err, what)
-
-
 def layer_stats(y, scale, run_mean, run_var, momentum: float, world: int) -> torch.Tensor:
     """y (rows, C) f32 -> the statistics (4, C) f32 of the global batch
     (``world`` ranks of ``rows`` each); the running statistics updated."""
-    global stats_launches
     rows, C = y.shape
     n = rows * world
     factor = n / max(n - 1, 1)
-    with trace.span("bn_train_stats"):
-        mean, ex2 = moments(y, world)
-        if not kernels_admit(y):
-            return stats_finalize_plain(mean, ex2, momentum, factor, scale, run_mean, run_var)
-        stats = torch.empty((4, C), dtype=torch.float32, device=y.device)
-        _check(_lib().bn_train_stats_launch(mean.data_ptr(), ex2.data_ptr(), C, momentum, factor,
-                                            BN_EPS, scale.data_ptr(), run_mean.data_ptr(),
-                                            run_var.data_ptr(), stats.data_ptr(), _stream(y)),
-               "bn_train_stats_launch")
-    stats_launches += 1
+    mean, ex2 = moments(y, world)
+    if not kernels_admit(y):
+        return stats_finalize_plain(mean, ex2, momentum, factor, scale, run_mean, run_var)
+    stats = torch.empty((4, C), dtype=torch.float32, device=y.device)
+    _build.launch("bn_train_stats", _STATS, y, mean.data_ptr(), ex2.data_ptr(), C, momentum,
+                  factor, BN_EPS, scale.data_ptr(), run_mean.data_ptr(), run_var.data_ptr(),
+                  stats.data_ptr())
     return stats
 
 
@@ -241,19 +210,14 @@ def layer_apply(y, stats, bias, round_dt=None, K: int = 0):
     """K == 0: (rows, C) -> the layer's output, rounded to ``round_dt``
     where that is a dtype; K > 0: (G K, C) -> (the max over each group
     (G, C), the count at it (G, C))."""
-    global apply_launches
     if not kernels_admit(y, round_dt):
         return apply_max_plain(y, K, stats, bias) if K else apply_plain(y, stats, bias, round_dt)
     rows, C = y.shape
     groups = rows // K if K else rows
     out = torch.empty((groups, C), dtype=torch.float32, device=y.device)
     cnt = torch.empty((groups, C), dtype=torch.float32, device=y.device) if K else None
-    with trace.span("bn_train_apply"):
-        _check(_lib().bn_train_apply_launch(y.data_ptr(), groups, K, C, stats.data_ptr(),
-                                            bias.data_ptr(), int(round_dt is not None),
-                                            out.data_ptr(), _ptr(cnt), _stream(y)),
-               "bn_train_apply_launch")
-    apply_launches += 1
+    _build.launch("bn_train_apply", _APPLY, y, y.data_ptr(), groups, K, C, stats.data_ptr(),
+                  bias.data_ptr(), int(round_dt is not None), out.data_ptr(), _ptr(cnt))
     return (out, cnt) if K else out
 
 
@@ -280,7 +244,6 @@ def layer_bwd_sums(y, g, stats, bias, round_g, world: int, K: int = 0, out=None,
                    cnt=None):
     """-> (dscale, dbias) of the rank's rows and the coefficients (3, C) of
     the global batch's."""
-    global bwd_sums_launches
     rows, C = y.shape
     n = rows * world
     if not kernels_admit(y, round_g):
@@ -289,45 +252,34 @@ def layer_bwd_sums(y, g, stats, bias, round_g, world: int, K: int = 0, out=None,
         if world > 1:
             dist.all_reduce(sums)
         return grads, bwd_finalize_plain(sums, stats, n)
-    lib = _lib()
     groups = rows // K if K else rows
-    part = torch.empty((lib.bn_train_partials(groups, C), 2 * C), dtype=torch.float64,
-                       device=y.device)
+    part = torch.empty((_PARTIALS(groups, C), 2 * C), dtype=torch.float64, device=y.device)
     dscale = torch.empty(C, dtype=torch.float32, device=y.device)
     dbias = torch.empty(C, dtype=torch.float32, device=y.device)
     coef = torch.empty((3, C), dtype=torch.float32, device=y.device)
     sums = torch.empty(2 * C, dtype=torch.float64, device=y.device) if world > 1 else None
-    with trace.span("bn_train_bwd_sums"):
-        _check(lib.bn_train_bwd_sums_launch(
-            y.data_ptr(), g.data_ptr(), groups, K, C, stats.data_ptr(), bias.data_ptr(),
-            _ptr(out), _ptr(cnt), int(round_g is not None), part.data_ptr(), float(n),
-            dscale.data_ptr(), dbias.data_ptr(), _ptr(sums),
-            None if world > 1 else coef.data_ptr(), _stream(y)),
-            "bn_train_bwd_sums_launch")
-        if world > 1:
-            dist.all_reduce(sums)
-            _check(lib.bn_train_bwd_finalize_launch(sums.data_ptr(), C, float(n),
-                                                    stats.data_ptr(), coef.data_ptr(),
-                                                    _stream(y)), "bn_train_bwd_finalize_launch")
-    bwd_sums_launches += 1
+    _build.launch("bn_train_bwd_sums", _BWD_SUMS, y, y.data_ptr(), g.data_ptr(), groups, K, C,
+                  stats.data_ptr(), bias.data_ptr(), _ptr(out), _ptr(cnt),
+                  int(round_g is not None), part.data_ptr(), float(n), dscale.data_ptr(),
+                  dbias.data_ptr(), _ptr(sums), None if world > 1 else coef.data_ptr())
+    if world > 1:
+        dist.all_reduce(sums)
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        _build.check(_BWD_FINALIZE(sums.data_ptr(), C, float(n), stats.data_ptr(),
+                                   coef.data_ptr(), stream), _BWD_FINALIZE.symbol)
     return (dscale, dbias), coef
 
 
 def layer_bwd_apply(y, g, stats, bias, coef, round_g, K: int = 0, out=None, cnt=None):
     """-> dy (rows, C) f32."""
-    global bwd_apply_launches
     if not kernels_admit(y, round_g):
         return bwd_apply_plain(y, g, stats, bias, coef, round_g, K, out, cnt)
     rows, C = y.shape
     groups = rows // K if K else rows
     dy = torch.empty_like(y)
-    with trace.span("bn_train_bwd_apply"):
-        _check(_lib().bn_train_bwd_apply_launch(
-            y.data_ptr(), g.data_ptr(), groups, K, C, stats.data_ptr(), bias.data_ptr(),
-            coef.data_ptr(), _ptr(out), _ptr(cnt), int(round_g is not None), dy.data_ptr(),
-            _stream(y)),
-            "bn_train_bwd_apply_launch")
-    bwd_apply_launches += 1
+    _build.launch("bn_train_bwd_apply", _BWD_APPLY, y, y.data_ptr(), g.data_ptr(), groups, K, C,
+                  stats.data_ptr(), bias.data_ptr(), coef.data_ptr(), _ptr(out), _ptr(cnt),
+                  int(round_g is not None), dy.data_ptr())
     return dy
 
 
@@ -340,7 +292,6 @@ class BNTrainStack(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, setup, *params):
-        global plain_layers
         reduce_max, dt, momentum, world, running = setup
         n_layers, rd = len(params) // 3, narrow(dt)
         K = x.shape[-2] if reduce_max else 0
@@ -351,7 +302,8 @@ class BNTrainStack(torch.autograd.Function):
             wr = _round(w, dt)
             y = a @ wr
             st = layer_stats(y, scale, *running[i], momentum, world)
-            plain_layers += y.is_cuda and not kernels_admit(y, rd)
+            if y.is_cuda and not kernels_admit(y, rd):
+                counts.add("bn_train_plain")
             ys.append(y)
             stats.append(st)
             wrs.append(wr)

@@ -24,15 +24,12 @@ import functools
 
 import torch
 
-from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch import _build
 from pointrcnn_tpu_torch.ops.common import sm_count
 
 # most points per row whose xyz stays in one block's shared memory (1024
 # threads, 16 points a thread); longer rows take the wide kernels
 MAX_N = 16384
-
-launches = 0
-ffps_launches = 0
 
 # blocks of a K9 cluster (a row's table is spread over their shared memory)
 FFPS_CLUSTER = 8
@@ -79,39 +76,18 @@ def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """``fps_launch`` of the library (built at first use), its argument
-    types set once: the forward is host-paced, and a launch's host time
-    counts."""
-    from pointrcnn_tpu_torch import _build
-
-    fn = _build.load("fps", _build.NO_FMAD).fps_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _wide_kernel():
-    """``fps_wide_launch`` (rows of more than ``MAX_N`` points)."""
-    from pointrcnn_tpu_torch import _build
-
-    fn = _build.load("fps", _build.NO_FMAD).fps_wide_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+P, I = ctypes.c_void_p, ctypes.c_int
+_FPS = _build.Entry("fps", "fps_launch", (P, I, I, I, P, I, I, P))
+# rows of more than MAX_N points
+_FPS_WIDE = _build.Entry("fps", "fps_wide_launch", (P, I, I, I, P, P, P))
+_FFPS = _build.Entry("fps", "ffps_launch", (P, I, I, I, I, I, I, P, P))
+_STEP_PROBE = _build.Entry("fps", "fps_step_probe", (P, I, P, P))
 
 
 def _launch(xyz: torch.Tensor, npoint: int,
             shape_plan: tuple[int, int] | None = None) -> torch.Tensor:
     """The kernel on a CUDA tensor; ``shape_plan`` overrides :func:`plan`
     (for measuring the alternatives)."""
-    from pointrcnn_tpu_torch import _build
-
-    global launches
     if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[2] != 3:
         raise ValueError(f"fps: need (B, N, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")
     B, N, _ = xyz.shape
@@ -119,20 +95,14 @@ def _launch(xyz: torch.Tensor, npoint: int,
         raise ValueError(f"fps: need 1 <= npoint <= N, got npoint={npoint} N={N}")
     xyz = xyz.contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    stream = torch.cuda.current_stream(xyz.device).cuda_stream
     if N > MAX_N:
         # the running minima of a row past a cluster's reach
         mind = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
-        with trace.span("fps"):
-            _build.check(_wide_kernel()(xyz.data_ptr(), B, N, npoint, out.data_ptr(),
-                                        mind.data_ptr(), stream), "fps_wide_launch")
-        launches += 1
+        _build.launch("fps", _FPS_WIDE, xyz, xyz.data_ptr(), B, N, npoint, out.data_ptr(),
+                      mind.data_ptr())
         return out
     wpr, rpb = plan(B, N, sm_count(xyz.device)) if shape_plan is None else shape_plan
-    with trace.span("fps"):
-        _build.check(_kernel()(xyz.data_ptr(), B, N, npoint, out.data_ptr(), wpr, rpb, stream),
-                     "fps_launch")
-    launches += 1
+    _build.launch("fps", _FPS, xyz, xyz.data_ptr(), B, N, npoint, out.data_ptr(), wpr, rpb)
     return out
 
 
@@ -149,17 +119,12 @@ def step_probe_ms(steps: int) -> float:
     """Device ms of one launch of the latency probe (``fps_step_probe`` in
     ``csrc/fps.cu``): one warp, ``steps`` dependent FPS steps over 32
     seeded points (needs a card)."""
-    from pointrcnn_tpu_torch import _build
-
     g = torch.Generator().manual_seed(0)
     xyz = torch.rand((32, 3), generator=g).cuda()
     out = torch.empty(1, dtype=torch.int32, device=xyz.device)
-    fn = _build.load("fps", _build.NO_FMAD).fps_step_probe
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    launch = lambda: _build.check(fn(xyz.data_ptr(), steps, out.data_ptr(), stream),
-                                  "fps_step_probe")
+    launch = lambda: _build.check(_STEP_PROBE(xyz.data_ptr(), steps, out.data_ptr(), stream),
+                                  _STEP_PROBE.symbol)
     launch()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -209,32 +174,15 @@ def feature_fps_plain(rows: torch.Tensor, npoint: int, start: int = 0,
     return out + start
 
 
-@functools.lru_cache(maxsize=None)
-def _ffps_kernel():
-    """``ffps_launch`` of the library, its argument types set once."""
-    from pointrcnn_tpu_torch import _build
-
-    fn = _build.load("fps", _build.NO_FMAD).ffps_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch_ffps(rows: torch.Tensor, npoint: int, start: int, n: int) -> torch.Tensor:
-    from pointrcnn_tpu_torch import _build
-
-    global ffps_launches
     B, N, D = rows.shape
     if not ffps_supported(n, D):
         raise ValueError(f"feature_fps: a range of {n} rows of {D} values is past K9's "
                          f"shared memory ({FFPS_CLUSTER} blocks a row)")
     rows = rows.contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=rows.device)
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
-    with trace.span("ffps"):
-        _build.check(_ffps_kernel()(rows.data_ptr(), B, N, start, n, D, npoint,
-                                    out.data_ptr(), stream), "ffps_launch")
-    ffps_launches += 1
+    _build.launch("ffps", _FFPS, rows, rows.data_ptr(), B, N, start, n, D, npoint,
+                  out.data_ptr())
     return out
 
 

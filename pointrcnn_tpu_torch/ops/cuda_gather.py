@@ -37,11 +37,8 @@ import functools
 
 import torch
 
-from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch import _build
 from pointrcnn_tpu_torch.ops.common import gather_points, split_hilo
-
-launches = 0
-bwd_launches = 0
 
 # the TPU predicate's range of table sizes and its VMEM chunk rule
 # (pallas_gather.py:48-66, :183-198)
@@ -92,28 +89,19 @@ def group_points_backward_plain(idx, ct, N: int):
     return dtable.reshape(B, N, cout), -acc
 
 
-@functools.lru_cache(maxsize=None)
-def _kernels():
-    """The library's launchers (built at first use), their argument types
-    set once: a launch's host time counts where the card is idle."""
-    from pointrcnn_tpu_torch import _build
-
-    lib = _build.load("gather", _build.NO_FMAD)
-    fwd, bwd, size = (lib.group_gather_launch, lib.group_gather_bwd_launch,
-                      lib.group_gather_bwd_workspace_ints)
-    fwd.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
-    bwd.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
-    fwd.restype = bwd.restype = ctypes.c_int
-    size.argtypes, size.restype = [ctypes.c_int] * 5, ctypes.c_longlong
-    return fwd, bwd, size
+P, I = ctypes.c_void_p, ctypes.c_int
+_GATHER = _build.Entry("gather", "group_gather_launch", (P, P, I, P, P, I, I, I, I, I, P, P))
+_GATHER_BWD = _build.Entry("gather", "group_gather_bwd_launch",
+                           (P, P, I, I, I, I, I, P, P, P, P))
+_WORKSPACE_INTS = _build.Entry("gather", "group_gather_bwd_workspace_ints", (I,) * 5,
+                               ctypes.c_longlong)
 
 
 @functools.lru_cache(maxsize=None)
 def _workspace_ints(B: int, N: int, S: int, K: int, cout: int) -> int:
     """K8's scratch: the sorted positions, the buckets' starts and counts,
     and a copy of the cotangent's first three channels."""
-    return _kernels()[2](B, N, S, K, cout)
+    return _WORKSPACE_INTS(B, N, S, K, cout)
 
 
 def _launch(xyz, features, new_xyz, idx):
@@ -121,9 +109,6 @@ def _launch(xyz, features, new_xyz, idx):
     Nothing is read back to the host, so the launch can be captured in a CUDA
     graph: an index outside [0, N) makes the kernel print it and trap, and
     the fault surfaces as a CUDA error at the next synchronising call."""
-    from pointrcnn_tpu_torch import _build
-
-    global launches
     B, N, C = features.shape
     S, K = idx.shape[1], idx.shape[2]
     if (xyz.shape != (B, N, 3) or new_xyz.shape != (B, S, 3) or idx.shape[0] != B
@@ -141,22 +126,15 @@ def _launch(xyz, features, new_xyz, idx):
              else features.to(torch.bfloat16)).contiguous()
     cent = new_xyz.contiguous()
     out = torch.empty((B, S, K, 3 + C), dtype=torch.bfloat16, device=xyz.device)
-    stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    fwd = _kernels()[0]
-    with trace.span("group_gather"):
-        _build.check(fwd(xyz.data_ptr(), feats.data_ptr(), int(feats.dtype == torch.bfloat16),
-                         cent.data_ptr(), idx.data_ptr(), B, N, S, K, C, out.data_ptr(),
-                         stream), "group_gather_launch")
-    launches += 1
+    _build.launch("group_gather", _GATHER, xyz, xyz.data_ptr(), feats.data_ptr(),
+                  int(feats.dtype == torch.bfloat16), cent.data_ptr(), idx.data_ptr(), B, N, S, K,
+                  C, out.data_ptr())
     return out
 
 
 def _launch_bwd(idx, ct, N: int):
     """K8 on CUDA tensors: idx (B, S, K) int32 with values in [0, N) (the
     forward checked them), ct (B, S, K, 3 + C) -> (dtable, dcent) f32."""
-    from pointrcnn_tpu_torch import _build
-
-    global bwd_launches
     B, S, K, cout = ct.shape
     if idx.shape != (B, S, K) or idx.dtype != torch.int32 or not idx.is_contiguous():
         raise ValueError(f"group_points backward: idx {tuple(idx.shape)} {idx.dtype} "
@@ -167,13 +145,8 @@ def _launch_bwd(idx, ct, N: int):
     dtable = torch.empty((B, N, cout), dtype=torch.float32, device=ct.device)
     dcent = torch.empty((B, S, 3), dtype=torch.float32, device=ct.device)
     work = torch.empty(_workspace_ints(B, N, S, K, cout), dtype=torch.int32, device=ct.device)
-    stream = torch.cuda.current_stream(ct.device).cuda_stream
-    bwd = _kernels()[1]
-    with trace.span("gather_backward"):
-        _build.check(bwd(idx.data_ptr(), ctb.data_ptr(), B, N, S, K, cout, work.data_ptr(),
-                         dtable.data_ptr(), dcent.data_ptr(), stream),
-                     "group_gather_bwd_launch")
-    bwd_launches += 1
+    _build.launch("gather_backward", _GATHER_BWD, ct, idx.data_ptr(), ctb.data_ptr(), B, N, S, K,
+                  cout, work.data_ptr(), dtable.data_ptr(), dcent.data_ptr())
     return dtable, dcent
 
 

@@ -14,10 +14,8 @@ import functools
 
 import torch
 
-from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch import _build
 from pointrcnn_tpu_torch.ops.common import sm_count, sqrt_rn
-
-launches = 0
 
 # threads a block of the kernel
 _THREADS = 256
@@ -65,28 +63,14 @@ def plan(batch: int, n: int, sms: int) -> tuple[int, int]:
     return u, g
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """``three_nn_launch`` of the library (built at first use), its
-    argument types set once: the forward is host-paced, and a launch's host
-    time counts."""
-    from pointrcnn_tpu_torch import _build
-
-    fn = _build.load("knn", _build.NO_FMAD).three_nn_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+P, I = ctypes.c_void_p, ctypes.c_int
+_THREE_NN = _build.Entry("knn", "three_nn_launch", (P, P, I, I, I, P, P, I, I, P))
 
 
 def _launch(unknown: torch.Tensor, known: torch.Tensor,
             shape_plan: tuple[int, int] | None = None):
     """The kernel on CUDA tensors; ``shape_plan`` overrides :func:`plan`
     (for measuring the alternatives)."""
-    from pointrcnn_tpu_torch import _build
-
-    global launches
     for name, t in (("unknown", unknown), ("known", known)):
         if t.dtype != torch.float32 or t.dim() != 3 or t.shape[2] != 3:
             raise ValueError(f"three_nn: {name} must be (B, n, 3) float32, "
@@ -99,11 +83,8 @@ def _launch(unknown: torch.Tensor, known: torch.Tensor,
     dist = torch.empty((B, n, 3), dtype=torch.float32, device=unknown.device)
     idx = torch.empty((B, n, 3), dtype=torch.int32, device=unknown.device)
     u, g = plan(B, n, sm_count(unknown.device)) if shape_plan is None else shape_plan
-    stream = torch.cuda.current_stream(unknown.device).cuda_stream
-    with trace.span("three_nn"):
-        _build.check(_kernel()(unknown.data_ptr(), known.data_ptr(), B, n, m,
-                               dist.data_ptr(), idx.data_ptr(), u, g, stream), "three_nn_launch")
-    launches += 1
+    _build.launch("three_nn", _THREE_NN, unknown, unknown.data_ptr(), known.data_ptr(), B, n, m,
+                  dist.data_ptr(), idx.data_ptr(), u, g)
     return dist, idx
 
 

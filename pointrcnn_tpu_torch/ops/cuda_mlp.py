@@ -58,12 +58,9 @@ import functools
 
 import torch
 
-from pointrcnn_tpu_torch import trace
+from pointrcnn_tpu_torch import _build
 from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.ops.common import gather_points, split_hilo
-
-launches = 0
-bwd_launches = 0
 
 # dispatch constants of the TPU predicates (pallas_mlp.py), kept so the port
 # routes every stage as the TPU does; tests may lower them
@@ -338,40 +335,37 @@ def _layer_args(table, ws, bs):
     return n_layers, widths, w_all, b_all, (ctypes.c_int * n_layers)(*widths)
 
 
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD = _build.Entry("mlp", "fused_group_mlp_launch",
+                    (I,) + (P,) * 5 + (I,) * 5 + (P,) * 5 + (LL, P))
+_BWD = _build.Entry("mlp", "fused_group_mlp_bwd_launch",
+                    (I,) + (P,) * 5 + (I,) * 6 + (P,) * 11 + (I,) + (P,) * 4 + (LL, P))
+_SCRATCH = _build.Entry("mlp", "fused_group_mlp_scratch", (I,) * 5 + (P,), LL)
+_FORCE_GLOBAL = _build.Entry("mlp", "fused_group_mlp_force_global", (I,), None)
+_GRAD_SIZE = _build.Entry("mlp", "fused_group_mlp_grad_size", (I, P))
+_BWD_GRID = _build.Entry("mlp", "fused_group_mlp_bwd_grid", (I,) * 5 + (P,) * 2)
+
+
 @functools.lru_cache(maxsize=None)
 def _scratch_bytes(fold: int, B: int, S: int, kp: int, widths: tuple, device: int) -> int:
     """The forward's global scratch at a shape (0: its plan keeps the
     activations in shared memory; -1: no plan fits), on ``device``'s SM
     count; remembered, since a launch's host time counts."""
-    from pointrcnn_tpu_torch import _build
-
-    fn = _build.load("mlp", _build.NO_FMAD).fused_group_mlp_scratch
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_longlong
     with torch.cuda.device(device):
-        return fn(fold, B, S, kp, len(widths), (ctypes.c_int * len(widths))(*widths))
+        return _SCRATCH(fold, B, S, kp, len(widths), (ctypes.c_int * len(widths))(*widths))
 
 
 def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
     """The forward kernel on CUDA tensors; ``checked`` idx comes from
     :func:`pad_idx` already."""
-    from pointrcnn_tpu_torch import _build
-
-    global launches
     _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx)
     B, N, _ = table.shape
     S = idx.shape[1]
     table, cent = table.contiguous(), cent.contiguous()
     n_layers, widths, w_all, b_all, c_widths = _layer_args(table, ws, bs)
-    lib = _build.load("mlp", _build.NO_FMAD)
-    fn = lib.fused_group_mlp_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     xyz_c = xyz.contiguous() if not fold else None
     w0x_c = w0x.contiguous() if not fold else None
     _check_aligned(table, cent)
-    stream = torch.cuda.current_stream(table.device).cuda_stream
     # the index check waits for the card: everything else is ready first, so
     # the launch follows it at once
     if not checked:
@@ -385,14 +379,11 @@ def _launch(fold, table, xyz, cent, w0x, ws, bs, idx, checked: bool = False):
         raise ValueError(f"fused_group_mlp: widths {widths} at K={kp} fit no plan of the kernel")
     scratch = (torch.empty((scratch_bytes,), dtype=torch.uint8, device=table.device)
                if scratch_bytes else None)
-    with trace.span("fused_group_mlp_max"):
-        err = fn(int(fold), table.data_ptr(), 0 if fold else xyz_c.data_ptr(),
-                 cent.data_ptr(), 0 if fold else w0x_c.data_ptr(),
-                 idx.data_ptr(), B, N, S, kp, n_layers, w_all.data_ptr() if ws else 0,
-                 b_all.data_ptr(), c_widths, out.data_ptr(),
-                 scratch.data_ptr() if scratch_bytes else 0, scratch_bytes, stream)
-    _build.check(err, "fused_group_mlp_launch")
-    launches += 1
+    _build.launch("fused_group_mlp_max", _FWD, table, int(fold), table.data_ptr(),
+                  0 if fold else xyz_c.data_ptr(), cent.data_ptr(),
+                  0 if fold else w0x_c.data_ptr(), idx.data_ptr(), B, N, S, kp, n_layers,
+                  w_all.data_ptr() if ws else 0, b_all.data_ptr(), c_widths, out.data_ptr(),
+                  scratch.data_ptr() if scratch_bytes else 0, scratch_bytes)
     return out
 
 
@@ -401,16 +392,12 @@ def global_plan():
     """Every launch inside takes the kernels' global plan (activations in
     global memory, every product staged), whatever else fits: the plans must
     compute the same bits (needs a card)."""
-    from pointrcnn_tpu_torch import _build
-
-    fn = _build.load("mlp", _build.NO_FMAD).fused_group_mlp_force_global
-    fn.argtypes, fn.restype = [ctypes.c_int], None
-    fn(1)
+    _FORCE_GLOBAL(1)
     _scratch_bytes.cache_clear()
     try:
         yield
     finally:
-        fn(0)
+        _FORCE_GLOBAL(0)
         _scratch_bytes.cache_clear()
 
 
@@ -436,9 +423,6 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     forward's checked and padded index tensor (:func:`pad_idx`), ``K`` the
     real neighbour count, ``out`` the forward's (B, S, CoutP) output, ``ct``
     its cotangent -> as :func:`fused_group_backward_plain`."""
-    from pointrcnn_tpu_torch import _build
-
-    global bwd_launches
     _check_operands(fold, table, xyz, cent, w0x, ws, bs, idx, backward=True)
     B, N, f0p = table.shape
     S, kp = idx.shape[1], idx.shape[2]
@@ -454,16 +438,9 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     out = out.to(torch.float32).contiguous()
     ct = ct.to(torch.float32).contiguous()
     dev = table.device
-    lib = _build.load("mlp", _build.NO_FMAD)
-    size_fn = lib.fused_group_mlp_grad_size
-    size_fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    size_fn.restype = ctypes.c_int
-    size = size_fn(n_layers, c_widths)
-    grid_fn = lib.fused_group_mlp_bwd_grid
-    grid_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-    grid_fn.restype = ctypes.c_int
+    size = _GRAD_SIZE(n_layers, c_widths)
     scratch_bytes = ctypes.c_longlong(0)
-    grid = grid_fn(int(fold), B, S, kp, n_layers, c_widths, ctypes.byref(scratch_bytes))
+    grid = _BWD_GRID(int(fold), B, S, kp, n_layers, c_widths, ctypes.byref(scratch_bytes))
     if grid < 0:
         raise ValueError(f"fused_group_mlp backward: widths {widths} at K={kp} fit no plan of "
                          f"the kernel")
@@ -482,28 +459,19 @@ def _launch_bwd(fold, table, xyz, cent, w0x, ws, bs, idx, K: int, out, ct):
     drel = None if fold else torch.empty((B, S, kp, 3), dtype=torch.bfloat16, device=dev)
     part = torch.zeros((grid, size), dtype=torch.float32, device=dev)
     grads = torch.empty((size,), dtype=torch.float32, device=dev)
-    fn = lib.fused_group_mlp_bwd_launch
     scratch = (torch.empty((scratch_bytes.value,), dtype=torch.uint8, device=dev)
                if scratch_bytes.value else None)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_longlong, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
     xyz_c = None if fold else xyz.contiguous()
     w0x_c = None if fold else w0x.contiguous()
-    with trace.span("fused_group_mlp_backward"):
-        err = fn(int(fold), table.data_ptr(), 0 if fold else xyz_c.data_ptr(),
-                 cent.data_ptr(), 0 if fold else w0x_c.data_ptr(), idx.data_ptr(),
-                 B, N, S, kp, K, n_layers, w_all.data_ptr() if ws else 0, b_all.data_ptr(),
-                 c_widths, out.data_ptr(), ct.data_ptr(), dz0.data_ptr(),
-                 0 if fold else drel.data_ptr(), dtable.data_ptr(),
-                 0 if fold else dxyz.data_ptr(), dcent.data_ptr(), part.data_ptr(), grid,
-                 grads.data_ptr(), _nomatch_counter(dev).data_ptr(),
-                 cnt.data_ptr() if span else 0,
-                 scratch.data_ptr() if scratch is not None else 0, scratch_bytes.value, stream)
-    _build.check(err, "fused_group_mlp_bwd_launch")
-    bwd_launches += 1
+    _build.launch("fused_group_mlp_backward", _BWD, table, int(fold), table.data_ptr(),
+                  0 if fold else xyz_c.data_ptr(), cent.data_ptr(),
+                  0 if fold else w0x_c.data_ptr(), idx.data_ptr(), B, N, S, kp, K, n_layers,
+                  w_all.data_ptr() if ws else 0, b_all.data_ptr(), c_widths, out.data_ptr(),
+                  ct.data_ptr(), dz0.data_ptr(), 0 if fold else drel.data_ptr(),
+                  dtable.data_ptr(), 0 if fold else dxyz.data_ptr(), dcent.data_ptr(),
+                  part.data_ptr(), grid, grads.data_ptr(), _nomatch_counter(dev).data_ptr(),
+                  cnt.data_ptr() if span else 0,
+                  scratch.data_ptr() if scratch is not None else 0, scratch_bytes.value)
     # the partial layout of csrc/mlp.cu (grad_layout)
     off, dws, dbs = 0, [], []
     for j in range(1, n_layers):

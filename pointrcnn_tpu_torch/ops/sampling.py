@@ -5,12 +5,13 @@
 depth bands and runs the exact chain per band for ``npoint / s`` picks.
 Every chain runs the FPS kernel (its plain version for CPU tensors).
 
-:func:`sample_points` runs a stage's sampler spec (3DSSD's, after
-mmdetection3d's ``Points_Sampler``): a list of :class:`Sampler`, each over
-the row range from where the previous one ended, its indices concatenated:
-``D-FPS`` (the exact chain over xyz, K1), ``F-FPS`` (over concat(xyz,
-features), K9) or ``FS`` (fusion sampling: the F-FPS and the D-FPS picks of
-the same range, in that order, ``2 * npoint`` indices).
+:func:`sample_points` runs a stage's sampler spec (after mmdetection3d's
+``Points_Sampler``): a list of :class:`Sampler`, each over the row range
+from where the previous one ended, its indices concatenated: ``D-FPS``
+(FPS over xyz by the sampler's method, K1), ``F-FPS`` (the exact chain over
+concat(xyz, features), K9) or ``FS`` (fusion sampling: the F-FPS and the
+exact D-FPS picks of the same range, in that order, ``2 * npoint``
+indices).  A PointRCNN stage's spec is one full-range ``D-FPS`` sampler.
 """
 
 from __future__ import annotations
@@ -22,9 +23,12 @@ import torch
 from pointrcnn_tpu_torch.ops import cuda_fps
 
 
+FPS_METHODS = ("exact", "blockwise")
+
+
 def furthest_point_sample(xyz: torch.Tensor, npoint: int, method: str = "exact") -> torch.Tensor:
     """(B, N, 3) -> (B, npoint) int32 indices."""
-    if method not in ("exact", "blockwise"):
+    if method not in FPS_METHODS:
         raise ValueError(f"fps method must be 'exact'|'blockwise', got {method!r}")
     B, N, _ = xyz.shape
     if method == "blockwise":
@@ -79,15 +83,21 @@ class Sampler:
     """One sampler of a stage's spec: ``mode`` (``SAMPLER_MODES``),
     ``npoint`` picks (``FS``: that many of each kind) over the rows from the
     previous sampler's end to ``end`` (-1: the last row; mmdetection3d's
-    ``fps_sample_range_list``)."""
+    ``fps_sample_range_list``); ``method``, the D-FPS method
+    (``FPS_METHODS``: ``blockwise`` for ``D-FPS`` only)."""
 
     mode: str
     npoint: int
     end: int = -1
+    method: str = "exact"
 
     def __post_init__(self):
         if self.mode not in SAMPLER_MODES:
             raise ValueError(f"sampler mode must be one of {SAMPLER_MODES}, got {self.mode!r}")
+        if self.method not in FPS_METHODS:
+            raise ValueError(f"fps method must be 'exact'|'blockwise', got {self.method!r}")
+        if self.method == "blockwise" and self.mode != "D-FPS":
+            raise ValueError(f"the blockwise method is D-FPS's only, not {self.mode}'s")
 
     @property
     def picks(self) -> int:
@@ -119,7 +129,8 @@ def sample_points(xyz: torch.Tensor, features, spec) -> torch.Tensor:
             parts.append(cuda_fps.feature_fps(rows, s.npoint, start, end))
         if s.mode in ("D-FPS", "FS"):
             sub = xyz if (start, end) == (0, N) else xyz[:, start:end]
-            parts.append(cuda_fps.furthest_point_sample(sub, s.npoint) + start)
+            idx = furthest_point_sample(sub, s.npoint, method=s.method)
+            parts.append(idx + start if start else idx)
         out += parts
         start = end
     return torch.cat(out, dim=1) if len(out) > 1 else out[0]

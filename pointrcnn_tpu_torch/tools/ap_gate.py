@@ -50,18 +50,6 @@ def build_fixture(root, num_samples=24, seed=3, n_points=1100,
     return root
 
 
-def launch_counts() -> dict:
-    """The kernels' launch counters, by kernel."""
-    from pointrcnn_tpu_torch.ops import cuda_ballquery, cuda_fps, cuda_gather, cuda_knn, cuda_mlp
-
-    return {"fps": cuda_fps.launches, "three_nn": cuda_knn.launches,
-            "group_gather": cuda_gather.launches, "gather_backward": cuda_gather.bwd_launches,
-            "fused_group_mlp_max": cuda_mlp.launches,
-            "fused_group_mlp_backward": cuda_mlp.bwd_launches,
-            "ball_query": cuda_ballquery.launches,
-            "ball_query_banded": cuda_ballquery.banded_launches}
-
-
 def run_gate(work=WORK, rpn_epochs=250, rcnn_epochs=160, num_samples=24,
              batch_size=4, fresh=False, set_cfgs=None, n_points=1100,
              pts_per_obj=300, cfg_file=AP_CFG, classes=("Car", "Car"), device="cuda",
@@ -141,12 +129,14 @@ def main(argv=None) -> dict:
     cfg_file, classes = AP_CFG, ("Car", "Car")
     if args.people:
         cfg_file, classes = AP_CFG_PEOPLE, ("Pedestrian", "Cyclist")
-    before = launch_counts()
+    from pointrcnn_tpu_torch.ops import counts
+
+    before = counts.read()
     ret = run_gate(args.work, args.rpn_epochs, args.rcnn_epochs, args.num_samples,
                    args.batch_size, fresh=args.fresh, set_cfgs=set_cfgs, n_points=n_points,
                    pts_per_obj=pts_per_obj, cfg_file=cfg_file, classes=classes,
                    device=args.device, seed=args.seed)
-    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    launches = {k: v - before[k] for k, v in counts.read().items()}
     print(json.dumps({**ret, "launches": launches}), flush=True)
     return ret
 

@@ -79,11 +79,11 @@ def main(argv=None) -> dict:
     p.add_argument("--work", type=str, default=WORK)
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
-    from pointrcnn_tpu_torch.tools.ap_gate import launch_counts
+    from pointrcnn_tpu_torch.ops import counts
 
-    before = launch_counts()
+    before = counts.read()
     ret = run(args.work, args.device)
-    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    launches = {k: v - before[k] for k, v in counts.read().items()}
     print(json.dumps({**ret, "record": record_ap(), "launches": launches}), flush=True)
     return ret
 

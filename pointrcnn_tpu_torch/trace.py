@@ -25,9 +25,10 @@ The names follow the layer map: ``eval.step`` and ``train.step`` (roots),
 ``eval.postprocess``, the train step's phases (``train.state.phase``,
 ``models.point_rcnn.phase``), 3DSSD's eval step (``ssd3d.step``, a root,
 with ``ssd3d.SA1``..., ``ssd3d.vote``, ``ssd3d.vote_aggregation``,
-``ssd3d.head``, ``ssd3d.decode`` and ``ops.ball_query_exact`` around each
-exact ball query), and each kernel's launch under its counter's name
-(``ops.counts.COUNTERS``).
+``ssd3d.head``, ``ssd3d.decode``), ``ops.ball_query_<method>`` around each
+SA-MSG stage's ball query (``ops.ball_query_exact`` in 3DSSD), and each
+kernel's launch under its counter's name (``ops.counts.COUNTERS``, opened by
+``_build.launch`` around the C call).
 """
 
 from __future__ import annotations

@@ -20,6 +20,8 @@ import threading
 
 import numpy as np
 
+from pointrcnn_tpu_torch._build import bind
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "host_ops.cpp")
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -77,17 +79,16 @@ def get_lib():
         f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-        lib.points_in_boxes3d.argtypes = [f32p, i64, f32p, i64, u8p]
-        lib.roipool3d_cpu.argtypes = [f32p, f32p, i64, i64, f32p, i64, i64, f32p, u8p]
-        lib.bev_overlap.argtypes = [f32p, i64, f32p, i64, f32p]
-        lib.ap_match_scores.argtypes = [
-            f64p, f64p, i64p, i64p, i64, i64, f64, f64p,
-        ]
-        lib.ap_match_scores.restype = i64
-        lib.ap_compute_pr.argtypes = [
-            f64p, f64p, f64p, f64p, f64p, i64p, i64p,
-            i64, i64, i64, i64, f64, f64p, i64, i64, f64p,
-        ]
+        for symbol, argtypes, restype in (
+                ("points_in_boxes3d", [f32p, i64, f32p, i64, u8p], ctypes.c_int),
+                ("roipool3d_cpu", [f32p, f32p, i64, i64, f32p, i64, i64, f32p, u8p],
+                 ctypes.c_int),
+                ("bev_overlap", [f32p, i64, f32p, i64, f32p], ctypes.c_int),
+                ("ap_match_scores", [f64p, f64p, i64p, i64p, i64, i64, f64, f64p], i64),
+                ("ap_compute_pr", [f64p, f64p, f64p, f64p, f64p, i64p, i64p,
+                                   i64, i64, i64, i64, f64, f64p, i64, i64, f64p],
+                 ctypes.c_int)):
+            bind(lib, symbol, argtypes, restype)
         _lib = lib
         return _lib
 

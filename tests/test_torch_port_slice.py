@@ -166,6 +166,8 @@ def _run_both(monkeypatch, cfg, pts):
              cuda_ballquery, "ball_query_multi_grouped")):
         _record(monkeypatch, jmod, jname, jlog[key], jbusy)
         _record(monkeypatch, tmod, tname, tlog[key], tbusy)
+    # the port's SA-MSG stages sample through their sampler spec
+    _record(monkeypatch, tpointnet2, "sample_points", tlog["fps"], tbusy)
 
     def jax_forward(v, b):
         return jm.apply(v, b, train=False), jlog

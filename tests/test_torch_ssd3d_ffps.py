@@ -1,8 +1,9 @@
 """F-FPS (K9's plain version, ``ops/cuda_fps.py::feature_fps``) and the
 sampler specs (``ops/sampling.py``) on the CPU: exact picks against a
 brute-force loop over several row counts, widths and row ranges,
-constructed ties, the D-FPS case equal to K1's plain version, and fusion
-sampling's concatenation."""
+constructed ties, the D-FPS case equal to K1's plain version, fusion
+sampling's concatenation, a D-FPS sampler's method (PointRCNN's stages)
+and the specs a sampler refuses."""
 
 from __future__ import annotations
 
@@ -11,7 +12,13 @@ import pytest
 import torch
 
 from pointrcnn_tpu_torch.ops import cuda_fps
-from pointrcnn_tpu_torch.ops.sampling import Sampler, sample_points, sampler_spec
+from pointrcnn_tpu_torch.ops.sampling import (
+    Sampler,
+    _blockwise_stripes,
+    furthest_point_sample,
+    sample_points,
+    sampler_spec,
+)
 
 from test_torch_port_slice import one_torch_thread  # noqa: F401 (fixture)
 
@@ -104,3 +111,26 @@ def test_fusion_sampling_concatenates_in_order():
         np.testing.assert_array_equal(split[b, 8:].numpy(), brute_fps(r[:, :3], 8, 32, 64))
     with pytest.raises(ValueError):
         Sampler("X-FPS", 4)
+
+
+@pytest.mark.parametrize("method", ("exact", "blockwise"))
+def test_d_fps_sampler_takes_its_method(method):
+    """A full-range D-FPS sampler (a PointRCNN stage's spec) gives the
+    indices of ``furthest_point_sample`` by its method; 4096 points and 64
+    picks stripe blockwise FPS into 4 depth bands."""
+    assert _blockwise_stripes(4096, 64) == 4
+    xyz = _rows(2, 4096, 0, seed=9)
+    got = sample_points(xyz, None, (Sampler("D-FPS", 64, method=method),))
+    want = furthest_point_sample(xyz, 64, method=method)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if method == "blockwise":
+        assert not torch.equal(got, furthest_point_sample(xyz, 64))
+
+
+@pytest.mark.parametrize("mode,method", [("D-FPS", "stripes"), ("F-FPS", "blockwise"),
+                                         ("FS", "blockwise")])
+def test_sampler_refuses_a_method(mode, method):
+    """An unknown method, and the blockwise method past D-FPS, are refused
+    where the sampler is built."""
+    with pytest.raises(ValueError, match="method|blockwise"):
+        Sampler(mode, 8, method=method)

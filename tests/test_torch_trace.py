@@ -36,6 +36,9 @@ RCNN_TINY = TINY + ["TRAIN.RPN_PRE_NMS_TOP_N", "256", "TRAIN.RPN_POST_NMS_TOP_N"
                     "RCNN.ROI_PER_IMAGE", "16"]
 SA, FP = ["pointnet2.SA1", "pointnet2.SA2", "pointnet2.SA3"], \
     ["pointnet2.FP1", "pointnet2.FP2", "pointnet2.FP3"]
+# every SA stage's ball query (the tiny cloud takes none of the selection
+# kernels' xyz-only routes), by the RPN's method
+QUERY = {"ops.ball_query_approx": set(SA)}
 
 
 @pytest.fixture(autouse=True)
@@ -92,7 +95,7 @@ def test_eval_step_spans_nest():
             "ops.nms": {"models.proposal", "eval.postprocess"},
             "ops.roipool3d": {"eval.step"}, "models.rcnn": {"eval.step"},
             "eval.postprocess": {"eval.step"},
-            **{n: {"models.rpn"} for n in SA + FP}}
+            **{n: {"models.rpn"} for n in SA + FP}, **QUERY}
     assert parents == {**want, "eval.step": {None}}
     # two zones a frame in the proposal layer, one batched final NMS
     nms = [r for r in recs if r.name == "ops.nms" and r.root == roots[0].id]
@@ -122,7 +125,7 @@ def test_rcnn_train_step_spans_nest():
             "models.rpn": {"forward"}, "models.proposal": {"forward"},
             "ops.nms": {"models.proposal"}, "targets": {"forward"},
             "ops.roipool3d": {"targets"}, "models.rcnn": {"forward"},
-            **{n: {"models.rpn"} for n in SA + FP}}
+            **{n: {"models.rpn"} for n in SA + FP}, **QUERY}
     assert parents == want
     assert [r.name for r in recs if r.parent == "train.step"][:4] == [
         "forward", "loss + labels", "backward", "optimizer"]
@@ -149,8 +152,17 @@ def test_greedy_suppress_counts_jacobi_steps(chain, steps):
 
 def test_counts_read_keys_and_reset():
     before = counts.read()
-    assert list(before) == list(counts.COUNTERS)
+    assert isinstance(counts.COUNTERS, tuple) and list(before) == list(counts.COUNTERS)
+    # the launch counts' names in the order their readers print them, then
+    # the two route counts
+    assert counts.COUNTERS == (
+        "fps", "ffps", "three_nn", "group_gather", "fused_group_mlp_max", "ball_query",
+        "ball_query_banded", "ball_query_first_k", "gather_backward", "fused_group_mlp_backward",
+        "bn_train_stats", "bn_train_apply", "bn_train_bwd_sums", "bn_train_bwd_apply",
+        "bn_train_plain", "generic_grouped_train")
     assert all(isinstance(v, int) for v in before.values())
+    counts.add("generic_grouped_train")
+    assert counts.read()["generic_grouped_train"] == before["generic_grouped_train"] + 1
     with counts.sync("test.site", reads=2):
         pass
     with counts.sync("test.site"):

@@ -35,6 +35,7 @@ from pointrcnn_tpu_torch.data import object3d as tobject3d
 from pointrcnn_tpu_torch.data import rpn_dataset
 from pointrcnn_tpu_torch.data.kitti_dataset import png_size
 from pointrcnn_tpu_torch.data.rpn_dataset import load_gt_database
+from pointrcnn_tpu_torch.ops import counts
 from pointrcnn_tpu_torch.tools import ap_gate, fixture, generate_aug_scene, generate_gt_database
 from pointrcnn_tpu_torch.train.__main__ import main as train_main
 
@@ -163,7 +164,7 @@ def test_ap_gate_tool_on_cpu(tmp_path, capsys):
     ret = ap_gate.main(["--work", str(tmp_path), "--rpn_epochs", "1", "--rcnn_epochs", "1",
                         "--num_samples", "4", "--batch_size", "2", "--device", "cpu"])
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert printed.pop("launches") == dict.fromkeys(ap_gate.launch_counts(), 0)
+    assert printed.pop("launches") == dict.fromkeys(counts.read(), 0)
     assert printed == ret and ret["total_gt_bbox"] == 8 and "Car_3d_easy" in ret
     for stage, epoch in (("rpn", 1), ("rcnn", 1)):
         assert (tmp_path / stage / "ckpt" / f"checkpoint_epoch_{epoch}").is_file()
